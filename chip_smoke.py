@@ -3,22 +3,39 @@
 hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # the check, on one card
-    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one batch
+    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one
+                                     # yolov5s batch and one yolov3 batch (A)
 
 Phases, in order; any failure raises and the exit code is not 0:
   1. build     nvcc builds every tengine_tpu_torch/csrc/*.cu for sm_90a, one
                process per source, all started together.
   2. kernels   each kernel against its plain version on the card, on the
-               test grid and at the main path's shape; kernel, plain and
+               test grid (tests/test_torch_cuda.py) and at the main path's
+               largest launch shape of its kind; kernel, plain and
                library-call times (CUDA events) and the least time the card
                could take (bound).
   3. main path yolov5s 640x640 INT8 (MinMax), seed-0 weights: quantize_graph
                on the card with one seeded calibration image, compile_graph
-               at batch 8, 3 batches; every kernel's launch count is read
-               around this run.
+               at batch 8, one untimed forward, 3 timed batches. Then
+               yolov3 416x416 INT8 (MinMax, seed-0 weights) on the
+               integer-storage tier, one untimed and 3 timed batches of 8
+               under each of
+                 A  Options(quant_mode="fast", quant_bf16_storage=False):
+                    qconv_direct and qconv1x1
+                 B  A + pallas_qconv=False, pallas_qgemm=True: qgemm_requant
+                 C  A + pallas_qconv=False: every conv on the float64 fast
+                    lowering (timed only: the port's own "before").
+               Every kernel's launch count is set to 0 just before each
+               timed run and read just after; the counts must be exact.
   4. check     every head's dequantized cosine against the port's fp32 engine
-               > 0.95 (the gate of tests/test_yolov5.py), and within 1 LSB of
-               the port's CPU run on the first image.
+               (yolov5s > 0.95, the gate of tests/test_yolov5.py; yolov3
+               > 0.99); each net's card run (each yolov3 tier's) within
+               1 LSB of the port's CPU run on the first image; yolov3's B
+               and C heads against A's: within 1 LSB at img=64 batch 2, and
+               at 416 (where the two lowerings' host folds round a few
+               near-tie elements apart and the difference propagates) a
+               dequantized cosine > 0.99, the gate each tier meets against
+               fp32.
 
 The last lines are the kernels JSON, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Nothing here imports JAX or
@@ -32,11 +49,28 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same sheet
+
+# yolov3-416 batch 8: the largest launch of each kernel on the main path, by
+# bytes moved (from the IR: the stride-2 3x3 conv 104x104x128 -> 52x52x256,
+# the 1x1 conv 208x208x64 -> 32, the 1x1 conv 52x52x384 -> 128 of the third
+# head)
+YOLOV3_DIRECT = dict(N=8, H=104, C=128, O=256, k=3, s=2, pad=1)
+YOLOV3_1X1 = dict(M=8 * 208 * 208, K=64, N=32)
+YOLOV3_QGEMM = dict(M=8 * 52 * 52, K=384, N=128)
+# the integer-storage tiers of phase 3 and their launches per forward
+YOLOV3_TIERS = {
+    "A": (dict(), {"qconv_direct": 32, "qconv1x1": 37, "qgemm_requant": 0, "stem_qconv": 0}),
+    "B": (dict(pallas_qconv=False, pallas_qgemm=True),
+          {"qconv_direct": 0, "qconv1x1": 0, "qgemm_requant": 34, "stem_qconv": 0}),
+    "C": (dict(pallas_qconv=False),
+          {"qconv_direct": 0, "qconv1x1": 0, "qgemm_requant": 0, "stem_qconv": 0}),
+}
 
 
 def log(msg: str) -> None:
@@ -90,9 +124,39 @@ def stem_case(torch, k, mode, zp_w, B, H, seed, C=3, Cout=32):
     return args, dict(q, s_out=0.05)
 
 
+def kernel_entry(name, source, replaces, err, ms, plain_ms, moved, ops, library_ms):
+    """One kernel's entry of the kernels line (launches filled in by phase
+    3). Bound: the larger of bytes over the HBM rate and int8 operations over
+    the int8 tensor-core rate."""
+    t_bytes, t_ops = moved / H100_BYTES_PER_S * 1e3, ops / H100_INT8_OPS_PER_S * 1e3
+    entry = {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+    }
+    lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+    log(f"  {name} timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, "
+        f"bound {entry['bound_ms']:.4f} ms by {entry['bound_by']} ({moved} bytes, {ops} int8 ops)")
+    return entry
+
+
+def max_lsb(torch, got, want, what) -> int:
+    """Largest |kernel - plain| in LSB; raises above 1 (0 expected)."""
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs plain "
+                             f"{want.dtype} {tuple(want.shape)}")
+    d = (got.int() - want.int()).abs()
+    err = int(d.max().item())
+    log(f"  {what}: max|d|={err} LSB, {int((d > 0).sum())} of {d.numel()} elements differ")
+    if err > 1:
+        raise AssertionError(f"{what}: kernel disagrees with its plain version by {err} LSB")
+    return err
+
+
 def check_stem_kernel(torch):
-    """Phase 2 for the stem kernel. Returns its kernels-line entry (without
-    the main path's launch count) and the largest error seen."""
+    """Phase 2 for the stem kernel. Returns its kernels-line entry."""
     import torch.nn.functional as F
 
     from tengine_tpu_torch.ops.cuda.stem_conv import (
@@ -124,13 +188,7 @@ def check_stem_kernel(torch):
     run = dict(k=k, pad=pad, act=100, **q)
     got = stem_qconv(*args, **run)
     want = stem_qconv_plain(*args, **run)
-    torch.cuda.synchronize()
-    d = (got.int() - want.int()).abs()
-    err = int(d.max().item())
-    log(f"  stem yolov5s-640 b8 (SiLU): max|d|={err} LSB, "
-        f"{int((d > 0).sum())} of {d.numel()} elements differ")
-    if err > 1:
-        raise AssertionError(f"stem kernel disagrees with its plain version: {err} LSB")
+    err = max_lsb(torch, got, want, "stem yolov5s-640 b8 (SiLU)")
 
     ms = cuda_ms(lambda: stem_qconv(*args, **run), iters=50)
     plain_ms = cuda_ms(lambda: stem_qconv_plain(*args, **run), iters=5, warmup=1)
@@ -143,21 +201,196 @@ def check_stem_kernel(torch):
     moved = (args[0].numel() * args[0].element_size() + got.numel() * got.element_size()
              + sum(a.numel() * a.element_size() for a in args[1:]))
     ops = 2 * B * oh * ow * Cout * C * k * k
-    t_bytes, t_ops = moved / H100_BYTES_PER_S * 1e3, ops / H100_INT8_OPS_PER_S * 1e3
-    entry = {
-        "name": "stem_qconv", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
-    }
-    log(f"  stem timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library (cuDNN bf16 conv) {library_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
-        f"({moved} bytes, {ops} int8 ops)")
-    return entry
+    return kernel_entry("stem_qconv", SOURCE, REPLACES, err, ms, plain_ms, moved, ops, library_ms)
+
+
+def check_igemm_grid(torch) -> None:
+    """Phase 2 on the test grid (tests/test_torch_cuda.py): qconv_direct and
+    qconv1x1 with and without a fused residual, and qgemm_requant, each
+    kernel bit for bit against its plain version."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda import (
+        QCONV_CASES, QCONV_RES_CASES, QGEMM_CASES, port_qconv, port_qgemm,
+        qconv_inputs, qgemm_inputs,
+    )
+
+    worst = 0
+    cases = [(False, c) for c in QCONV_CASES] + [(True, c) for c in QCONV_RES_CASES]
+    for with_res, case in cases:
+        inp = qconv_inputs(case, seed=sum(case[:5]), with_res=with_res)
+        got, want = port_qconv(inp, "cuda", kernel=True), port_qconv(inp, "cuda", kernel=False)
+        worst = max(worst, int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max()))
+    for case in QGEMM_CASES:
+        inp = qgemm_inputs(case, seed=sum(case[:3]))
+        got, want = port_qgemm(inp, "cuda", kernel=True), port_qgemm(inp, "cuda", kernel=False)
+        worst = max(worst, int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max()))
+    log(f"  qconv/qgemm grid: {len(cases)} qconv and {len(QGEMM_CASES)} qgemm cases, "
+        f"max|d|={worst} LSB")
+    if worst:
+        raise AssertionError(f"qconv/qgemm kernels disagree with their plain versions: {worst} LSB")
+
+
+def _requant_vectors(rng, n, k):
+    """A multiplier and bias per channel that put int8 outputs around +-50
+    at fan-in k (|acc| ~ sqrt(k)*73^2 for uniform int8 operands)."""
+    m = (rng.uniform(0.5, 1.5, n) * 50.0 / (np.sqrt(k) * 73.0 * 73.0)).astype(np.float32)
+    b = rng.uniform(-20.0, 20.0, n).astype(np.float32)
+    return m, b
+
+
+def int_mm_ms(torch, x, w_nk):
+    """library_ms of a pointwise kernel: torch._int_mm on the same int8
+    [M, K] x [K, N] (the GEMM alone, int32 out)."""
+    wt = w_nk.t()  # [K, N], column-major, as cuBLASLt takes it
+    try:
+        torch._int_mm(x, wt)
+    except RuntimeError as exc:
+        log(f"  torch._int_mm refused the column-major operand ({exc}); timing a row-major copy")
+        wt = wt.contiguous()
+    return cuda_ms(lambda: torch._int_mm(x, wt), iters=20)
+
+
+def check_igemm_main(torch):
+    """Phase 2 at yolov3-416 b8's largest launch of each kernel: returns the
+    kernels-line entries of qconv_direct, qconv1x1 and qgemm_requant."""
+    import torch.nn.functional as F
+
+    from tengine_tpu_torch.ops.cuda import qconv as pq
+    from tengine_tpu_torch.ops.cuda import qgemm as pg
+
+    rng = np.random.default_rng(416)
+    entries = {}
+    common = dict(act=-1, lo=-127, hi=127)
+
+    # qconv_direct: stride-2 3x3, 104x104x128 -> 52x52x256
+    d = YOLOV3_DIRECT
+    N, H, C, O, k, s, pad = d["N"], d["H"], d["C"], d["O"], d["k"], d["s"], d["pad"]
+    x = torch.from_numpy(rng.integers(-127, 128, (N, H, H, C), dtype=np.int8)).cuda()
+    w_oihw = rng.integers(-127, 128, (O, C, k, k), dtype=np.int8)
+    w = torch.from_numpy(pq.pack_qconv_weights(w_oihw, False)).cuda()
+    m, b = (torch.from_numpy(a).cuda() for a in _requant_vectors(rng, O, C * k * k))
+    geo = dict(kh=k, kw=k, stride=s, pad_t=pad, pad_b=pad, pad_l=pad, pad_r=pad, **common)
+    got = pq.qconv_direct(x, w, m, b, **geo)
+    err = max_lsb(torch, got, pq.qconv_direct_plain(x, w, m, b, **geo),
+                  f"qconv_direct yolov3-416 b8 {H}x{H}x{C} -> {tuple(got.shape[1:])}")
+    ms = cuda_ms(lambda: pq.qconv_direct(x, w, m, b, **geo), iters=20)
+    plain_ms = cuda_ms(lambda: pq.qconv_direct_plain(x, w, m, b, **geo), iters=3, warmup=1)
+    # library yardstick: cuDNN fp16 conv, channels-last, the conv alone (not
+    # exact: fp16 holds int8 values but not every int32 sum)
+    xh = x.permute(0, 3, 1, 2).half().contiguous(memory_format=torch.channels_last)
+    wh = torch.from_numpy(w_oihw).cuda().half().contiguous(memory_format=torch.channels_last)
+    library_ms = cuda_ms(lambda: F.conv2d(xh, wh, stride=s, padding=pad), iters=20)
+    moved = x.numel() + w_oihw.size + 8 * O + got.numel()
+    ops = 2 * got.numel() * C * k * k
+    entries["qconv_direct"] = kernel_entry("qconv_direct", pq.SOURCE, pq.REPLACES_DIRECT, err,
+                                           ms, plain_ms, moved, ops, library_ms)
+
+    # qconv1x1 and qgemm_requant: flat [M, K] x [K, N]
+    for name, shape in (("qconv1x1", YOLOV3_1X1), ("qgemm_requant", YOLOV3_QGEMM)):
+        M, K, Nn = shape["M"], shape["K"], shape["N"]
+        x = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8)).cuda()
+        w_nk = rng.integers(-127, 128, (Nn, K), dtype=np.int8)
+        m, b = (torch.from_numpy(a).cuda() for a in _requant_vectors(rng, Nn, K))
+        if name == "qconv1x1":
+            w = torch.from_numpy(pq.pack_qconv_weights(w_nk.reshape(Nn, K, 1, 1), False)).cuda()
+            fn, plain, source, replaces = pq.qconv1x1, pq.qconv1x1_plain, pq.SOURCE, pq.REPLACES_1X1
+        else:
+            w = torch.from_numpy(pg.pack_qgemm_weights(w_nk, False)).cuda()
+            fn, plain, source, replaces = pg.qgemm_requant, pg.qgemm_requant_plain, pg.SOURCE, pg.REPLACES
+        got = fn(x, w, m, b, **common)
+        err = max_lsb(torch, got, plain(x, w, m, b, **common), f"{name} yolov3-416 b8 [{M},{K}]x[{K},{Nn}]")
+        ms = cuda_ms(lambda: fn(x, w, m, b, **common), iters=20)
+        plain_ms = cuda_ms(lambda: plain(x, w, m, b, **common), iters=3, warmup=1)
+        library_ms = int_mm_ms(torch, x, torch.from_numpy(w_nk).cuda())
+        moved = M * K + Nn * K + 8 * Nn + M * Nn
+        entries[name] = kernel_entry(name, source, replaces, err, ms, plain_ms, moved,
+                                     2 * M * K * Nn, library_ms)
+    return entries
 
 
 def dequant(torch, out, t):
     return (out.float() - float(np.asarray(t.quant.zero_points))) * float(np.asarray(t.quant.scales))
+
+
+def drive(torch, cg, x_dev, counters, n_batches=3):
+    """The main path's run: one untimed forward first (it pays cuDNN's
+    algorithm choice and the allocator's growth), then every launch count
+    set to 0, n_batches forwards timed with CUDA events, the counts read.
+    Returns (last outputs, ms per batch, launches by kernel)."""
+    cg(x_dev)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    batch_ms = []
+    for _ in range(n_batches):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = cg(x_dev)
+        end.record()
+        torch.cuda.synchronize()
+        batch_ms.append(start.elapsed_time(end))
+    return outs, batch_ms, {name: c.launches for name, c in counters.items()}
+
+
+def check_heads(torch, what, heads, outs, fouts, gate, out_dtype):
+    """Finite fp32 heads of the int8 heads' shape; cosine of each dequantized
+    int8 head against the fp32 engine's above `gate`."""
+    for t, q, f in zip(heads, outs, fouts):
+        if not bool(torch.isfinite(f).all()) or q.shape != f.shape or q.dtype != out_dtype:
+            raise AssertionError(f"{what} head {t.name}: bad output {q.shape} {q.dtype} vs fp32 {f.shape}")
+        a, b = dequant(torch, q, t).double().ravel(), f.double().ravel()
+        cos = float(a @ b / (a.norm() * b.norm() + 1e-12))
+        log(f"  {what} head {t.name} {tuple(q.shape)}: cosine vs fp32 engine {cos:.5f}")
+        if not cos > gate:
+            raise AssertionError(f"{what} head {t.name}: cosine {cos:.5f} <= {gate}")
+
+
+def check_within_lsb(what, outs_a, outs_b, heads):
+    for t, a, b in zip(heads, outs_a, outs_b):
+        a = a.cpu().numpy() if hasattr(a, "cpu") else a
+        b = b.cpu().numpy() if hasattr(b, "cpu") else b
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        log(f"  {what} head {t.name}: max|d|={d.max()} LSB, equal fraction {(d == 0).mean():.6f}")
+        if d.max() > 1:
+            raise AssertionError(f"{what} head {t.name}: {d.max()} LSB apart")
+
+
+def check_tiers_agree(torch, what, outs, outs_a, heads, gate=0.99):
+    """Tiers A, B and C at 416: the direct route and the fast lowering fold
+    the requant bias on the host in different precisions (float64 then f32,
+    against f32 throughout, as the JAX package's two lowerings do), so a
+    few near-tie elements per layer round apart and the difference
+    propagates to the heads (the JAX package's tiers part the same way at
+    416). Logged, and held to the dequantized cosine gate that each tier
+    meets against the fp32 engine."""
+    for t, q, a in zip(heads, outs, outs_a):
+        d = (q.int() - a.int()).abs()
+        x, y = dequant(torch, q, t).double().ravel(), dequant(torch, a, t).double().ravel()
+        cos = float(x @ y / (x.norm() * y.norm() + 1e-12))
+        log(f"  {what} head {t.name}: max|d|={int(d.max())} LSB, equal fraction "
+            f"{float((d == 0).double().mean()):.6f}, cosine {cos:.6f}")
+        if not cos > gate:
+            raise AssertionError(f"{what} head {t.name}: cosine {cos:.6f} <= {gate}")
+
+
+def check_tiers_exact_small(torch, tt, build_yolov3_graph, qmath, img=64, batch=2):
+    """Tiers A, B and C within 1 LSB at img=64 batch 2, where the JAX
+    package measures them equal bit for bit. Calibrated on the CPU, as the
+    tests calibrate, so the graph is the one tests/test_torch_yolov3.py
+    runs; the tiers then run on the card."""
+    g = build_yolov3_graph(img=img)
+    images = np.random.default_rng(1).standard_normal((batch, 3, img, img)).astype(np.float32)
+    qg = tt.quantize_graph(g, [images[:1]], scheme="int8", algorithm="minmax", device="cpu")
+    t_in = qg.tensors[qg.input_tensors[0]]
+    x = torch.from_numpy(qmath.quantize_np(images, t_in.quant, t_in.dtype)).cuda()
+    outs = {}
+    for tier, (extra, _) in YOLOV3_TIERS.items():
+        opts = dict(quant_mode="fast", quant_bf16_storage=False, batch_size=batch, **extra)
+        cg = tt.compile_graph(qg, tt.Options(**opts))
+        outs[tier] = cg(x)
+    heads = [cg.graph.tensors[t] for t in cg.output_ids]
+    for tier in ("B", "C"):
+        check_within_lsb(f"yolov3-{img} b{batch} {tier} vs A", outs[tier], outs["A"], heads)
 
 
 def main(argv) -> int:
@@ -168,9 +401,12 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
     import tengine_tpu_torch as tt
+    from tengine_tpu_torch.models.darknet_zoo import build_yolov3_graph
     from tengine_tpu_torch.models.yolov5 import build_yolov5s_graph
     from tengine_tpu_torch.ops import qmath
     from tengine_tpu_torch.ops.cuda import build
+    from tengine_tpu_torch.ops.cuda.qconv import qconv1x1, qconv_direct
+    from tengine_tpu_torch.ops.cuda.qgemm import qgemm_requant
     from tengine_tpu_torch.ops.cuda.stem_conv import stem_qconv
 
     t_start = time.time()
@@ -185,72 +421,92 @@ def main(argv) -> int:
     # 2. kernels against their plain versions
     t0 = time.time()
     entries = {"stem_qconv": check_stem_kernel(torch)}
-    counters = {"stem_qconv": stem_qconv}
+    check_igemm_grid(torch)
+    entries.update(check_igemm_main(torch))
+    counters = {"stem_qconv": stem_qconv, "qconv_direct": qconv_direct, "qconv1x1": qconv1x1,
+                "qgemm_requant": qgemm_requant}
     log(f"phase 2 kernels: {time.time() - t0:.1f} s")
 
-    # 3. main path: yolov5s-640 INT8 at batch 8
+    # 3a. main path: yolov5s-640 INT8 at batch 8
     t0 = time.time()
     batch, img = 8, 640
-    _, g = build_yolov5s_graph(num_classes=80, img=img)
+    _, g5 = build_yolov5s_graph(num_classes=80, img=img)
     rng = np.random.default_rng(0)
-    images = rng.standard_normal((batch, 3, img, img)).astype(np.float32)
-    qg = tt.quantize_graph(g, [images[:1]], scheme="int8", algorithm="minmax")
-    cg = tt.compile_graph(qg, tt.Options(quant_mode="fast", batch_size=batch))
-    stems = [n for n, k in cg.kernels.items() if k == "lower_conv_quant_pallas_stem"]
+    images5 = rng.standard_normal((batch, 3, img, img)).astype(np.float32)
+    qg5 = tt.quantize_graph(g5, [images5[:1]], scheme="int8", algorithm="minmax")
+    cg5 = tt.compile_graph(qg5, tt.Options(quant_mode="fast", batch_size=batch))
+    stems = [n for n, k in cg5.kernels.items() if k == "lower_conv_quant_pallas_stem"]
     if len(stems) != 1:
         raise AssertionError(f"expected one stem-kernel node, got {stems}")
-    t_in = qg.tensors[qg.input_tensors[0]]
-    xq = qmath.quantize_np(images, t_in.quant, t_in.dtype)
-    x_dev = torch.from_numpy(xq).cuda()
-    log(f"  set-up (build graph, calibrate, compile): {time.time() - t0:.1f} s")
-
-    n_batches = 3
-    for c in counters.values():
-        c.launches = 0
-    batch_ms = []
-    for _ in range(n_batches):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        outs = cg(x_dev)
-        end.record()
-        torch.cuda.synchronize()
-        batch_ms.append(start.elapsed_time(end))
-    launches = {name: c.launches for name, c in counters.items()}
-    for name, n in launches.items():
-        entries[name]["launches"] = n
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    if launches["stem_qconv"] != n_batches:
-        raise AssertionError(f"stem kernel launched {launches['stem_qconv']} times in {n_batches} forwards")
+    t_in = qg5.tensors[qg5.input_tensors[0]]
+    xq5 = qmath.quantize_np(images5, t_in.quant, t_in.dtype)
+    x5 = torch.from_numpy(xq5).cuda()
+    log(f"  yolov5s set-up (build graph, calibrate, compile): {time.time() - t0:.1f} s")
+    outs5, batch_ms, launches = drive(torch, cg5, x5, counters)
+    want = {"stem_qconv": 3, "qconv_direct": 0, "qconv1x1": 0, "qgemm_requant": 0}
+    if launches != want:
+        raise AssertionError(f"yolov5s launches {launches}, expected {want}")
+    entries["stem_qconv"]["launches"] = launches["stem_qconv"]
     med = float(np.median(batch_ms))
     log(f"phase 3 main path: yolov5s-{img} int8 batch {batch}: ms/batch {batch_ms} "
         f"(median {med:.3f}), {batch * 1e3 / med:.1f} img/s, launches {launches} "
         f"[{time.time() - t0:.1f} s]")
 
+    # 3b. main path: yolov3-416 INT8 at batch 8 on the integer-storage tier
+    t0 = time.time()
+    img3 = 416
+    g3 = build_yolov3_graph(img=img3)
+    images3 = np.random.default_rng(0).standard_normal((batch, 3, img3, img3)).astype(np.float32)
+    qg3 = tt.quantize_graph(g3, [images3[:1]], scheme="int8", algorithm="minmax")
+    t_in = qg3.tensors[qg3.input_tensors[0]]
+    xq3 = qmath.quantize_np(images3, t_in.quant, t_in.dtype)
+    x3 = torch.from_numpy(xq3).cuda()
+    log(f"  yolov3 set-up (build graph, calibrate): {time.time() - t0:.1f} s")
+    tiers = {}
+    for tier, (extra, per_forward) in YOLOV3_TIERS.items():
+        t1 = time.time()
+        opts = dict(quant_mode="fast", quant_bf16_storage=False, batch_size=batch, **extra)
+        cg3 = tt.compile_graph(qg3, tt.Options(**opts))
+        outs3, batch_ms, launches = drive(torch, cg3, x3, counters)
+        want = {name: 3 * n for name, n in per_forward.items()}
+        if launches != want:
+            raise AssertionError(f"yolov3 {tier}: launches {launches}, expected {want}")
+        tiers[tier] = (cg3, outs3, opts)
+        med = float(np.median(batch_ms))
+        log(f"phase 3 main path: yolov3-{img3} int8 batch {batch} tier {tier} {extra}: ms/batch "
+            f"{batch_ms} (median {med:.3f}), {batch * 1e3 / med:.1f} img/s, launches {launches} "
+            f"[{time.time() - t1:.1f} s]")
+    entries["qconv_direct"]["launches"] = 3 * YOLOV3_TIERS["A"][1]["qconv_direct"]
+    entries["qconv1x1"]["launches"] = 3 * YOLOV3_TIERS["A"][1]["qconv1x1"]
+    entries["qgemm_requant"]["launches"] = 3 * YOLOV3_TIERS["B"][1]["qgemm_requant"]
+
     # 4. correctness: fp32 engine on the card, and the port's CPU run
     t0 = time.time()
-    heads = [cg.graph.tensors[t] for t in cg.output_ids]
-    fcg = tt.compile_graph(g, tt.Options(precision="fp32", batch_size=batch))
-    fouts = fcg(torch.from_numpy(images).cuda())
-    for t, q, f in zip(heads, outs, fouts):
-        if not bool(torch.isfinite(f).all()) or q.shape != f.shape or q.dtype != torch.int8:
-            raise AssertionError(f"head {t.name}: bad output {q.shape} {q.dtype} vs fp32 {f.shape}")
-        a, b = dequant(torch, q, t).double().ravel(), f.double().ravel()
-        cos = float(a @ b / (a.norm() * b.norm() + 1e-12))
-        log(f"  head {t.name} {tuple(q.shape)}: cosine vs fp32 engine {cos:.5f}")
-        if not cos > 0.95:
-            raise AssertionError(f"head {t.name}: cosine {cos:.4f} <= 0.95")
-    ccg = tt.compile_graph(qg, tt.Options(quant_mode="fast", batch_size=1), device="cpu")
-    couts = ccg.run(xq[:1])
-    for t, q, c in zip(heads, outs, couts):
-        d = np.abs(q[:1].cpu().numpy().astype(np.int32) - c.astype(np.int32))
-        log(f"  head {t.name}: card vs CPU max|d|={d.max()} LSB, equal fraction {(d == 0).mean():.6f}")
-        if d.max() > 1:
-            raise AssertionError(f"head {t.name}: card and CPU differ by {d.max()} LSB")
+    heads5 = [cg5.graph.tensors[t] for t in cg5.output_ids]
+    fouts5 = tt.compile_graph(g5, tt.Options(precision="fp32", batch_size=batch))(
+        torch.from_numpy(images5).cuda())
+    check_heads(torch, "yolov5s", heads5, outs5, fouts5, 0.95, torch.int8)
+    couts5 = tt.compile_graph(qg5, tt.Options(quant_mode="fast", batch_size=1), device="cpu").run(xq5[:1])
+    check_within_lsb("yolov5s card vs CPU (image 0)", [o[:1] for o in outs5], couts5, heads5)
+
+    cg3a, outs3a, opts_a = tiers["A"]
+    heads3 = [cg3a.graph.tensors[t] for t in cg3a.output_ids]
+    fouts3 = tt.compile_graph(g3, tt.Options(precision="fp32", batch_size=batch))(
+        torch.from_numpy(images3).cuda())
+    check_heads(torch, "yolov3 A", heads3, outs3a, fouts3, 0.99, torch.int8)
+    for tier in ("B", "C"):
+        check_tiers_agree(torch, f"yolov3-{img3} {tier} vs A", tiers[tier][1], outs3a, heads3)
+    check_tiers_exact_small(torch, tt, build_yolov3_graph, qmath)
+    for tier, (_, outs3, opts) in tiers.items():
+        t1 = time.time()
+        couts3 = tt.compile_graph(qg3, tt.Options(**dict(opts, batch_size=1)), device="cpu").run(xq3[:1])
+        log(f"  yolov3-{img3} {tier} on the CPU, image 0: {time.time() - t1:.1f} s")
+        check_within_lsb(f"yolov3 {tier} card vs CPU (image 0)", [o[:1] for o in outs3], couts3, heads3)
     log(f"phase 4 check: {time.time() - t0:.1f} s")
 
     if "--profile" in argv:
-        profile_batch(torch, cg, x_dev)
+        profile_batch(torch, cg5, x5)
+        profile_batch(torch, cg3a, x3)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "tengine_tpu"))
     if leaked:

@@ -226,10 +226,15 @@ def build_forward(graph: Graph, options: Options, store: ParamStore, return_all:
             if wrap_quant:
                 # re-quantize float results into the node's quantized output
                 # tensors — the reference stores every activation quantized,
-                # so per-node requantization is part of its numerics
+                # so per-node requantization is part of its numerics. The
+                # scale's reciprocal multiplies, as in the JAX engine's
+                # compiled forward (qmath.requantize)
                 outs = tuple(
                     TArr(
-                        qmath.requantize(o.x, graph.tensors[tid].quant, graph.tensors[tid].dtype),
+                        qmath.requantize(
+                            o.x, graph.tensors[tid].quant, graph.tensors[tid].dtype,
+                            reciprocal=True,
+                        ),
                         o.layout,
                     )
                     if qmath.is_quantized_tensor(graph.tensors[tid]) and o.x.is_floating_point()

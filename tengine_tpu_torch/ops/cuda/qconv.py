@@ -1,0 +1,298 @@
+"""Int8 direct and pointwise convolutions with fused requantization: the
+CUDA kernel csrc/qconv.cu, its plain PyTorch versions, and the wrappers that
+pick between them by device.
+
+Replaces two Pallas TPU kernels of tengine_tpu/ops/pallas/qconv.py:
+
+  qconv_direct  k×k conv (k² <= 49, stride 1/2, any pads), NHWC s8/u8 in
+                and out, per-channel requant, optional fused residual + relu
+  qconv1x1      the 1×1 conv as a flat [N·H·W, C] × [C, C2] GEMM, same
+                epilogue and residual
+
+    acc  = sum (x - c0) * w                 exact int32, padding = zp_in
+    accf = float(acc) + cw * float(rowsum)  (uint8 zero-point term)
+    out  = clip(round_half_away(act(accf * M[c] + B[c])), lo, hi)
+
+with c0 = 128 re-centring uint8 input (0 for int8) and the rowsum taken
+over the re-centred receptive field, padded taps included. M and B are the
+host folds of ops/quantized.py (qconv_m / qconv_b), as the JAX lowering
+folds them. With a fused residual r the unfused eltwise-sum numerics follow:
+y = round((t - zp_mid)·s_mid + (r - zp_r)·s_r) / s_out2) + zp_out2, then
+the optional relu max(y, zp_out2) and the clip.
+
+On the card both are bound by operations: yolov3-416 batch 8 gives the k×k
+convs 204 GMAC over 236 MB and the 1×1 convs 26 GMAC over 249 MB (int8
+tensor cores at 1,979 TOP/s against 3.35 TB/s of HBM). The kernel is one
+tiled dp4a implicit GEMM (design note in csrc/qconv.cu); qgemm_requant
+(ops/cuda/qgemm.py) launches the same kernel. None of the TPU layout tricks
+carry over — int16 hops, the stride-2 column phase split, the OWp garbage
+columns, the halo DMA, the MXU ones-column: the kernel reads NHWC bytes
+directly, masks ragged edges, and sums the rowsum itself.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..qmath import round_away
+
+SOURCE = "tengine_tpu_torch/csrc/qconv.cu"
+REPLACES_DIRECT = "tengine_tpu/ops/pallas/qconv.py:232"
+REPLACES_1X1 = "tengine_tpu/ops/pallas/qconv.py:413"
+
+CHUNK = 32  # the kernel's K chunk: weight channels per tap pad to a multiple
+
+_DTYPES = {"int8": torch.int8, "uint8": torch.uint8}
+
+
+class QconvArgs(ctypes.Structure):
+    """The kernel's argument block, field for field as struct QconvArgs in
+    csrc/qconv.cu."""
+
+    _fields_ = (
+        [(f, ctypes.c_void_p) for f in ("x", "w", "mult", "bias", "res", "out")]
+        + [(f, ctypes.c_int) for f in (
+            "n", "h", "w_in", "c", "oh", "ow", "c2", "kh", "kw", "stride",
+            "pad_t", "pad_l", "cstride", "zp_in", "cw", "act")]
+        + [(f, ctypes.c_float) for f in ("act_lo", "act_hi", "zp_out", "lo", "hi")]
+        + [(f, ctypes.c_int) for f in ("x_u8", "res_u8", "out_u8", "has_res", "relu2")]
+        + [(f, ctypes.c_float) for f in ("s_mid", "zp_mid", "s_r", "zp_r", "s_out2", "zp_out2")]
+    )
+
+
+def _ru(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def pack_qconv_weights(w_oihw: np.ndarray, is_u8: bool) -> np.ndarray:
+    """Host-side repack: [O, C, kh, kw] stored weights -> [O, kh*kw, Cp] int8,
+    re-centred by -128 when the source is uint8, each tap's channels
+    zero-padded to Cp = C rounded up to a multiple of 32 (the kernel's K
+    chunk). Tap order is (ky, kx), as pack_qconv_weights orders the taps
+    for the Pallas kernel; no ones-column: the kernel sums the rowsum."""
+    O, C, kh, kw = w_oihw.shape
+    t = np.asarray(w_oihw).transpose(0, 2, 3, 1).reshape(O, kh * kw, C)
+    t = (t.astype(np.int16) - 128).astype(np.int8) if is_u8 else t.astype(np.int8)
+    out = np.zeros((O, kh * kw, _ru(C, CHUNK)), np.int8)
+    out[:, :, :C] = t
+    return out
+
+
+def act_bounds(act: Optional[int], inv_s_out: float, zp_out: int) -> Tuple[float, float]:
+    """The activation clamp's thresholds in the requant domain, computed in
+    double on the host and then rounded to f32, as the Pallas kernels'
+    static arguments are (qconv.py:_requant_store, qgemm.py:_qgemm_kernel)."""
+    if act is None or act < 0:
+        return 0.0, 0.0
+    if act == 1:
+        return float(np.float32(zp_out - inv_s_out)), float(np.float32(zp_out + inv_s_out))
+    return float(zp_out), float(np.float32(act * inv_s_out + zp_out))
+
+
+def epilogue_plain(acc, rsum, mult, bias, residual=None, res=None, *, cw, act,
+                   inv_s_out, zp_out, lo, hi, out_dtype):
+    """The kernels' f32 epilogue in plain torch ops, each op rounding once:
+    acc [M', C2] float32 (exact integers where |acc| <= 2^24, else rounded
+    to nearest like the kernel's int -> float conversion), rsum [M', 1]."""
+    accf = acc
+    if cw:
+        accf = accf + rsum * float(cw)
+    q = accf * mult + bias
+    if act is not None and act >= 0:
+        a_lo, a_hi = act_bounds(act, inv_s_out, zp_out)
+        if act == 1:
+            q = torch.clamp(q, a_lo, a_hi)
+        else:
+            q = torch.clamp_min(q, float(zp_out))
+            if act > 0:
+                q = torch.clamp_max(q, a_hi)
+    t = torch.clamp(round_away(q), float(lo), float(hi))
+    if res is not None:
+        s_mid, zp_mid, s_r, zp_r, s_out2, zp_out2, relu2 = res
+        tf = (t - float(zp_mid)) * float(np.float32(s_mid))
+        rf = (residual.to(torch.float32) - float(zp_r)) * float(np.float32(s_r))
+        div = torch.full((), float(np.float32(s_out2)), dtype=torch.float32, device=t.device)
+        y = round_away((tf + rf) / div) + float(zp_out2)
+        if relu2:
+            y = torch.clamp_min(y, float(zp_out2))
+        t = torch.clamp(y, float(lo), float(hi))
+    return t.to(_DTYPES[out_dtype])
+
+
+def _conv_plain(x, w, kh, kw, stride, pads, zp_in, with_rowsum):
+    """Exact int accumulation in float64 (every partial sum stays far below
+    2^53): acc [N, OH, OW, C2] and the rowsum [N, OH, OW, 1] as float32."""
+    N, H, W, C = map(int, x.shape)
+    C2 = int(w.shape[0])
+    c0 = 128.0 if x.dtype == torch.uint8 else 0.0
+    pt, pb, pl, pr = pads
+    xs = F.pad((x.to(torch.float64) - c0).permute(0, 3, 1, 2), (pl, pr, pt, pb),
+               value=float(zp_in) - c0)
+    wt = w[:, :, :C].to(torch.float64).reshape(C2, kh, kw, C).permute(0, 3, 1, 2)
+    acc = F.conv2d(xs, wt, stride=stride).permute(0, 2, 3, 1).to(torch.float32)
+    rsum = None
+    if with_rowsum:
+        ones = torch.ones((1, C, kh, kw), dtype=torch.float64, device=x.device)
+        rsum = F.conv2d(xs, ones, stride=stride).permute(0, 2, 3, 1).to(torch.float32)
+    return acc, rsum
+
+
+def qconv_direct_plain(x, w, mult, bias, residual=None, res=None, *, kh, kw, stride=1,
+                       pad_t=0, pad_b=0, pad_l=0, pad_r=0, zp_in=0, cw=0, act=-1,
+                       inv_s_out=1.0, zp_out=0, lo=-127, hi=127, out_dtype="int8"):
+    """The plain PyTorch version of qconv_direct: same inputs, same result.
+    x [N, H, W, C] s8/u8, w [C2, kh*kw, Cp] from pack_qconv_weights.
+    Returns [N, OH, OW, C2]."""
+    acc, rsum = _conv_plain(x, w, kh, kw, stride, (pad_t, pad_b, pad_l, pad_r), zp_in, bool(cw))
+    return epilogue_plain(acc, rsum, mult, bias, residual, res, cw=cw, act=act,
+                          inv_s_out=inv_s_out, zp_out=zp_out, lo=lo, hi=hi,
+                          out_dtype=out_dtype)
+
+
+def qconv1x1_plain(x, w, mult, bias, residual=None, res=None, *, cw=0, act=-1,
+                   inv_s_out=1.0, zp_out=0, lo=-127, hi=127, out_dtype="int8"):
+    """The plain PyTorch version of qconv1x1: x [M, C], w [C2, 1, Cp]."""
+    M, C = map(int, x.shape)
+    acc, rsum = _conv_plain(x.reshape(1, 1, M, C), w, 1, 1, 1, (0, 0, 0, 0), 0, bool(cw))
+    C2 = int(w.shape[0])
+    r = residual.reshape(1, 1, M, C2) if residual is not None else None
+    out = epilogue_plain(acc, rsum, mult, bias, r, res, cw=cw, act=act,
+                         inv_s_out=inv_s_out, zp_out=zp_out, lo=lo, hi=hi,
+                         out_dtype=out_dtype)
+    return out.reshape(M, C2)
+
+
+def _check(name, cond, what):
+    if not cond:
+        raise ValueError(f"{name}: {what}")
+
+
+def launch_igemm(name, x, w, mult, bias, residual, res, *, n, h, w_in, c, oh, ow,
+                 kh, kw, stride, pad_t, pad_l, zp_in, cw, act, inv_s_out, zp_out,
+                 lo, hi, out_dtype, out_shape):
+    """Check the operands and launch csrc/qconv.cu's kernel on the current
+    stream. x is NHWC [n, h, w_in, c] (a flat [M, K] is n=1, h=1, w_in=M);
+    w is [C2, kh*kw, Cp]. Raises on what the kernel does not take, and if
+    the launch returns a CUDA error."""
+    from .build import load
+
+    C2 = int(w.shape[0])
+    _check(name, x.dtype in (torch.int8, torch.uint8) and x.is_contiguous(),
+           "x must be a contiguous int8/uint8 tensor")
+    _check(name, x.numel() == n * h * w_in * c, f"x has {x.numel()} elements, not {n}x{h}x{w_in}x{c}")
+    cp = _ru(c, CHUNK)
+    _check(name, w.dtype == torch.int8 and tuple(w.shape) == (C2, kh * kw, cp)
+           and w.is_contiguous() and w.data_ptr() % 16 == 0,
+           f"w must be contiguous 16-byte-aligned int8 [C2, {kh * kw}, {cp}]")
+    for nm, v in (("mult", mult), ("bias", bias)):
+        _check(name, v.dtype == torch.float32 and tuple(v.shape) == (C2,) and v.is_contiguous(),
+               f"{nm} must be contiguous f32 [{C2}]")
+    _check(name, out_dtype in _DTYPES, f"out_dtype {out_dtype!r}")
+    _check(name, oh >= 1 and ow >= 1, f"empty output {oh}x{ow}")
+    operands = [w, mult, bias]
+    if res is not None:
+        _check(name, residual is not None and residual.dtype in (torch.int8, torch.uint8)
+               and residual.is_contiguous() and residual.numel() == n * oh * ow * C2,
+               "residual must be a contiguous int8/uint8 tensor shaped like the output")
+        operands.append(residual)
+    _check(name, all(t.device == x.device for t in operands), "all operands must be on one device")
+
+    out = torch.empty(out_shape, dtype=_DTYPES[out_dtype], device=x.device)
+    _check(name, out.data_ptr() % 8 == 0, "output must be 8-byte aligned")
+    a_lo, a_hi = act_bounds(act, inv_s_out, zp_out)
+    args = QconvArgs(
+        x=x.data_ptr(), w=w.data_ptr(), mult=mult.data_ptr(), bias=bias.data_ptr(),
+        res=residual.data_ptr() if res is not None else None, out=out.data_ptr(),
+        n=n, h=h, w_in=w_in, c=c, oh=oh, ow=ow, c2=C2, kh=kh, kw=kw, stride=stride,
+        pad_t=pad_t, pad_l=pad_l, cstride=cp, zp_in=int(zp_in), cw=int(cw),
+        act=-1 if act is None else int(act), act_lo=a_lo, act_hi=a_hi,
+        zp_out=float(zp_out), lo=float(lo), hi=float(hi),
+        x_u8=int(x.dtype == torch.uint8),
+        res_u8=int(res is not None and residual.dtype == torch.uint8),
+        out_u8=int(out_dtype == "uint8"), has_res=int(res is not None),
+        relu2=int(bool(res[6])) if res is not None else 0,
+    )
+    if res is not None:
+        s_mid, zp_mid, s_r, zp_r, s_out2, zp_out2, _ = res
+        args.s_mid, args.zp_mid, args.s_r = float(s_mid), float(zp_mid), float(s_r)
+        args.zp_r, args.s_out2, args.zp_out2 = float(zp_r), float(s_out2), float(zp_out2)
+    vec = int(c % 16 == 0 and x.data_ptr() % 16 == 0)
+
+    fn = load("qconv").qconv_igemm_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(QconvArgs), ctypes.c_int, ctypes.c_void_p]
+    rc = fn(ctypes.byref(args), vec, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    return out
+
+
+def _dispatch(name, x, kernel, plain):
+    if x.is_cuda:
+        return kernel()
+    if x.device.type in ("cpu", "meta"):
+        return plain()
+    raise ValueError(f"{name}: no version for device {x.device}")
+
+
+def qconv_direct(x, w, mult, bias, residual=None, res=None, *, kh, kw, stride=1,
+                 pad_t=0, pad_b=0, pad_l=0, pad_r=0, zp_in=0, cw=0, act=-1,
+                 inv_s_out=1.0, zp_out=0, lo=-127, hi=127, out_dtype="int8"):
+    """Direct k×k conv + requant (+ fused residual): x [N, H, W, C] s8/u8
+    raw quantized activations, w [C2, kh*kw, Cp] from pack_qconv_weights,
+    mult/bias f32 [C2], residual [N, OH, OW, C2] with res = (s_mid, zp_mid,
+    s_r, zp_r, s_out2, zp_out2, relu2). Returns [N, OH, OW, C2].
+
+    On a CUDA tensor this launches the kernel (or raises); on a CPU tensor,
+    or a meta tensor during shape inference, it runs qconv_direct_plain.
+    qconv_direct.launches counts kernel launches."""
+    N, H, W, C = map(int, x.shape)
+    OH = (H + pad_t + pad_b - kh) // stride + 1
+    OW = (W + pad_l + pad_r - kw) // stride + 1
+    ep = dict(cw=cw, act=act, inv_s_out=inv_s_out, zp_out=zp_out, lo=lo, hi=hi,
+              out_dtype=out_dtype)
+
+    def kernel():
+        out = launch_igemm(
+            "qconv_direct", x, w, mult, bias, residual, res, n=N, h=H, w_in=W, c=C,
+            oh=OH, ow=OW, kh=kh, kw=kw, stride=stride, pad_t=pad_t, pad_l=pad_l,
+            zp_in=zp_in, out_shape=(N, OH, OW, int(w.shape[0])), **ep,
+        )
+        qconv_direct.launches += 1
+        return out
+
+    return _dispatch("qconv_direct", x, kernel, lambda: qconv_direct_plain(
+        x, w, mult, bias, residual, res, kh=kh, kw=kw, stride=stride, pad_t=pad_t,
+        pad_b=pad_b, pad_l=pad_l, pad_r=pad_r, zp_in=zp_in, **ep))
+
+
+def qconv1x1(x, w, mult, bias, residual=None, res=None, *, cw=0, act=-1,
+             inv_s_out=1.0, zp_out=0, lo=-127, hi=127, out_dtype="int8"):
+    """1×1 conv as a flat GEMM + requant (+ fused residual): x [M, C] s8/u8,
+    w [C2, 1, Cp] from pack_qconv_weights, residual [M, C2]. Returns
+    [M, C2]. Kernel on a CUDA tensor, qconv1x1_plain on a CPU or meta
+    tensor; qconv1x1.launches counts kernel launches."""
+    M, C = map(int, x.shape)
+    ep = dict(cw=cw, act=act, inv_s_out=inv_s_out, zp_out=zp_out, lo=lo, hi=hi,
+              out_dtype=out_dtype)
+
+    def kernel():
+        out = launch_igemm(
+            "qconv1x1", x, w, mult, bias, residual, res, n=1, h=1, w_in=M, c=C,
+            oh=1, ow=M, kh=1, kw=1, stride=1, pad_t=0, pad_l=0, zp_in=0,
+            out_shape=(M, int(w.shape[0])), **ep,
+        )
+        qconv1x1.launches += 1
+        return out
+
+    return _dispatch("qconv1x1", x, kernel,
+                     lambda: qconv1x1_plain(x, w, mult, bias, residual, res, **ep))
+
+
+qconv_direct.launches = 0
+qconv1x1.launches = 0

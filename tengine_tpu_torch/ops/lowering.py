@@ -1,7 +1,7 @@
 """Plain-torch op lowerings (the "reference kernel" tier) — PyTorch port of
-the subset of tengine_tpu/ops/lowering.py that the quantized yolov5s path
-and its fp32 calibration run: activations, Convolution, Pooling, Eltwise,
-Concat, Upsample and Noop.
+the subset of tengine_tpu/ops/lowering.py that the quantized yolov5s and
+yolov3 paths and their fp32 calibration run: activations, Convolution,
+Pooling, Eltwise, Concat, Upsample, ReLu (incl. leaky), Dropout and Noop.
 
 Each function lowers one IR node to eager torch calls on the engine's
 device. Semantics follow the reference C kernels and shape-inference rules,
@@ -244,6 +244,16 @@ def _unary_op(fn):
 
 
 register_op("Noop")(_unary_op(lambda x: x))
+register_op("Dropout")(_unary_op(lambda x: x))
+
+
+@register_op("ReLu")
+def lower_relu(ctx: LowerCtx, x: TArr):
+    """ReLU / LeakyReLU (relu_ref.c): slope 0 => max(0,x)."""
+    slope = ctx.params.get("negative_slope", 0.0)
+    if slope == 0.0:
+        return like(x, torch.clamp_min(x.x, 0))
+    return like(x, torch.where(x.x > 0, x.x, x.x * slope))
 
 
 # ---------------------------------------------------------------------------

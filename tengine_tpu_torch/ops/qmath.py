@@ -87,12 +87,28 @@ def requantize(
     quant: QuantParam,
     dtype: DType,
     channel_axis: Optional[int] = None,
+    reciprocal: bool = False,
 ):
-    """fp32 -> quantized integer dtype with reference rounding/clipping."""
+    """fp32 -> quantized integer dtype with reference rounding/clipping.
+
+    reciprocal=True (per-tensor quant only) multiplies by the scale's f32
+    reciprocal instead of dividing by the scale. That is what the JAX engine
+    computes: it runs requantize inside jit, where XLA rewrites a division
+    by a constant as a multiplication by the constant's reciprocal, rounded
+    to f32. The two
+    differ where x / s lands on a .5 tie, which a leaky ReLU on a shared
+    grid hits often (0.1 * q). The engine's generic wrapper passes it so
+    that both engines round the same values; the default is the IEEE
+    quotient of the reference C code and of the JAX function called
+    eagerly."""
     lo, hi = qrange(dtype, quant)
     if quant.per_channel:
-        assert channel_axis is not None
+        assert channel_axis is not None and not reciprocal
         scales, zps = _chan_vecs(quant, x.ndim, channel_axis, x.device)
+    elif reciprocal:
+        inv = float(np.float32(1.0) / np.float32(quant.scales))
+        q = round_away(x * inv) + float(np.float32(quant.zero_points))
+        return clip_cast(q, lo, hi, TORCH_DTYPES[dtype])
     else:
         # a 0-dim tensor on x's device, not a Python scalar: CUDA divides by
         # a host scalar as a multiply by its reciprocal, which is not the

@@ -1,5 +1,6 @@
 """Quantized execution kernels (INT8 per-channel) — PyTorch port of the
-subset of tengine_tpu/ops/quantized.py that the yolov5s INT8 path runs.
+subset of tengine_tpu/ops/quantized.py that the yolov5s INT8 path and the
+yolov3 integer-storage path (quant_bf16_storage=False) run.
 
 Two tiers, mirroring the reference's ref-vs-optimized kernel split:
 
@@ -13,13 +14,18 @@ Two tiers, mirroring the reference's ref-vs-optimized kernel split:
       acc = conv(x_i8, w_i8)   (exact; float64 holds every partial sum)
     then q = clip(round(acc * M[c] + B[c]) + zp_out).
 
+  * SCORE_STATIC kernel routes — hand-written CUDA kernels (ops/cuda/)
+    behind the JAX engine's predicates and scores, unchanged, so both
+    engines route every node alike: the stem, qconv_direct / qconv1x1 and
+    qgemm_requant.
+
 Activations are stored as their integer dtype everywhere (the JAX engine's
-bf16 storage holds the same values). Kernels the JAX engine would route to
-but the port does not have yet (qconv_direct, qconv1x1, qgemm_requant,
-dw_qconv_hwcn) register with the same predicates and raise
-NotImplementedError naming the kernel, so no graph silently takes another
-path. Any op without a quant-aware kernel runs under the engine's generic
-dequant -> fp32 kernel -> requant wrapper (executor/engine.py).
+bf16 storage holds the same values). A kernel the JAX engine would route to
+but the port does not have yet (dw_qconv_hwcn) registers with the same
+predicate and raises NotImplementedError naming it, so no graph silently
+takes another path. Any op without a quant-aware kernel runs under the
+engine's generic dequant -> fp32 kernel -> requant wrapper
+(executor/engine.py).
 """
 
 from __future__ import annotations
@@ -31,8 +37,10 @@ import torch
 
 from ..graph.ir import DType, QuantParam
 from . import qmath
+from .cuda.qconv import pack_qconv_weights, qconv1x1, qconv_direct
+from .cuda.qgemm import pack_qgemm_weights, qgemm_requant
 from .cuda.stem_conv import pack_stem_weights, stem_qconv
-from .layout import TArr, as_nchw, as_nhwc, nhwc
+from .layout import TArr, as_nchw, as_nhwc, as_semantic, nchw, nhwc
 from .lowering import ACT_SILU, _conv_pads, apply_activation, conv2d_nhwc
 from .registry import SCORE_BEST, SCORE_CANDO, SCORE_STATIC, LowerCtx, register_op
 
@@ -345,10 +353,21 @@ def _pallas_conv1x1_ok(ctx: LowerCtx) -> bool:
     )
 
 
+def _int_stored(ctx: LowerCtx) -> bool:
+    """The JAX gate's _int_stored(ctx, t): the tensor stores its raw 1-byte
+    dtype under the JAX engine's storage plan. The port stores every
+    activation as its integer dtype, but routes as the JAX engine does:
+    there, with quant_bf16_storage=True and no native-int8 plan (which the
+    port raises for), the bf16 plan is None for any graph with a depthwise
+    conv, so no tensor counts as int-stored; with quant_bf16_storage=False
+    every tensor does."""
+    return not ctx.options.quant_bf16_storage
+
+
 def _pallas_dw_ok(ctx: LowerCtx) -> bool:
     """The JAX engine's route to dw_qconv_hwcn (TT_DW_PALLAS gate):
-    depthwise k in {3,5}, stride 1/2, batch >= 32. The JAX gate also asks
-    for 1-byte stored input and output, which the port's storage always is."""
+    depthwise k in {3,5}, stride 1/2, batch >= 32, 1-byte stored input and
+    output (_int_stored)."""
     if os.environ.get("TT_DW_PALLAS", "0") in ("0", "off", ""):
         return False
     if not _fast_enabled(ctx) or not _no_fused_add(ctx):
@@ -388,6 +407,7 @@ def _pallas_dw_ok(ctx: LowerCtx) -> bool:
         and p["dilation_w"] == 1
         and p["stride_h"] == p["stride_w"]
         and s_ in (1, 2)
+        and _int_stored(ctx)
         and ctx.const_data(1) is not None
     )
 
@@ -484,21 +504,212 @@ def lower_conv_quant_pallas_stem(ctx: LowerCtx, x: TArr, *rest: TArr):
     return nhwc(out)
 
 
-register_op("Convolution", score=SCORE_STATIC + 1, predicate=_pallas_qconv_ok, quant=True)(
-    _unported("qconv_direct/qconv1x1", "tengine_tpu/ops/pallas/qconv.py:232,413")
-)
-register_op("Convolution", score=SCORE_STATIC, predicate=_pallas_conv1x1_ok, quant=True)(
-    _unported("qgemm_requant", "tengine_tpu/ops/pallas/qgemm.py:104")
-)
-register_op(
-    "FullyConnected",
-    score=SCORE_STATIC,
-    predicate=lambda c: _fast_enabled(c)
-    and c.options.pallas_qgemm
-    and not c.options.quant_bf16_storage
-    and not _shifted_s8(c),
-    quant=True,
-)(_unported("qgemm_requant", "tengine_tpu/ops/pallas/qgemm.py:104"))
+@register_op("Convolution", score=SCORE_STATIC + 1, predicate=_pallas_qconv_ok, quant=True)
+def lower_conv_quant_pallas_direct(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """Direct k×k conv through the int8 implicit-GEMM kernel (exact int32
+    accumulation, fused requant; ops/cuda/qconv.py); optionally with a fused
+    residual eltwise-sum (fuse_conv_add pass)."""
+    p = ctx.params
+    fused_pos = p.get("fused_add_pos")
+    t_in, t_w = ctx.in_tensor(0), ctx.in_tensor(1)
+    t_out = ctx.out_tensor(0)
+    # the conv's own requant targets the pre-add intermediate tensor when the
+    # residual add is fused
+    t_mid = ctx.graph.tensors[p["fused_add_mid"]] if fused_pos is not None else t_out
+    has_bias = (fused_pos == 3) if fused_pos is not None else (ctx.num_inputs > 2)
+    kh, kw, s = p["kernel_h"], p["kernel_w"], p["stride_h"]
+    out_c, in_c = int(t_w.shape[0]), int(t_w.shape[1])
+
+    s_in = float(np.asarray(t_in.quant.scales).reshape(-1)[0])
+    zp_in = int(np.asarray(t_in.quant.zero_points).reshape(-1)[0])
+    w_scales = _wscales(t_w.quant, out_c)
+    s_mid = float(np.asarray(t_mid.quant.scales).reshape(-1)[0])
+    zp_mid = int(np.asarray(t_mid.quant.zero_points).reshape(-1)[0])
+
+    is_u8 = t_in.dtype == DType.UINT8
+    if is_u8:
+        zp_w = int(np.asarray(t_w.quant.zero_points).reshape(-1)[0])
+        cx, cw = 128 - zp_in, 128 - zp_w
+    else:
+        cx = cw = 0
+
+    w = ctx.get_param("qconv_w", lambda: pack_qconv_weights(ctx.const_data(1), is_u8))
+    M = ctx.get_param("qconv_m", lambda: (s_in * w_scales / s_mid).astype(np.float32))
+
+    def bvec():
+        if is_u8:
+            wsh = ctx.const_data(1).astype(np.int32) - 128
+            colsum = wsh.sum(axis=(1, 2, 3))
+            K = in_c * kh * kw
+            b0 = cx * colsum + K * cx * cw
+        else:
+            b0 = np.zeros(out_c, np.int64)
+        if has_bias:
+            b0 = b0 + ctx.const_data(2).astype(np.int64)
+        m = s_in * w_scales / s_mid
+        return (b0.astype(np.float64) * m + zp_mid).astype(np.float32)
+
+    B = ctx.get_param("qconv_b", bvec)
+
+    res = None
+    residual = None
+    if fused_pos is not None:
+        t_r = ctx.in_tensor(fused_pos)
+        s_r = float(np.asarray(t_r.quant.scales).reshape(-1)[0])
+        zp_r = int(np.asarray(t_r.quant.zero_points).reshape(-1)[0])
+        s_out2 = float(np.asarray(t_out.quant.scales).reshape(-1)[0])
+        zp_out2 = int(np.asarray(t_out.quant.zero_points).reshape(-1)[0])
+        res = (s_mid, zp_mid, s_r, zp_r, s_out2, zp_out2,
+               bool(p.get("fused_add_relu")))
+        residual = as_nhwc(rest[fused_pos - 1]).contiguous()
+
+    xn = as_nhwc(x)
+    if kh == 1 and kw == 1 and s == 2:
+        # pointwise stride-2 (resnet downsample): pre-subsample, as the JAX
+        # lowering does
+        xn = xn[:, ::2, ::2, :]
+        s = 1
+    xn = xn.contiguous()
+    n, in_h, in_w, _ = xn.shape
+    pads = _conv_pads(in_h, in_w, p, kh, kw)
+    (pt, pb), (pl_, pr) = pads[0], pads[1]
+    lo, hi = qmath.qrange(t_out.dtype, t_out.quant)
+    common = dict(
+        res=res,
+        cw=cw,
+        act=p.get("activation", -1),
+        inv_s_out=1.0 / s_mid, zp_out=zp_mid,
+        lo=lo, hi=hi,
+        out_dtype="uint8" if t_out.dtype == DType.UINT8 else "int8",
+    )
+    if kh == 1 and kw == 1 and s == 1 and not (pt or pb or pl_ or pr):
+        out = qconv1x1(
+            xn.reshape(n * in_h * in_w, in_c), w, M, B,
+            residual=None if residual is None
+            else residual.reshape(n * in_h * in_w, out_c),
+            **common,
+        )
+        return nhwc(out.reshape(n, in_h, in_w, out_c))
+    out = qconv_direct(
+        xn, w, M, B,
+        residual=residual,
+        kh=kh, kw=kw, stride=s,
+        pad_t=int(pt), pad_b=int(pb), pad_l=int(pl_), pad_r=int(pr),
+        zp_in=zp_in,
+        **common,
+    )
+    return nhwc(out)
+
+
+def _qgemm_inputs(ctx: LowerCtx, w_idx: int = 1, b_idx: int = 2):
+    """Shared folding for the qgemm path: shifted weights, requant
+    multipliers, and the combined per-channel offset (zero-point correction
+    terms + bias), all precomputed on the host as the JAX lowering does."""
+    t_in, t_w, t_out = ctx.in_tensor(0), ctx.in_tensor(w_idx), ctx.out_tensor(0)
+    s_in = float(np.asarray(t_in.quant.scales).reshape(-1)[0])
+    zp_in = int(np.asarray(t_in.quant.zero_points).reshape(-1)[0])
+    out_c = t_w.shape[0]
+    w_scales = _wscales(t_w.quant, out_c)
+    s_out = float(np.asarray(t_out.quant.scales).reshape(-1)[0])
+    zp_out = int(np.asarray(t_out.quant.zero_points).reshape(-1)[0])
+
+    is_u8 = t_in.dtype == DType.UINT8
+    if is_u8:
+        zp_w = int(np.asarray(t_w.quant.zero_points).reshape(-1)[0])
+        cx = 128 - zp_in
+        cw = 128 - zp_w
+    else:
+        cx = cw = 0
+
+    def w_packed():
+        a = ctx.const_data(w_idx)
+        return pack_qgemm_weights(a.reshape(a.shape[0], -1), is_u8)
+
+    w = ctx.get_param("qgemm_w", w_packed)
+
+    def mult():
+        return (s_in * w_scales / s_out).astype(np.float32)
+
+    M = ctx.get_param("qgemm_m", mult)
+
+    def bvec():
+        a = ctx.const_data(w_idx)
+        flat = a.reshape(a.shape[0], -1)
+        K = flat.shape[1]
+        if is_u8:
+            wsh = (flat.astype(np.int32) - 128)
+            colsum = wsh.sum(axis=1)
+            b0 = cx * colsum + K * cx * cw
+        else:
+            b0 = np.zeros(out_c, np.int64)
+        if len(ctx.node.inputs) > b_idx:
+            b0 = b0 + ctx.const_data(b_idx).astype(np.int64)
+        m = s_in * w_scales / s_out
+        return (b0.astype(np.float64) * m + zp_out).astype(np.float32)
+
+    B = ctx.get_param("qgemm_b", bvec)
+    return w, M, B, cw, s_out, zp_out, is_u8
+
+
+@register_op("Convolution", score=SCORE_STATIC, predicate=_pallas_conv1x1_ok, quant=True)
+def lower_conv1x1_quant_pallas(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """Pointwise conv through the fused int8 GEMM kernel (ops/cuda/qgemm.py)."""
+    p = ctx.params
+    t_out = ctx.out_tensor(0)
+    w, M, B, cw, s_out, zp_out, _ = _qgemm_inputs(ctx)
+
+    xn = as_nhwc(x)
+    if p["stride_h"] > 1 or p["stride_w"] > 1:
+        xn = xn[:, :: p["stride_h"], :: p["stride_w"], :]
+    n, oh, ow, c = xn.shape
+    lo, hi = qmath.qrange(t_out.dtype, t_out.quant)
+    out = qgemm_requant(
+        xn.contiguous().reshape(n * oh * ow, c),  # uint8 is shifted inside the kernel
+        w, M, B,
+        cw=cw,
+        act=p.get("activation", -1),
+        inv_s_out=1.0 / s_out,
+        zp_out=zp_out,
+        lo=lo, hi=hi,
+        out_dtype="uint8" if t_out.dtype == DType.UINT8 else "int8",
+    )
+    return nhwc(out.reshape(n, oh, ow, -1))
+
+
+def _pallas_fc_ok(ctx: LowerCtx) -> bool:
+    return (
+        _fast_enabled(ctx)
+        and ctx.options.pallas_qgemm
+        and not ctx.options.quant_bf16_storage
+        and not _shifted_s8(ctx)  # int8 path assumes zp = 0
+    )
+
+
+@register_op("FullyConnected", score=SCORE_STATIC, predicate=_pallas_fc_ok, quant=True)
+def lower_fc_quant_pallas(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """FC through the fused int8 GEMM kernel (ops/cuda/qgemm.py)."""
+    t_out = ctx.out_tensor(0)
+    w, M, B, cw, s_out, zp_out, _ = _qgemm_inputs(ctx)
+
+    xs = as_semantic(x)
+    m = xs.shape[0]
+    rank = xs.ndim
+    xf = xs.contiguous().reshape(m, -1)
+    lo, hi = qmath.qrange(t_out.dtype, t_out.quant)
+    out = qgemm_requant(
+        xf, w, M, B,
+        cw=cw,
+        act=-1,
+        inv_s_out=1.0 / s_out,
+        zp_out=zp_out,
+        lo=lo, hi=hi,
+        out_dtype="uint8" if t_out.dtype == DType.UINT8 else "int8",
+    )
+    if rank == 3:
+        out = out.reshape(m, -1, 1)
+    elif rank == 4:
+        out = out.reshape(m, -1, 1, 1)
+    return nchw(out)
 
 
 @register_op("Convolution", score=SCORE_BEST, predicate=_fast_enabled, quant=True)
@@ -576,6 +787,75 @@ def lower_maxpool_quant(ctx: LowerCtx, x: TArr):
     from .lowering import lower_pooling
 
     return lower_pooling(ctx, x)
+
+
+# ---------------------------------------------------------------------------
+# Leaky ReLU and Dropout on quantized tensors. The JAX engine runs both under
+# its generic dequant -> fp32 -> requant wrapper, inside jit, where XLA's
+# algebraic simplifier rewrites the chain before it rounds anything: the
+# division by the output scale becomes a multiply by its f32 reciprocal, and
+# a multiply by a constant that follows a multiply by a constant folds into
+# one multiply by their f32 product ((a*s)*0.1 -> a*(s*0.1)). A leaky ReLU
+# on a shared grid lands on .5 ties (0.1*q) where the folded and unfolded
+# forms round apart, so these lowerings compute the folded arithmetic
+# itself, term for term, and both engines give the same integers.
+# ---------------------------------------------------------------------------
+
+
+def _f32_product(a, b) -> float:
+    """Two constants multiplied in f32, as XLA folds them."""
+    return float(np.float32(np.float32(a) * np.float32(b)))
+
+
+def _per_tensor_quant(ctx: LowerCtx) -> bool:
+    return (
+        node_is_quant(ctx)
+        and not ctx.in_tensor(0).quant.per_channel
+        and not ctx.out_tensor(0).quant.per_channel
+    )
+
+
+def _quant_scalars(t):
+    return (float(np.float32(np.asarray(t.quant.scales).reshape(-1)[0])),
+            int(np.asarray(t.quant.zero_points).reshape(-1)[0]))
+
+
+def _inv_out_scale(ctx: LowerCtx) -> float:
+    return float(np.float32(1.0) / np.float32(_quant_scalars(ctx.out_tensor(0))[0]))
+
+
+def _round_store(ctx: LowerCtx, x: TArr, q: torch.Tensor) -> TArr:
+    """round(q) + zp_out, clipped to the output's range and stored."""
+    t_out = ctx.out_tensor(0)
+    lo, hi = qmath.qrange(t_out.dtype, t_out.quant)
+    q = qmath.round_away(q) + float(_quant_scalars(t_out)[1])
+    return TArr(qmath.clip_cast(q, lo, hi, qmath.TORCH_DTYPES[t_out.dtype]), x.layout)
+
+
+@register_op(
+    "ReLu", score=SCORE_BEST,
+    predicate=lambda c: _per_tensor_quant(c) and bool(c.params.get("negative_slope")),
+    quant=True,
+)
+def lower_leaky_relu_quant(ctx: LowerCtx, x: TArr):
+    """where(v > 0, v, v*slope) with v = (q - zp_in)*s_in, requantized, in
+    the JAX engine's compiled arithmetic (the negative branch is one
+    multiply by f32(s_in*slope))."""
+    s_in, zp_in = _quant_scalars(ctx.in_tensor(0))
+    a = x.x.to(torch.float32) - float(zp_in)
+    pos = a * s_in
+    neg = a * _f32_product(s_in, ctx.params["negative_slope"])
+    return _round_store(ctx, x, torch.where(pos > 0, pos, neg) * _inv_out_scale(ctx))
+
+
+@register_op("Dropout", score=SCORE_BEST, predicate=_per_tensor_quant, quant=True)
+def lower_dropout_quant(ctx: LowerCtx, x: TArr):
+    """Identity with requantization: (q - zp_in) times one f32 constant
+    f32(s_in * f32(1/s_out)), rounded — the JAX engine's compiled
+    dequant -> identity -> requant."""
+    s_in, zp_in = _quant_scalars(ctx.in_tensor(0))
+    a = x.x.to(torch.float32) - float(zp_in)
+    return _round_store(ctx, x, a * _f32_product(s_in, _inv_out_scale(ctx)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """Tests that need an NVIDIA card: each hand-written CUDA kernel of the port
 against its plain PyTorch version, on the card. They skip where
-torch.cuda.is_available() is false. This file imports neither JAX nor the
-JAX package, so it also runs on a machine without them:
+torch.cuda.is_available() is false. The seeded input grids live here and
+tests/test_torch_stem.py and tests/test_torch_qconv.py hold the plain
+versions to the Pallas kernels with them on the CPU. This file imports
+neither JAX nor the JAX package, so it also runs on a machine without them:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -54,6 +56,190 @@ def stem_port_args(x, w, mult, bias, q, k, zp_w):
         w, mult, bias, k=k, zp_in=q["zp_in"], zp_w=zp_w, signed_in=x.dtype == np.int8
     )
     return torch.from_numpy(x), torch.from_numpy(wm), torch.from_numpy(m), torch.from_numpy(b)
+
+
+# the grid of tests/test_qconv_pallas.py:102-114:
+#   N, H, C, O, k, s, pad, u8, per_channel, act, ones_col
+QCONV_CASES = [
+    (2, 12, 128, 32, 3, 1, 1, True, False, 0, True),
+    (2, 12, 128, 32, 3, 1, 1, True, False, 0, False),
+    (2, 12, 128, 32, 3, 2, 1, True, False, -1, True),
+    (2, 12, 128, 32, 1, 1, 0, True, False, 0, False),
+    (2, 12, 128, 32, 3, 1, 1, False, True, 0, False),
+    (2, 12, 128, 32, 3, 2, 1, False, True, -1, False),
+    (2, 14, 128, 24, 5, 1, 2, False, True, 0, False),
+    (1, 12, 256, 32, 1, 1, 0, False, True, -1, False),
+    (4, 12, 128, 130, 3, 1, 1, True, False, 0, True),
+    (2, 12, 64, 48, 1, 1, 0, True, False, 0, False),
+]
+# fused residual (+ relu) cases: N, H, C, O, k, s, pad, u8, per_channel, act, relu2
+QCONV_RES_CASES = [
+    (2, 12, 128, 32, 3, 1, 1, True, False, 0, True),
+    (2, 12, 128, 32, 3, 1, 1, False, True, -1, False),
+    (2, 12, 128, 40, 3, 2, 1, False, True, 0, True),
+    (2, 12, 128, 32, 1, 1, 0, True, False, -1, True),
+    (2, 12, 64, 48, 1, 1, 0, False, True, -1, False),
+    (1, 12, 256, 130, 1, 1, 0, False, True, 0, True),
+]
+# qgemm_requant: M, K, N, u8, act
+QGEMM_CASES = [
+    (64, 128, 128, False, -1),
+    (77, 200, 45, False, 0),
+    (96, 256, 130, False, 6),
+    (50, 96, 33, False, 1),
+    (64, 128, 128, True, -1),
+    (77, 200, 45, True, 0),
+    (33, 160, 130, True, 6),
+    (50, 96, 61, True, 1),
+]
+
+
+def qconv_inputs(case, seed, with_res=False):
+    """Seeded numpy inputs of one qconv case, as tests/test_qconv_pallas.py
+    run_case makes them: raw x, stored [O, C, k, k] weights, the host folds
+    M and B (float64 on the host, then f32), the epilogue keywords, and with
+    with_res a residual of the output's dtype with its res tuple."""
+    N, H, C, O, kh, s, pad, u8, per_channel, act, flag = case
+    rng = np.random.default_rng(seed)
+    if u8:
+        x = rng.integers(0, 256, (N, H, H, C)).astype(np.uint8)
+        w = rng.integers(0, 256, (O, C, kh, kh)).astype(np.uint8)
+        zp_in, zp_w, s_w = 7, 131, 0.01
+    else:
+        x = rng.integers(-127, 128, (N, H, H, C)).astype(np.int8)
+        w = rng.integers(-127, 128, (O, C, kh, kh)).astype(np.int8)
+        zp_in, zp_w = 0, 0
+        s_w = rng.uniform(0.005, 0.02, O).astype(np.float32) if per_channel else 0.01
+    s_in, s_out = 0.02, 0.05
+    bias = rng.integers(-1000, 1000, O).astype(np.int32)
+    zp_out = 9 if u8 else 0
+    sw = s_w if np.ndim(s_w) else np.full(O, s_w, np.float32)
+    M = (s_in * sw / s_out).astype(np.float32)
+    if u8:
+        cx, cw = 128 - zp_in, 128 - zp_w
+        colsum = (w.astype(np.int32) - 128).sum(axis=(1, 2, 3))
+        b0 = cx * colsum + C * kh * kh * cx * cw + bias
+    else:
+        cw, b0 = 0, bias
+    B = (b0.astype(np.float64) * M + zp_out).astype(np.float32)
+    kw_args = dict(
+        cw=cw, act=act, inv_s_out=1 / s_out, zp_out=zp_out,
+        lo=0 if u8 else -127, hi=255 if u8 else 127,
+        out_dtype="uint8" if u8 else "int8",
+    )
+    geo = dict(kh=kh, kw=kh, stride=s, pad_t=pad, pad_b=pad, pad_l=pad, pad_r=pad, zp_in=zp_in)
+    OH = (H + 2 * pad - kh) // s + 1
+    residual = res = None
+    if with_res:
+        lo, hi = kw_args["lo"], kw_args["hi"]
+        residual = rng.integers(lo, hi + 1, (N, OH, OH, O)).astype(x.dtype)
+        res = (s_out, zp_out, 0.03, 5 if u8 else 0, 0.07, 11 if u8 else 0, bool(flag))
+    return dict(x=x, w=w, u8=u8, M=M, B=B, kw_args=kw_args, geo=geo,
+                residual=residual, res=res, pointwise=kh == 1 and s == 1 and pad == 0)
+
+
+def port_qconv(inp, device, kernel=True):
+    """Run one qconv case through the port on `device`: the kernel's wrapper
+    (kernel=True) or the plain version. Returns a numpy NHWC result."""
+    from tengine_tpu_torch.ops.cuda import qconv as pq
+
+    x = torch.from_numpy(inp["x"]).to(device)
+    wk = torch.from_numpy(pq.pack_qconv_weights(inp["w"], inp["u8"])).to(device)
+    M, B = (torch.from_numpy(inp[k]).to(device) for k in ("M", "B"))
+    r = torch.from_numpy(inp["residual"]).to(device) if inp["res"] is not None else None
+    N, H, W, C = x.shape
+    O = wk.shape[0]
+    if inp["pointwise"]:
+        fn = pq.qconv1x1 if kernel else pq.qconv1x1_plain
+        out = fn(x.reshape(-1, C), wk, M, B,
+                 residual=None if r is None else r.reshape(-1, O), res=inp["res"],
+                 **inp["kw_args"])
+        out = out.reshape(N, H, W, O)
+    else:
+        fn = pq.qconv_direct if kernel else pq.qconv_direct_plain
+        out = fn(x, wk, M, B, residual=r, res=inp["res"], **inp["geo"], **inp["kw_args"])
+    return out.cpu().numpy()
+
+
+def qgemm_inputs(case, seed):
+    """Seeded numpy inputs of one qgemm_requant case: x [M, K], stored
+    weights [N, K], the host folds and the epilogue keywords."""
+    Mr, K, N, u8, act = case
+    rng = np.random.default_rng(seed)
+    if u8:
+        x = rng.integers(0, 256, (Mr, K)).astype(np.uint8)
+        w = rng.integers(0, 256, (N, K)).astype(np.uint8)
+        zp_in, zp_w, s_w = 121, 117, np.full(N, 0.01, np.float32)
+    else:
+        x = rng.integers(-127, 128, (Mr, K)).astype(np.int8)
+        w = rng.integers(-127, 128, (N, K)).astype(np.int8)
+        zp_in, zp_w = 0, 0
+        s_w = rng.uniform(0.002, 0.01, N).astype(np.float32)
+    s_in, s_out = 0.03, 0.04
+    bias = rng.integers(-2000, 2000, N).astype(np.int64)
+    zp_out = 131 if u8 else 0
+    mult = (s_in * s_w / s_out).astype(np.float32)
+    if u8:
+        cx, cw = 128 - zp_in, 128 - zp_w
+        b0 = cx * (w.astype(np.int32) - 128).sum(axis=1) + K * cx * cw + bias
+    else:
+        cw, b0 = 0, bias
+    B = (b0.astype(np.float64) * (s_in * s_w / s_out) + zp_out).astype(np.float32)
+    kw_args = dict(cw=cw, act=act, inv_s_out=1.0 / s_out, zp_out=zp_out,
+                   lo=0 if u8 else -127, hi=255 if u8 else 127,
+                   out_dtype="uint8" if u8 else "int8")
+    return dict(x=x, w=w, u8=u8, M=mult, B=B, kw_args=kw_args)
+
+
+def port_qgemm(inp, device, kernel=True):
+    from tengine_tpu_torch.ops.cuda import qgemm as pg
+
+    x = torch.from_numpy(inp["x"]).to(device)
+    wk = torch.from_numpy(pg.pack_qgemm_weights(inp["w"], inp["u8"])).to(device)
+    M, B = (torch.from_numpy(inp[k]).to(device) for k in ("M", "B"))
+    fn = pg.qgemm_requant if kernel else pg.qgemm_requant_plain
+    return fn(x, wk, M, B, **inp["kw_args"]).cpu().numpy()
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the qconv kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_res,case", [(False, c) for c in QCONV_CASES]
+                         + [(True, c) for c in QCONV_RES_CASES])
+def test_qconv_kernel_matches_plain_on_card(with_res, case):
+    """qconv_direct / qconv1x1: the kernel equals its plain version bit for
+    bit (both accumulate exactly and round the same f32 epilogue)."""
+    _need_card()
+    from tengine_tpu_torch.ops.cuda import qconv as pq
+
+    inp = qconv_inputs(case, seed=sum(case[:5]), with_res=with_res)
+    counter = pq.qconv1x1 if inp["pointwise"] else pq.qconv_direct
+    before = counter.launches
+    got = port_qconv(inp, "cuda", kernel=True)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = port_qconv(inp, "cuda", kernel=False)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QGEMM_CASES)
+def test_qgemm_kernel_matches_plain_on_card(case):
+    _need_card()
+    from tengine_tpu_torch.ops.cuda import qgemm as pg
+
+    inp = qgemm_inputs(case, seed=sum(case[:3]))
+    before = pg.qgemm_requant.launches
+    got = port_qgemm(inp, "cuda", kernel=True)
+    torch.cuda.synchronize()
+    assert pg.qgemm_requant.launches == before + 1
+    want = port_qgemm(inp, "cuda", kernel=False)
+    assert got.dtype == want.dtype and got.shape == want.shape == (case[0], case[2])
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.cuda

@@ -28,7 +28,9 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    assert "tengine_tpu_torch.ops.cuda.stem_conv" in mods
+    assert {"tengine_tpu_torch.ops.cuda.stem_conv", "tengine_tpu_torch.ops.cuda.qconv",
+            "tengine_tpu_torch.ops.cuda.qgemm", "tengine_tpu_torch.convert.darknet_frontend",
+            "tengine_tpu_torch.models.darknet_zoo"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -85,18 +87,51 @@ def test_entry_points_need_a_card_by_default():
     assert tt.quantize_graph(g, [x], scheme="int8", device="cpu") is not None
 
 
-def test_unported_settings_raise():
+def tiny_dw_graph(c=32, k=3, ir=None):
+    """input -> one depthwise k×k conv (c channels, stride 1, pad k//2),
+    built with the IR module `ir` (the port's by default)."""
+    if ir is None:
+        from tengine_tpu_torch.graph import ir
+    DType, Graph, TensorType = ir.DType, ir.Graph, ir.TensorType
+
+    rng = np.random.default_rng(3)
+    g = Graph(name="dw")
+    x = g.add_tensor("x", DType.FP32, [1, c, 8, 8], TensorType.INPUT)
+    w = g.add_tensor("w", DType.FP32, [c, 1, k, k], TensorType.CONST,
+                     data=(rng.standard_normal((c, 1, k, k)) * 0.3).astype(np.float32))
+    b = g.add_tensor("b", DType.FP32, [c], TensorType.CONST,
+                     data=(rng.standard_normal(c) * 0.1).astype(np.float32))
+    y = g.add_tensor("y", DType.FP32, [1, c, 8, 8])
+    g.add_node("InputOp", "in", [], [x.idx])
+    params = dict(
+        kernel_h=k, kernel_w=k, stride_h=1, stride_w=1, pad_h0=k // 2, pad_h1=k // 2,
+        pad_w0=k // 2, pad_w1=k // 2, dilation_h=1, dilation_w=1, group=c,
+        output_channel=c, input_channel=c, activation=-1,
+    )
+    g.add_node("Convolution", "dw", [x.idx, w.idx, b.idx], [y.idx], params=params)
+    g.inputs = [0]
+    g.outputs = [1]
+    return g
+
+
+def test_unported_settings_raise(monkeypatch):
     import tengine_tpu_torch as tt
 
-    g = _tiny_float_graph()
-    qg = tt.quantize_graph(g, [np.ones((1, 3, 8, 8), np.float32)], scheme="int8", device="cpu")
-    for opts, what in (
-        (tt.Options(quant_mode="fast", fuse_resblock=True), "qblock_chain"),
-        (tt.Options(quant_mode="fast", quant_bf16_storage=False), "qconv"),
-        (tt.Options(quant_mode="fast", quant_native="on"), "native-int8"),
+    monkeypatch.setenv("TT_DW_PALLAS", "1")
+    calib = [np.random.default_rng(0).standard_normal((1, 3, 8, 8)).astype(np.float32)]
+    qg = tt.quantize_graph(_tiny_float_graph(), calib, scheme="int8", device="cpu")
+    calib_dw = [np.random.default_rng(0).standard_normal((1, 32, 8, 8)).astype(np.float32)]
+    qdw = tt.quantize_graph(tiny_dw_graph(), calib_dw, scheme="int8", device="cpu")
+    for graph, opts, what in (
+        (qg, tt.Options(quant_mode="fast", fuse_resblock=True), "qblock_chain"),
+        # TT_DW_PALLAS at batch >= 32 on the integer-storage tier routes a
+        # depthwise conv to dw_qconv_hwcn
+        (qdw, tt.Options(quant_mode="fast", quant_bf16_storage=False, batch_size=32),
+         "dw_qconv_hwcn"),
+        (qg, tt.Options(quant_mode="fast", quant_native="on"), "native-int8"),
     ):
         with pytest.raises(NotImplementedError, match=what):
-            tt.compile_graph(qg, opts, device="cpu")
+            tt.compile_graph(graph, opts, device="cpu")
     with pytest.raises(NotImplementedError, match="eq"):
-        tt.quantize_graph(g, [np.ones((1, 3, 8, 8), np.float32)], scheme="int8",
-                          algorithm="eq", device="cpu")
+        tt.quantize_graph(_tiny_float_graph(), calib, scheme="int8", algorithm="eq",
+                          device="cpu")
