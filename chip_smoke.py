@@ -4,7 +4,8 @@ hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # the check, on one card
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one
-                                     # yolov5s batch and one yolov3 batch (A)
+                                     # yolov5s batch, one yolov3 batch (A) and
+                                     # one YOLO-Fastest batch (D, int8)
 
 Phases, in order; any failure raises and the exit code is not 0:
   1. build     nvcc builds every tengine_tpu_torch/csrc/*.cu for sm_90a, one
@@ -25,17 +26,32 @@ Phases, in order; any failure raises and the exit code is not 0:
                  B  A + pallas_qconv=False, pallas_qgemm=True: qgemm_requant
                  C  A + pallas_qconv=False: every conv on the float64 fast
                     lowering (timed only: the port's own "before").
+               Then YOLO-Fastest 320x320 (seed-0 weights, MinMax from one
+               seeded image) at batch 32 on the same integer-storage tier,
+               INT8 and then UINT8, one untimed and 3 timed batches under
+                 D  TT_DW_PALLAS=1: the 13 depthwise convs on dw_qconv, the
+                    29 1x1 convs on qconv1x1, the stem on the fast lowering
+                 E  TT_DW_PALLAS=0: the 13 on the fast lowering too (the
+                    port's own "before").
                Every kernel's launch count is set to 0 just before each
                timed run and read just after; the counts must be exact.
   4. check     every head's dequantized cosine against the port's fp32 engine
                (yolov5s > 0.95, the gate of tests/test_yolov5.py; yolov3
-               > 0.99); each net's card run (each yolov3 tier's) within
+               and YOLO-Fastest > 0.99); each net's card run (each yolov3
+               tier's, YOLO-Fastest's D under each scheme, the CPU run
+               compiled with the same Options and TT_DW_PALLAS) within
                1 LSB of the port's CPU run on the first image; yolov3's B
                and C heads against A's: within 1 LSB at img=64 batch 2, and
                at 416 (where the two lowerings' host folds round a few
                near-tie elements apart and the difference propagates) a
                dequantized cosine > 0.99, the gate each tier meets against
-               fp32.
+               fp32. YOLO-Fastest's E heads against D's the same way: at
+               img=64 batch 32 within 1 LSB under INT8 and, under UINT8
+               (where the dw route folds -zp_in*colsum*m into B in float64
+               and the fast lowering adds it as a second f32 term, so two
+               depthwise layers part by 1 LSB on a few elements in 100,000),
+               within 8 LSB with 85% of the elements equal; at 320 the
+               cosine gate.
 
 The last lines are the kernels JSON, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Nothing here imports JAX or
@@ -45,7 +61,9 @@ script fails and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -70,6 +88,19 @@ YOLOV3_TIERS = {
           {"qconv_direct": 0, "qconv1x1": 0, "qgemm_requant": 34, "stem_qconv": 0}),
     "C": (dict(pallas_qconv=False),
           {"qconv_direct": 0, "qconv1x1": 0, "qgemm_requant": 0, "stem_qconv": 0}),
+}
+# YOLO-Fastest-320 batch 32: the largest dw_qconv launch of each stride (the
+# first two depthwise convs, 160x160x32), and the tiers of phase 3c with the
+# value of TT_DW_PALLAS, the launches per forward and the convs left on the
+# fast lowering
+FASTEST_BATCH = 32
+FASTEST_DW = dict(N=32, H=160, C=32, k=3, pad=1)
+FASTEST_OPTS = dict(quant_mode="fast", quant_bf16_storage=False, batch_size=FASTEST_BATCH)
+FASTEST_TIERS = {
+    "D": ("1", {"dw_qconv": 13, "qconv1x1": 29, "qconv_direct": 0, "qgemm_requant": 0,
+                "stem_qconv": 0}, 1),
+    "E": ("0", {"dw_qconv": 0, "qconv1x1": 29, "qconv_direct": 0, "qgemm_requant": 0,
+                "stem_qconv": 0}, 14),
 }
 
 
@@ -308,6 +339,87 @@ def check_igemm_main(torch):
     return entries
 
 
+def check_dw_kernel(torch):
+    """Phase 2 for dw_qconv: bit for bit against dw_qconv_plain on the test
+    grid (tests/test_torch_cuda.py) and at YOLO-Fastest-320 batch 32's
+    largest launch of each stride, int8 and uint8; times at the stride-1
+    launch. Returns its kernels-line entry."""
+    import torch.nn.functional as F
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda import DW_CASES, DW_EXTRA_CASES, dw_inputs, port_dw
+
+    from tengine_tpu_torch.ops.cuda import dw_conv as pd
+
+    worst = 0
+    for case in DW_CASES + DW_EXTRA_CASES:
+        inp = dw_inputs(case, seed=sum(case[:5]))
+        got, want = port_dw(inp, "cuda", kernel=True), port_dw(inp, "cuda", kernel=False)
+        worst = max(worst, int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max()))
+    log(f"  dw_qconv grid: {len(DW_CASES) + len(DW_EXTRA_CASES)} cases, max|d|={worst} LSB")
+    if worst:
+        raise AssertionError(f"dw_qconv disagrees with its plain version on the grid: {worst} LSB")
+
+    d = FASTEST_DW
+    N, H, C, k, pad = d["N"], d["H"], d["C"], d["k"], d["pad"]
+    rng = np.random.default_rng(320)
+    entry = None
+    for u8 in (False, True):
+        if u8:
+            x = rng.integers(0, 256, (N, H, H, C), dtype=np.uint8)
+            w_true = rng.integers(-255, 256, (C, 1, k, k))
+            q = dict(zp_in=119, zp_out=131, lo=0.0, hi=255.0, out_u8=True)
+        else:
+            x = rng.integers(-127, 128, (N, H, H, C), dtype=np.int8)
+            w_true = rng.integers(-127, 128, (C, 1, k, k))
+            q = dict(zp_in=0, zp_out=0, lo=-127.0, hi=127.0, out_u8=False)
+        m = (rng.uniform(0.5, 1.5, C) * 50.0 / (3.0 * 73.0 * (146.0 if u8 else 73.0))).astype(np.float32)
+        colsum = w_true.reshape(C, -1).sum(axis=1)
+        b = ((rng.integers(-500, 500, C) - q["zp_in"] * colsum) * m.astype(np.float64)).astype(np.float32)
+        xd = torch.from_numpy(x).cuda()
+        wd = torch.from_numpy(pd.pack_dw_taps(w_true)).cuda()
+        md, bd = torch.from_numpy(m).cuda(), torch.from_numpy(b).cuda()
+        for stride in (1, 2):
+            run = dict(k=k, stride=stride, pad_t=pad, pad_b=pad, pad_l=pad, pad_r=pad,
+                       act=-1, s_out=0.05, **q)
+            got = pd.dw_qconv(xd, wd, md, bd, **run)
+            what = (f"dw_qconv yolofastest-320 b{N} {'u8' if u8 else 's8'} {H}x{H}x{C} s{stride} "
+                    f"-> {tuple(got.shape[1:])}")
+            err = max_lsb(torch, got, pd.dw_qconv_plain(xd, wd, md, bd, **run), what)
+            if err:
+                raise AssertionError(f"{what}: kernel disagrees with its plain version")
+            ms = cuda_ms(lambda: pd.dw_qconv(xd, wd, md, bd, **run), iters=100)
+            if u8 or stride == 2:
+                log(f"  {what}: kernel {ms:.4f} ms")
+                continue
+            plain_ms = cuda_ms(lambda: pd.dw_qconv_plain(xd, wd, md, bd, **run), iters=3, warmup=1)
+            # library yardstick: one fp16 depthwise conv2d, channels-last, the
+            # conv alone (not exact: the fp16 result rounds; no requant epilogue)
+            xh = xd.permute(0, 3, 1, 2).half().contiguous(memory_format=torch.channels_last)
+            wh = torch.from_numpy(w_true.astype(np.float16)).cuda()
+            library_ms = cuda_ms(lambda: F.conv2d(xh, wh, stride=stride, padding=pad, groups=C),
+                                 iters=20)
+            moved = xd.numel() + got.numel() + wd.numel() * 2 + 8 * C
+            entry = kernel_entry("dw_qconv", pd.SOURCE, pd.REPLACES, err, ms, plain_ms, moved,
+                                 2 * got.numel() * k * k, library_ms)
+    return entry
+
+
+@contextlib.contextmanager
+def dw_gate(value: str):
+    """TT_DW_PALLAS set to `value` while a graph compiles (kernel selection
+    reads it), then restored."""
+    before = os.environ.get("TT_DW_PALLAS")
+    os.environ["TT_DW_PALLAS"] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["TT_DW_PALLAS"]
+        else:
+            os.environ["TT_DW_PALLAS"] = before
+
+
 def dequant(torch, out, t):
     return (out.float() - float(np.asarray(t.quant.zero_points))) * float(np.asarray(t.quant.scales))
 
@@ -393,6 +505,39 @@ def check_tiers_exact_small(torch, tt, build_yolov3_graph, qmath, img=64, batch=
         check_within_lsb(f"yolov3-{img} b{batch} {tier} vs A", outs[tier], outs["A"], heads)
 
 
+def check_fastest_small(torch, tt, build_yolofastest_graph, qmath, img=64):
+    """YOLO-Fastest's tier E against D at img=64 batch 32, calibrated on the
+    CPU, so the graphs and data are those of tests/test_torch_yolofastest.py;
+    the tiers then run on the card. INT8: within 1 LSB. UINT8: within 8 LSB
+    and 85% of the elements equal: the two routes fold the input zero-point
+    term differently (module docstring), so whether they part depends on
+    whether an element meets a .5 tie. That test measures 3 LSB and 97% on
+    the graph the JAX package quantized; on this one, 0 LSB so far."""
+    g = build_yolofastest_graph(img=img)
+    rng = np.random.default_rng(1)
+    images = rng.standard_normal((FASTEST_BATCH, 3, img, img)).astype(np.float32)
+    for scheme in ("int8", "uint8"):
+        qg = tt.quantize_graph(g, [images[:1]], scheme=scheme, algorithm="minmax", device="cpu")
+        t_in = qg.tensors[qg.input_tensors[0]]
+        x = torch.from_numpy(qmath.quantize_np(images, t_in.quant, t_in.dtype)).cuda()
+        outs = {}
+        for tier, (gate, _, _) in FASTEST_TIERS.items():
+            with dw_gate(gate):
+                cg = tt.compile_graph(qg, tt.Options(**FASTEST_OPTS))
+            outs[tier] = cg(x)
+        heads = [cg.graph.tensors[t] for t in cg.output_ids]
+        what = f"yolofastest-{img} {scheme} b{FASTEST_BATCH} E vs D"
+        if scheme == "int8":
+            check_within_lsb(what, outs["E"], outs["D"], heads)
+            continue
+        for t, a, b in zip(heads, outs["E"], outs["D"]):
+            d = (a.int() - b.int()).abs()
+            equal = float((d == 0).double().mean())
+            log(f"  {what} head {t.name}: max|d|={int(d.max())} LSB, equal fraction {equal:.6f}")
+            if int(d.max()) > 8 or equal < 0.85:
+                raise AssertionError(f"{what} head {t.name}: {int(d.max())} LSB, {equal:.4f} equal")
+
+
 def main(argv) -> int:
     import torch
 
@@ -401,10 +546,11 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
     import tengine_tpu_torch as tt
-    from tengine_tpu_torch.models.darknet_zoo import build_yolov3_graph
+    from tengine_tpu_torch.models.darknet_zoo import build_yolofastest_graph, build_yolov3_graph
     from tengine_tpu_torch.models.yolov5 import build_yolov5s_graph
     from tengine_tpu_torch.ops import qmath
     from tengine_tpu_torch.ops.cuda import build
+    from tengine_tpu_torch.ops.cuda.dw_conv import dw_qconv
     from tengine_tpu_torch.ops.cuda.qconv import qconv1x1, qconv_direct
     from tengine_tpu_torch.ops.cuda.qgemm import qgemm_requant
     from tengine_tpu_torch.ops.cuda.stem_conv import stem_qconv
@@ -423,8 +569,9 @@ def main(argv) -> int:
     entries = {"stem_qconv": check_stem_kernel(torch)}
     check_igemm_grid(torch)
     entries.update(check_igemm_main(torch))
+    entries["dw_qconv"] = check_dw_kernel(torch)
     counters = {"stem_qconv": stem_qconv, "qconv_direct": qconv_direct, "qconv1x1": qconv1x1,
-                "qgemm_requant": qgemm_requant}
+                "qgemm_requant": qgemm_requant, "dw_qconv": dw_qconv}
     log(f"phase 2 kernels: {time.time() - t0:.1f} s")
 
     # 3a. main path: yolov5s-640 INT8 at batch 8
@@ -443,7 +590,7 @@ def main(argv) -> int:
     x5 = torch.from_numpy(xq5).cuda()
     log(f"  yolov5s set-up (build graph, calibrate, compile): {time.time() - t0:.1f} s")
     outs5, batch_ms, launches = drive(torch, cg5, x5, counters)
-    want = {"stem_qconv": 3, "qconv_direct": 0, "qconv1x1": 0, "qgemm_requant": 0}
+    want = {"stem_qconv": 3, "qconv_direct": 0, "qconv1x1": 0, "qgemm_requant": 0, "dw_qconv": 0}
     if launches != want:
         raise AssertionError(f"yolov5s launches {launches}, expected {want}")
     entries["stem_qconv"]["launches"] = launches["stem_qconv"]
@@ -468,7 +615,7 @@ def main(argv) -> int:
         opts = dict(quant_mode="fast", quant_bf16_storage=False, batch_size=batch, **extra)
         cg3 = tt.compile_graph(qg3, tt.Options(**opts))
         outs3, batch_ms, launches = drive(torch, cg3, x3, counters)
-        want = {name: 3 * n for name, n in per_forward.items()}
+        want = {name: 3 * n for name, n in dict(per_forward, dw_qconv=0).items()}
         if launches != want:
             raise AssertionError(f"yolov3 {tier}: launches {launches}, expected {want}")
         tiers[tier] = (cg3, outs3, opts)
@@ -479,6 +626,41 @@ def main(argv) -> int:
     entries["qconv_direct"]["launches"] = 3 * YOLOV3_TIERS["A"][1]["qconv_direct"]
     entries["qconv1x1"]["launches"] = 3 * YOLOV3_TIERS["A"][1]["qconv1x1"]
     entries["qgemm_requant"]["launches"] = 3 * YOLOV3_TIERS["B"][1]["qgemm_requant"]
+
+    # 3c. main path: YOLO-Fastest-320 at batch 32 on the integer-storage tier,
+    # the depthwise convs on dw_qconv (D) or on the fast lowering (E)
+    t0 = time.time()
+    imgf = 320
+    gf = build_yolofastest_graph(img=imgf)
+    imagesf = np.random.default_rng(0).standard_normal(
+        (FASTEST_BATCH, 3, imgf, imgf)).astype(np.float32)
+    fastest = {}
+    for scheme in ("int8", "uint8"):
+        qgf = tt.quantize_graph(gf, [imagesf[:1]], scheme=scheme, algorithm="minmax")
+        t_in = qgf.tensors[qgf.input_tensors[0]]
+        xqf = qmath.quantize_np(imagesf, t_in.quant, t_in.dtype)
+        xf = torch.from_numpy(xqf).cuda()
+        for tier, (gate, per_forward, n_fast) in FASTEST_TIERS.items():
+            t1 = time.time()
+            with dw_gate(gate):
+                cgf = tt.compile_graph(qgf, tt.Options(**FASTEST_OPTS))
+            routes = [cgf.kernels[n.name] for n in cgf.graph.nodes if n.op == "Convolution"]
+            by_route = (routes.count("lower_conv_quant_pallas_dw"),
+                        routes.count("lower_conv_quant_pallas_direct"),
+                        routes.count("lower_conv_quant_fast"))
+            if by_route != (per_forward["dw_qconv"], per_forward["qconv1x1"], n_fast):
+                raise AssertionError(f"yolofastest {scheme} {tier}: convs by route {by_route}")
+            outsf, batch_ms, launches = drive(torch, cgf, xf, counters)
+            want = {name: 3 * n for name, n in per_forward.items()}
+            if launches != want:
+                raise AssertionError(f"yolofastest {scheme} {tier}: launches {launches}, expected {want}")
+            fastest[scheme, tier] = (cgf, outsf, qgf, xqf, xf)
+            med = float(np.median(batch_ms))
+            log(f"phase 3 main path: yolofastest-{imgf} {scheme} batch {FASTEST_BATCH} tier {tier} "
+                f"(TT_DW_PALLAS={gate}): ms/batch {batch_ms} (median {med:.3f}), "
+                f"{FASTEST_BATCH * 1e3 / med:.1f} img/s, launches {launches} [{time.time() - t1:.1f} s]")
+    entries["dw_qconv"]["launches"] = 3 * FASTEST_TIERS["D"][1]["dw_qconv"]
+    log(f"  yolofastest in all: {time.time() - t0:.1f} s")
 
     # 4. correctness: fp32 engine on the card, and the port's CPU run
     t0 = time.time()
@@ -502,11 +684,29 @@ def main(argv) -> int:
         couts3 = tt.compile_graph(qg3, tt.Options(**dict(opts, batch_size=1)), device="cpu").run(xq3[:1])
         log(f"  yolov3-{img3} {tier} on the CPU, image 0: {time.time() - t1:.1f} s")
         check_within_lsb(f"yolov3 {tier} card vs CPU (image 0)", [o[:1] for o in outs3], couts3, heads3)
+
+    foutsf = tt.compile_graph(gf, tt.Options(precision="fp32", batch_size=FASTEST_BATCH))(
+        torch.from_numpy(imagesf).cuda())
+    for scheme in ("int8", "uint8"):
+        cgd, outsd, qgf, xqf, _ = fastest[scheme, "D"]
+        headsf = [cgd.graph.tensors[t] for t in cgd.output_ids]
+        out_dtype = torch.uint8 if scheme == "uint8" else torch.int8
+        check_heads(torch, f"yolofastest {scheme} D", headsf, outsd, foutsf, 0.99, out_dtype)
+        check_tiers_agree(torch, f"yolofastest-{imgf} {scheme} E vs D", fastest[scheme, "E"][1],
+                          outsd, headsf)
+        with dw_gate(FASTEST_TIERS["D"][0]):
+            cg_cpu = tt.compile_graph(qgf, tt.Options(**FASTEST_OPTS), device="cpu")
+        if cg_cpu.kernels != cgd.kernels:
+            raise AssertionError(f"yolofastest {scheme} D: the CPU compile took other routes")
+        check_within_lsb(f"yolofastest {scheme} D card vs CPU (image 0)", [o[:1] for o in outsd],
+                         cg_cpu.run(xqf[:1]), headsf)
+    check_fastest_small(torch, tt, build_yolofastest_graph, qmath)
     log(f"phase 4 check: {time.time() - t0:.1f} s")
 
     if "--profile" in argv:
         profile_batch(torch, cg5, x5)
         profile_batch(torch, cg3a, x3)
+        profile_batch(torch, fastest["int8", "D"][0], fastest["int8", "D"][4])
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "tengine_tpu"))
     if leaked:
@@ -545,7 +745,9 @@ def profile_batch(torch, cg, x_dev) -> None:
     log(f"profile: one batch, wall {wall_ms:.3f} ms, kernels {total:.3f} ms, "
         f"device idle {100 * (1 - total / wall_ms):.1f}% of the wall time, "
         f"{sum(c for _, _, c in dev)} kernel launches")
-    for key, ms, count in sorted(dev, key=lambda r: -r[1])[:15]:
+    ranked = sorted(dev, key=lambda r: -r[1])
+    own = [r for r in ranked[15:] if "qconv" in r[0] and "at::" not in r[0]]
+    for key, ms, count in ranked[:15] + own:  # the top 15, then the port's own kernels below them
         log(f"  {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  x{count:<4d} {key[:90]}")
 
 

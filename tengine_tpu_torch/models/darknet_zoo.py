@@ -6,16 +6,22 @@ The cfg text describes the published architecture (layer/filter facts);
 weights are seeded random like the reference's weight-stripped benchmark
 tmfiles.
 
-PyTorch port: the YOLOv3 subset of tengine_tpu/models/darknet_zoo.py, copied
-so that both packages build the same IR from the same seed. yolov4-tiny,
-yolo-fastest and decode_darknet_yolo are not ported yet.
+PyTorch port: the YOLOv3 and YOLO-Fastest graphs of
+tengine_tpu/models/darknet_zoo.py, copied so that both packages build the
+same IR from the same seed. yolov4-tiny and decode_darknet_yolo are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["build_yolov3_graph", "yolov3_cfg"]
+__all__ = [
+    "build_yolofastest_graph",
+    "build_yolov3_graph",
+    "yolofastest_cfg",
+    "yolov3_cfg",
+]
 
 
 def _seed_weights(g, seed: int = 0):
@@ -95,4 +101,65 @@ def build_yolov3_graph(img: int = 416, classes: int = 80, seed: int = 0):
 
     return _seed_weights(
         from_darknet(yolov3_cfg(img, classes), None, name="yolov3"), seed
+    )
+
+
+# ---------------------------------------------------------------------------
+# YOLO-Fastest 1.1 family (tm_yolofastest.cpp / test_model_yolofastest.cpp):
+# ultra-light detector — inverted-residual depthwise bottlenecks ("EP"
+# blocks: 1x1 expand -> 3x3 depthwise -> 1x1 linear project, shortcut at
+# stride 1) with a 2-level light FPN and two anchor heads (strides 32/16).
+# ---------------------------------------------------------------------------
+
+_YOLOFASTEST_ANCHORS = "12,18, 37,49, 52,132, 115,73, 119,199, 242,238"
+
+
+def yolofastest_cfg(img: int = 320, classes: int = 80) -> str:
+    """Generate a YOLO-Fastest-1.1-shaped cfg (published stage widths
+    8/16/32/48/96, expansion ~4-6, dw-separable throughout)."""
+
+    def ep(cin, cout, stride, expand):
+        mid = cin * expand
+        s = _cfg_conv(mid, 1)  # expand
+        # depthwise: darknet expresses it as groups == filters
+        s += (
+            f"[convolutional]\nbatch_normalize=1\nfilters={mid}\nsize=3\n"
+            f"stride={stride}\npad=1\ngroups={mid}\nactivation=leaky\n\n"
+        )
+        s += _cfg_conv(cout, 1, act="linear")  # linear project
+        if stride == 1 and cin == cout:
+            s += "[shortcut]\nfrom=-4\nactivation=linear\n\n"
+        return s
+
+    c = f"[net]\nwidth={img}\nheight={img}\nchannels=3\n\n"
+    c += _cfg_conv(8, 3, 2)  # stem /2
+    c += ep(8, 8, 1, 4)
+    c += ep(8, 16, 2, 4) + ep(16, 16, 1, 4)            # /4
+    c += ep(16, 32, 2, 4) + ep(32, 32, 1, 4)           # /8
+    c += ep(32, 48, 2, 4) + ep(48, 48, 1, 4) + ep(48, 48, 1, 4)   # /16
+    # tap for the stride-16 head is the last /16 layer
+    c += ep(48, 96, 2, 6) + ep(96, 96, 1, 6) + ep(96, 96, 1, 6)   # /32
+    out_f = 3 * (5 + classes)
+    # head 1 (stride 32): dw-separable conv stack + 1x1 predictor
+    c += ep(96, 96, 1, 2)
+    c += _cfg_conv(out_f, 1, act="linear", bn=False)
+    c += _cfg_yolo("3,4,5", anchors=_YOLOFASTEST_ANCHORS, classes=classes, num=6)
+    # route back to the end of the /32 body (layer 40: stem=0, ep blocks are
+    # 3 sections at stride 2 / 4 at stride 1 -> body ends at 40, head stack
+    # 41-44, predictor 45, yolo 46, this route is 47), upsample, concat with
+    # the /16 tap (layer 29, end of the last 48-channel block)
+    c += "[route]\nlayers=-7\n\n" + _cfg_conv(48, 1) + "[upsample]\nstride=2\n\n"
+    c += "[route]\nlayers=-1,29\n\n"
+    c += ep(96, 96, 1, 2)
+    c += _cfg_conv(out_f, 1, act="linear", bn=False)
+    c += _cfg_yolo("0,1,2", anchors=_YOLOFASTEST_ANCHORS, classes=classes, num=6)
+    return c
+
+
+def build_yolofastest_graph(img: int = 320, classes: int = 80, seed: int = 0):
+    """YOLO-Fastest IR via the darknet front-end, seeded random weights."""
+    from ..convert.darknet_frontend import from_darknet
+
+    return _seed_weights(
+        from_darknet(yolofastest_cfg(img, classes), None, name="yolofastest"), seed
     )

@@ -1,6 +1,7 @@
-"""Quantized execution kernels (INT8 per-channel) — PyTorch port of the
-subset of tengine_tpu/ops/quantized.py that the yolov5s INT8 path and the
-yolov3 integer-storage path (quant_bf16_storage=False) run.
+"""Quantized execution kernels (INT8 per-channel, UINT8 per-tensor) — PyTorch
+port of the subset of tengine_tpu/ops/quantized.py that the yolov5s INT8
+path, the yolov3 integer-storage path (quant_bf16_storage=False) and the
+YOLO-Fastest depthwise path (INT8 and UINT8) run.
 
 Two tiers, mirroring the reference's ref-vs-optimized kernel split:
 
@@ -16,15 +17,12 @@ Two tiers, mirroring the reference's ref-vs-optimized kernel split:
 
   * SCORE_STATIC kernel routes — hand-written CUDA kernels (ops/cuda/)
     behind the JAX engine's predicates and scores, unchanged, so both
-    engines route every node alike: the stem, qconv_direct / qconv1x1 and
-    qgemm_requant.
+    engines route every node alike: the stem, qconv_direct / qconv1x1,
+    qgemm_requant and the depthwise dw_qconv.
 
 Activations are stored as their integer dtype everywhere (the JAX engine's
-bf16 storage holds the same values). A kernel the JAX engine would route to
-but the port does not have yet (dw_qconv_hwcn) registers with the same
-predicate and raises NotImplementedError naming it, so no graph silently
-takes another path. Any op without a quant-aware kernel runs under the
-engine's generic dequant -> fp32 kernel -> requant wrapper
+bf16 storage holds the same values). Any op without a quant-aware kernel
+runs under the engine's generic dequant -> fp32 kernel -> requant wrapper
 (executor/engine.py).
 """
 
@@ -37,6 +35,7 @@ import torch
 
 from ..graph.ir import DType, QuantParam
 from . import qmath
+from .cuda.dw_conv import dw_qconv, pack_dw_taps
 from .cuda.qconv import pack_qconv_weights, qconv1x1, qconv_direct
 from .cuda.qgemm import pack_qgemm_weights, qgemm_requant
 from .cuda.stem_conv import pack_stem_weights, stem_qconv
@@ -74,17 +73,6 @@ def _f32(x: torch.Tensor, v: float) -> torch.Tensor:
     every device (CUDA turns division by a host scalar into a multiply by
     its reciprocal)."""
     return torch.full((), v, dtype=torch.float32, device=x.device)
-
-
-def _unported(kernel: str, where: str):
-    def lower(ctx: LowerCtx, *args):
-        raise NotImplementedError(
-            f"node {ctx.node.name!r} routes to the {kernel} kernel ({where}), "
-            "which the PyTorch port does not have yet"
-        )
-
-    lower.__name__ = f"lower_{kernel}_unported"
-    return lower
 
 
 # ---------------------------------------------------------------------------
@@ -134,12 +122,29 @@ def _relaxed_fused_add(ctx: LowerCtx) -> bool:
 def _conv_quant_common(ctx: LowerCtx, x: TArr):
     """Shared quantized conv: returns (acc_f32 NHWC, params pack).
 
-    The int8 branch of tengine_tpu/ops/quantized.py:_conv_quant_common —
-    symmetric INT8 weights, exact integer accumulation. The XLA conv there
-    accumulates s8×s8 in int32; here a float64 conv does, which is exact
-    while every partial sum stays below 2^53 (K·127² is at most ~10^8 in
-    any conv net). A float32 conv would not be: it stops being exact once
-    K·127² >= 2^24, K > 1040, and yolov5s reaches K = 9216."""
+    Two branches, as in tengine_tpu/ops/quantized.py:_conv_quant_common.
+
+    Symmetric INT8 weights: exact integer accumulation of the raw values.
+    The XLA conv there accumulates s8×s8 in int32; here a float64 conv does,
+    which is exact while every partial sum stays below 2^53 (K·127² is at
+    most ~10^8 in any conv net). A float32 conv would not be: it stops being
+    exact once K·127² >= 2^24, K > 1040, and yolov5s reaches K = 9216. A
+    nonzero zp_in is corrected by the compile-time constant
+    -zp_in·conv(ones, w)·m.
+
+    UINT8 / asymmetric weights: the conv of the shifted values
+    (x - zp_in)·(w - zp_w). The JAX branch feeds them to the conv as bf16
+    (9-bit integers, exact) and sums in f32, which is exact while
+    K·255² < 2^24, K <= 258: every conv that takes this branch on the
+    YOLO-Fastest path (the stem, K = 27; the depthwise convs, K = 9). The
+    float64 conv here computes those same sums. For a larger K the JAX sum
+    rounds in an order that is XLA's own and this one stays exact, so such a
+    conv is held to 1 LSB, not to the bit. The JAX branch's width fold and
+    optimization barrier are layout and scheduling only and have no
+    counterpart. A depthwise conv with zp_in != 0 keeps the JAX branch's
+    dw_zp_fold arithmetic: the raw input padded with zp_in, and the constant
+    f32(-zp_in·colsum(w - zp_w)·m) added after acc·M + B as a separate f32
+    add (the sixth pack entry); that order decides .5 ties."""
     p = ctx.params
     group = p["group"]
     dil_h, dil_w = p["dilation_h"], p["dilation_w"]
@@ -172,16 +177,31 @@ def _conv_quant_common(ctx: LowerCtx, x: TArr):
     w_scales = _wscales(w_q, out_c)
     zp_w = int(np.asarray(w_q.zero_points).reshape(-1)[0]) if not w_q.per_channel else 0
 
+    strides = (p["stride_h"], p["stride_w"])
     if not (t_in.dtype == DType.INT8 and t_w.dtype == DType.INT8 and zp_w == 0):
-        raise NotImplementedError(
-            f"node {ctx.node.name!r}: the uint8 / asymmetric-weight fast branch "
-            "(tengine_tpu/ops/quantized.py:265-397) is not ported yet"
-        )
+        w = ctx.weight(1, lambda a: a.astype(np.float64) - zp_w, tag="oihw_zshift_f64")
+        xf = xn.to(torch.float64)
+        is_dw = group > 1 and group == out_c and int(t_w.shape[1]) == 1
+        if is_dw and zp_in != 0:
+            (pt, pb), (pl_, pr) = pads
+            xs = torch.nn.functional.pad(xf, (0, 0, pl_, pr, pt, pb), value=float(zp_in))
+            acc = conv2d_nhwc(xs, w, ((0, 0), (0, 0)), strides, (dil_h, dil_w), group)
+            s_out_f = float(np.asarray(out_q.scales).reshape(-1)[0])
+
+            def _corr():
+                w_raw = ctx.const_data(1).astype(np.int64)  # [C, 1, k, k]
+                colsum = (w_raw - zp_w).sum(axis=(1, 2, 3))
+                m = s_in * w_scales.astype(np.float64) / s_out_f
+                return (-zp_in * colsum * m).astype(np.float32)
+
+            dw_corr = ctx.get_param("dwzp_bm", _corr)
+            return acc.to(torch.float32), (s_in, w_scales, out_q, t_out.dtype, p, dw_corr)
+        acc = conv2d_nhwc(xf - float(zp_in), w, pads, strides, (dil_h, dil_w), group)
+        return acc.to(torch.float32), (s_in, w_scales, out_q, t_out.dtype, p, None)
     w = ctx.weight(1, lambda a: np.asarray(a, np.float64), tag="oihw_f64")
     # zero padding in the integer domain; a nonzero zp_in is corrected below
     acc = conv2d_nhwc(
-        xn.to(torch.float64), w, pads, (p["stride_h"], p["stride_w"]),
-        (dil_h, dil_w), group,
+        xn.to(torch.float64), w, pads, strides, (dil_h, dil_w), group,
     ).to(torch.float32)
     if zp_in != 0:
         # conv(x - zp, w) = conv(x, w) - zp * conv(ones, w): a compile-time
@@ -454,9 +474,56 @@ def _pallas_stem_ok(ctx: LowerCtx) -> bool:
     )
 
 
-register_op("Convolution", score=SCORE_STATIC + 3, predicate=_pallas_dw_ok, quant=True)(
-    _unported("dw_qconv_hwcn", "tengine_tpu/ops/pallas/dw_conv.py:243")
-)
+@register_op("Convolution", score=SCORE_STATIC + 3, predicate=_pallas_dw_ok, quant=True)
+def lower_conv_quant_pallas_dw(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """Depthwise conv + requant in one CUDA kernel (ops/cuda/dw_conv.py):
+    exact integer accumulation of the raw values with zp_in borders, the
+    zero-point correction folded into B on the host."""
+    p = ctx.params
+    t_in, t_w, t_out = ctx.in_tensor(0), ctx.in_tensor(1), ctx.out_tensor(0)
+    out_c = int(t_w.shape[0])
+    k = p["kernel_h"]
+    s_in = float(np.asarray(t_in.quant.scales).reshape(-1)[0])
+    zp_in = int(np.asarray(t_in.quant.zero_points).reshape(-1)[0])
+    w_scales = _wscales(t_w.quant, out_c)
+    s_out = float(np.asarray(t_out.quant.scales).reshape(-1)[0])
+    zp_out = int(np.asarray(t_out.quant.zero_points).reshape(-1)[0])
+    zp_w = (
+        0
+        if t_w.quant.per_channel
+        else int(np.asarray(t_w.quant.zero_points).reshape(-1)[0])
+    )
+
+    def w_taps():
+        # true tap values w - zp_w, [C, 1, k, k] -> [k*k, Cp] int16
+        return pack_dw_taps(ctx.const_data(1).astype(np.float32) - zp_w)
+
+    def mvec():
+        return (s_in * w_scales / s_out).astype(np.float32)
+
+    def bvec():
+        w_raw = ctx.const_data(1).astype(np.float64)
+        colsum = (w_raw - zp_w).reshape(out_c, -1).sum(axis=1)
+        b = ctx.const_data(2).astype(np.float64) if ctx.num_inputs > 2 else 0.0
+        m = s_in * w_scales.astype(np.float64) / s_out
+        return ((b - zp_in * colsum) * m).astype(np.float32)
+
+    wf = ctx.get_param("dwp_w", w_taps)
+    M = ctx.get_param("dwp_m", mvec)
+    B = ctx.get_param("dwp_b", bvec)
+
+    xn = as_nhwc(x).contiguous()
+    n, in_h, in_w, _ = xn.shape
+    (pt, pb), (pl_, pr) = _conv_pads(in_h, in_w, p, k, k)
+    lo, hi = qmath.qrange(t_out.dtype, t_out.quant)
+    out = dw_qconv(
+        xn, wf, M, B,
+        k=k, stride=p["stride_h"], pad_t=int(pt), pad_b=int(pb), pad_l=int(pl_),
+        pad_r=int(pr), zp_in=zp_in, zp_out=zp_out, act=p.get("activation", -1),
+        s_out=s_out, lo=float(lo), hi=float(hi),
+        out_u8=t_out.dtype == DType.UINT8,
+    )
+    return nhwc(out)
 
 
 @register_op("Convolution", score=SCORE_STATIC + 2, predicate=_pallas_stem_ok, quant=True)

@@ -1,8 +1,9 @@
 """Tests that need an NVIDIA card: each hand-written CUDA kernel of the port
 against its plain PyTorch version, on the card. They skip where
 torch.cuda.is_available() is false. The seeded input grids live here and
-tests/test_torch_stem.py and tests/test_torch_qconv.py hold the plain
-versions to the Pallas kernels with them on the CPU. This file imports
+tests/test_torch_stem.py, tests/test_torch_qconv.py and
+tests/test_torch_dwconv.py hold the plain versions to the Pallas kernels
+with them on the CPU. This file imports
 neither JAX nor the JAX package, so it also runs on a machine without them:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -201,9 +202,105 @@ def port_qgemm(inp, device, kernel=True):
     return fn(x, wk, M, B, **inp["kw_args"]).cpu().numpy()
 
 
+# dw_qconv: the grid of tests/test_dw_conv_pallas.py:57-69 with symmetric
+# pads, then its TF-style pads case (:105), then what that grid lacks: C not
+# a multiple of 32 (nor of 4), N = 1, odd H at stride 2 with the bottom pad
+# consumed, uint8 with taps beyond int8, k = 5 on a ragged C, and the clip
+# activation.
+#   N, H, C, k, stride, (pad_t, pad_b, pad_l, pad_r), zp_in, zp_out, act, u8
+DW_CASES = [
+    (4, 16, 32, 3, 1, (1, 1, 1, 1), 0, 0, -1, False),
+    (4, 16, 32, 3, 2, (1, 1, 1, 1), 0, 0, -1, False),
+    (4, 16, 256, 3, 1, (1, 1, 1, 1), 0, 3, 0, False),
+    (4, 16, 256, 3, 2, (1, 1, 1, 1), -7, 5, -1, False),
+    (4, 16, 32, 3, 1, (1, 1, 1, 1), -12, -3, 6, False),
+    (4, 16, 32, 5, 1, (2, 2, 2, 2), 0, 0, -1, False),
+    (4, 16, 32, 5, 2, (2, 2, 2, 2), -4, 2, -1, False),
+    (4, 16, 32, 3, 1, (1, 1, 1, 1), 128, 128, 0, True),
+    (4, 14, 64, 3, 1, (1, 1, 1, 1), 0, 0, -1, False),
+    (4, 14, 64, 3, 2, (1, 1, 1, 1), 0, 0, -1, False),
+    (4, 16, 32, 3, 2, (0, 1, 0, 1), 0, 0, -1, False),
+]
+DW_EXTRA_CASES = [
+    (2, 12, 24, 3, 1, (1, 1, 1, 1), 0, 0, -1, False),
+    (1, 16, 32, 3, 2, (1, 1, 1, 1), 0, 0, 0, False),
+    (2, 15, 32, 3, 2, (1, 1, 1, 1), -5, 4, -1, False),
+    (2, 15, 32, 3, 2, (0, 1, 0, 1), 9, -2, -1, False),
+    (2, 12, 24, 3, 2, (1, 1, 1, 1), 119, 131, 6, True),
+    (3, 11, 30, 5, 2, (2, 2, 2, 2), 77, 90, -1, True),
+    (2, 9, 7, 5, 1, (2, 2, 2, 2), -3, 0, 1, False),
+]
+
+
+def dw_inputs(case, seed):
+    """Seeded numpy inputs of one dw_qconv case, as
+    tests/test_dw_conv_pallas.py makes them: raw x NHWC, true tap values
+    [C, 1, k, k] (beyond int8 on a uint8 case, as w_q - zp_w is), M, the
+    folded B = (bias - zp_in·colsum)·M without zp_out, and the keywords."""
+    N, H, C, k, s, pads, zp_in, zp_out, act, u8 = case
+    rng = np.random.default_rng(seed)
+    if u8:
+        x = rng.integers(0, 256, (N, H, H, C)).astype(np.uint8)
+        w = rng.integers(-255, 256, (C, 1, k, k)).astype(np.int32)
+    else:
+        x = rng.integers(-128, 128, (N, H, H, C)).astype(np.int8)
+        w = rng.integers(-100, 101, (C, 1, k, k)).astype(np.int32)
+    M = rng.uniform(0.001, 0.01, C).astype(np.float32)
+    if u8:
+        M = M * np.float32(0.25)
+    colsum = w.reshape(C, -1).sum(axis=1)
+    bias = rng.integers(-1000, 1000, C).astype(np.float64)
+    B = ((bias - zp_in * colsum) * M.astype(np.float64)).astype(np.float32)
+    lo, hi = (0, 255) if u8 else (-128, 127)
+    pt, pb, pl, pr = pads
+    kw_args = dict(k=k, stride=s, pad_t=pt, pad_b=pb, pad_l=pl, pad_r=pr, zp_in=zp_in,
+                   zp_out=zp_out, act=act, s_out=0.05, lo=float(lo), hi=float(hi), out_u8=u8)
+    return dict(x=x, w=w, M=M, B=B, kw_args=kw_args)
+
+
+def port_dw(inp, device, kernel=True):
+    """Run one dw_qconv case through the port on `device`: the kernel's
+    wrapper (kernel=True) or the plain version. Returns a numpy NHWC result."""
+    from tengine_tpu_torch.ops.cuda import dw_conv as pd
+
+    x = torch.from_numpy(inp["x"]).to(device)
+    w = torch.from_numpy(pd.pack_dw_taps(inp["w"])).to(device)
+    M, B = (torch.from_numpy(inp[k]).to(device) for k in ("M", "B"))
+    fn = pd.dw_qconv if kernel else pd.dw_qconv_plain
+    return fn(x, w, M, B, **inp["kw_args"]).cpu().numpy()
+
+
+def dw_oracle(inp):
+    """dw_qconv in numpy alone: int64 window sums of the zp_in-padded input,
+    then the f32 epilogue op by op (numpy rounds each f32 op once)."""
+    a = inp["kw_args"]
+    k, s = a["k"], a["stride"]
+    x = np.pad(inp["x"].astype(np.int64),
+               ((0, 0), (a["pad_t"], a["pad_b"]), (a["pad_l"], a["pad_r"]), (0, 0)),
+               constant_values=a["zp_in"])
+    w = inp["w"][:, 0].astype(np.int64)  # [C, k, k]
+    OH = (x.shape[1] - k) // s + 1
+    OW = (x.shape[2] - k) // s + 1
+    acc = np.zeros((x.shape[0], OH, OW, x.shape[3]), np.int64)
+    for ky in range(k):
+        for kx in range(k):
+            acc += x[:, ky:ky + (OH - 1) * s + 1:s, kx:kx + (OW - 1) * s + 1:s, :] * w[:, ky, kx]
+    q = acc.astype(np.float32) * inp["M"] + inp["B"]
+    act = a["act"]
+    if act == 1:
+        q = np.clip(q, np.float32(-1.0 / a["s_out"]), np.float32(1.0 / a["s_out"]))
+    elif act >= 0:
+        q = np.maximum(q, np.float32(0))
+        if act > 0:
+            q = np.minimum(q, np.float32(act / a["s_out"]))
+    r = np.sign(q) * np.floor(np.abs(q) + np.float32(0.5))
+    y = np.clip(r + np.float32(a["zp_out"]), a["lo"], a["hi"])
+    return y.astype(np.uint8 if a["out_u8"] else np.int8)
+
+
 def _need_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the qconv kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: a CUDA kernel has no CPU mode")
 
 
 @pytest.mark.cuda
@@ -222,6 +319,25 @@ def test_qconv_kernel_matches_plain_on_card(with_res, case):
     torch.cuda.synchronize()
     assert counter.launches == before + 1
     want = port_qconv(inp, "cuda", kernel=False)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DW_CASES + DW_EXTRA_CASES,
+                         ids=[str(c) for c in DW_CASES + DW_EXTRA_CASES])
+def test_dw_kernel_matches_plain_on_card(case):
+    """dw_qconv: the kernel equals its plain version bit for bit (both sum
+    exactly and round the same f32 epilogue)."""
+    _need_card()
+    from tengine_tpu_torch.ops.cuda.dw_conv import dw_qconv
+
+    inp = dw_inputs(case, seed=sum(case[:5]))
+    before = dw_qconv.launches
+    got = port_dw(inp, "cuda", kernel=True)
+    torch.cuda.synchronize()
+    assert dw_qconv.launches == before + 1
+    want = port_dw(inp, "cuda", kernel=False)
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
 

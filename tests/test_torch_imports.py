@@ -29,7 +29,8 @@ def _port_modules():
 def test_port_imports_no_jax():
     mods = _port_modules()
     assert {"tengine_tpu_torch.ops.cuda.stem_conv", "tengine_tpu_torch.ops.cuda.qconv",
-            "tengine_tpu_torch.ops.cuda.qgemm", "tengine_tpu_torch.convert.darknet_frontend",
+            "tengine_tpu_torch.ops.cuda.qgemm", "tengine_tpu_torch.ops.cuda.dw_conv",
+            "tengine_tpu_torch.convert.darknet_frontend",
             "tengine_tpu_torch.models.darknet_zoo"} <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -114,24 +115,45 @@ def tiny_dw_graph(c=32, k=3, ir=None):
     return g
 
 
+def test_kernel_wrappers_refuse_other_devices():
+    """A wrapper takes its plain version only for a CPU (or meta) tensor; the
+    dw wrapper checks what its kernel takes before it would launch."""
+    from tengine_tpu_torch.ops.cuda import dw_conv as pd
+
+    w = np.zeros((8, 1, 3, 3), np.float32)
+    w[:, 0, 1, 1] = 1
+    x = torch.arange(2 * 4 * 4 * 8, dtype=torch.int32).reshape(2, 4, 4, 8).to(torch.int8)
+    args = (torch.from_numpy(pd.pack_dw_taps(w)), torch.ones(8), torch.zeros(8))
+    out = pd.dw_qconv(x, *args, k=3, pad_t=1, pad_b=1, pad_l=1, pad_r=1)
+    assert pd.dw_qconv.launches == 0 and torch.equal(out, x)  # identity taps, M = 1
+    meta = pd.dw_qconv(x.to("meta"), *(a.to("meta") for a in args), k=3, stride=2, pad_t=1,
+                       pad_b=1, pad_l=1, pad_r=1)
+    assert meta.shape == (2, 2, 2, 8) and meta.dtype == torch.int8
+    with pytest.raises(ValueError, match="k in"):
+        pd._launch(x, *args, k=7, stride=1, pad_t=3, pad_b=3, pad_l=3, pad_r=3, zp_in=0,
+                   zp_out=0, act=-1, s_out=1.0, lo=-128.0, hi=127.0, out_u8=False)
+
+
 def test_unported_settings_raise(monkeypatch):
     import tengine_tpu_torch as tt
 
     monkeypatch.setenv("TT_DW_PALLAS", "1")
     calib = [np.random.default_rng(0).standard_normal((1, 3, 8, 8)).astype(np.float32)]
     qg = tt.quantize_graph(_tiny_float_graph(), calib, scheme="int8", device="cpu")
-    calib_dw = [np.random.default_rng(0).standard_normal((1, 32, 8, 8)).astype(np.float32)]
-    qdw = tt.quantize_graph(tiny_dw_graph(), calib_dw, scheme="int8", device="cpu")
     for graph, opts, what in (
         (qg, tt.Options(quant_mode="fast", fuse_resblock=True), "qblock_chain"),
-        # TT_DW_PALLAS at batch >= 32 on the integer-storage tier routes a
-        # depthwise conv to dw_qconv_hwcn
-        (qdw, tt.Options(quant_mode="fast", quant_bf16_storage=False, batch_size=32),
-         "dw_qconv_hwcn"),
+        (qg, tt.Options(quant_mode="fast", stem_s2d=True), "stem_s2d"),
         (qg, tt.Options(quant_mode="fast", quant_native="on"), "native-int8"),
     ):
         with pytest.raises(NotImplementedError, match=what):
             tt.compile_graph(graph, opts, device="cpu")
+    # TT_DW_PALLAS at batch >= 32 on the integer-storage tier routes a
+    # depthwise conv to the dw kernel: ported, so it compiles and names it
+    calib_dw = [np.random.default_rng(0).standard_normal((1, 32, 8, 8)).astype(np.float32)]
+    qdw = tt.quantize_graph(tiny_dw_graph(), calib_dw, scheme="int8", device="cpu")
+    cg = tt.compile_graph(
+        qdw, tt.Options(quant_mode="fast", quant_bf16_storage=False, batch_size=32), device="cpu")
+    assert cg.kernels["dw"] == "lower_conv_quant_pallas_dw"
     with pytest.raises(NotImplementedError, match="eq"):
         tt.quantize_graph(_tiny_float_graph(), calib, scheme="int8", algorithm="eq",
                           device="cpu")
