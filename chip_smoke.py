@@ -4,8 +4,9 @@ hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # the check, on one card
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one
-                                     # yolov5s batch, one yolov3 batch (A) and
-                                     # one YOLO-Fastest batch (D, int8)
+                                     # yolov5s batch, one yolov3 batch (A), one
+                                     # YOLO-Fastest batch (D, int8) and one
+                                     # ResNet-50 batch (F)
 
 Phases, in order; any failure raises and the exit code is not 0:
   1. build     nvcc builds every tengine_tpu_torch/csrc/*.cu for sm_90a, one
@@ -14,7 +15,9 @@ Phases, in order; any failure raises and the exit code is not 0:
                test grid (tests/test_torch_cuda.py) and at the main path's
                largest launch shape of its kind; kernel, plain and
                library-call times (CUDA events) and the least time the card
-               could take (bound).
+               could take (bound). qblock_chain: the grid, exact and
+               relaxed, under every spatial tile, then ResNet-50's stage-1
+               and stage-3 chains at batch 32, 0 differing elements required.
   3. main path yolov5s 640x640 INT8 (MinMax), seed-0 weights: quantize_graph
                on the card with one seeded calibration image, compile_graph
                at batch 8, one untimed forward, 3 timed batches. Then
@@ -33,6 +36,20 @@ Phases, in order; any failure raises and the exit code is not 0:
                     29 1x1 convs on qconv1x1, the stem on the fast lowering
                  E  TT_DW_PALLAS=0: the 13 on the fast lowering too (the
                     port's own "before").
+               Then ResNet-50 224x224 INT8 (build_resnet50_graph below:
+               the published widths and depths, seed-0 weights, MinMax from
+               one seeded image) at batch 32, one untimed and 3 timed batches
+               under each of
+                 F  Options(quant_mode="fast", fuse_resblock=True,
+                    quant_relaxed=False): the 16 bottlenecks as 4
+                    FusedResBlockChain nodes (3, 4, 6, 3 blocks) on
+                    qblock_chain, one launch per chain, exact epilogue;
+                    stem and FC on the fast lowerings
+                 R  F + quant_relaxed=True, quant_native="off": the kernel's
+                    relaxed epilogue, one rounding per block
+                 G  F without fuse_resblock: the 52 bottleneck convs on the
+                    fast lowering with fuse_conv_add (timed only: the port's
+                    own "before").
                Every kernel's launch count is set to 0 just before each
                timed run and read just after; the counts must be exact.
   4. check     every head's dequantized cosine against the port's fp32 engine
@@ -51,7 +68,17 @@ Phases, in order; any failure raises and the exit code is not 0:
                and the fast lowering adds it as a second f32 term, so two
                depthwise layers part by 1 LSB on a few elements in 100,000),
                within 8 LSB with 85% of the elements equal; at 320 the
-               cosine gate.
+               cosine gate. ResNet-50: the logits' dequantized cosine against
+               the fp32 engine > 0.99 under F, R and G, top-1 agreement
+               printed; F on the card within 1 LSB of the port's CPU run on
+               the first image; G against F within 1 LSB at img=32 with
+               widths/8 and depths (2, 2, 2, 2), and by cosine > 0.99 at 224;
+               R against F by cosine > 0.99 at 224 and, at the output of the
+               full-width stage-1 chain (img=64, 3 bottlenecks, no head), by
+               the relaxed tier's own bounds (tests/test_relaxed_tier.py: at
+               most 6 LSB, under 10% beyond 1 LSB, under 1% beyond 3; 16
+               blocks on, at the logits, each skipped rounding has spread and
+               those bounds no longer describe it).
 
 The last lines are the kernels JSON, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Nothing here imports JAX or
@@ -102,6 +129,100 @@ FASTEST_TIERS = {
     "E": ("0", {"dw_qconv": 0, "qconv1x1": 29, "qconv_direct": 0, "qgemm_requant": 0,
                 "stem_qconv": 0}, 14),
 }
+
+
+RESNET_BATCH = 32
+# the tiers of phase 3d and qblock_chain's launches per forward (one per
+# FusedResBlockChain node)
+RESNET_TIERS = {
+    "F": (dict(fuse_resblock=True, quant_relaxed=False), 4),
+    "R": (dict(fuse_resblock=True, quant_relaxed=True, quant_native="off"), 4),
+    "G": (dict(quant_relaxed=False), 0),
+}
+# ResNet-50-224's two main chains at batch 32 as qblock_inputs cases
+# (tests/test_torch_cuda.py): stage 1 (56x56, 64 -> 64 -> 256, projection
+# head, 3 blocks) and stage 3 (14x14 after the head's stride 2, 512 -> 256 ->
+# 1024, 6 blocks)
+RESNET_CHAINS = {
+    "stage1": (RESNET_BATCH, 56, 56, 64, 64, 256, 3, True, True, "own", (0, 0)),
+    "stage3": (RESNET_BATCH, 14, 14, 512, 256, 1024, 6, True, True, "own", (0, 0)),
+}
+RESNET50_WIDTHS = (64, 128, 256, 512)  # c_mid per stage; c_out = 4 * c_mid
+RESNET50_DEPTHS = (3, 4, 6, 3)
+
+
+def build_resnet50_graph(ir, img=224, classes=1000, seed=0, widths=RESNET50_WIDTHS,
+                         depths=RESNET50_DEPTHS, head=True):
+    """ResNet-50 (Caffe style: the stride 2 of a stage's first bottleneck sits
+    in its first 1x1 conv and in the 1x1 projection) as a float IR graph with
+    seeded weights, built with the IR module `ir` it is given:
+    conv 7x7 s2 p3 (relu) -> max-pool 3x3 s2 p1 -> stages of bottlenecks
+    1x1 (relu) -> 3x3 s1 p1 (relu) -> 1x1 -> Eltwise SUM -> ReLu node, c_mid
+    `widths`, c_out 4x that -> global average pool -> FullyConnected; with
+    head=False the graph ends at the last bottleneck's ReLu.
+    Weights are He-normal with batch norm folded away; each block's last conv
+    is scaled by 0.5 so that the residual stream keeps its variance over 16
+    blocks."""
+    DType, Graph, TensorType = ir.DType, ir.Graph, ir.TensorType
+    rng = np.random.default_rng(seed)
+    g = Graph(name=f"resnet50-{img}")
+
+    def conv(name, x, c_out, k, stride=1, pad=0, act=-1, gain=1.0):
+        n, c_in, h, w = x.shape
+        std = gain * np.sqrt(2.0 / (c_in * k * k))
+        wt = g.add_tensor(f"{name}.w", DType.FP32, [c_out, c_in, k, k], TensorType.CONST,
+                          data=(rng.standard_normal((c_out, c_in, k, k)) * std).astype(np.float32))
+        bt = g.add_tensor(f"{name}.b", DType.FP32, [c_out], TensorType.CONST,
+                          data=(rng.standard_normal(c_out) * 0.05).astype(np.float32))
+        oh, ow = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+        y = g.add_tensor(f"{name}.out", DType.FP32, [n, c_out, oh, ow], TensorType.VAR)
+        g.add_node("Convolution", name, [x.idx, wt.idx, bt.idx], [y.idx], dict(
+            kernel_h=k, kernel_w=k, stride_h=stride, stride_w=stride, dilation_h=1,
+            dilation_w=1, input_channel=c_in, output_channel=c_out, group=1, activation=act,
+            pad_h0=pad, pad_w0=pad, pad_h1=pad, pad_w1=pad))
+        return y
+
+    x = g.add_tensor("data", DType.FP32, [1, 3, img, img], TensorType.INPUT)
+    inp = g.add_node("InputOp", "input", [], [x.idx])
+    t = conv("conv1", x, widths[0], 7, stride=2, pad=3, act=0)
+    n, c, h, w = t.shape
+    ph, pw = (h + 2 - 3) // 2 + 1, (w + 2 - 3) // 2 + 1
+    pooled = g.add_tensor("pool1.out", DType.FP32, [n, c, ph, pw], TensorType.VAR)
+    g.add_node("Pooling", "pool1", [t.idx], [pooled.idx], dict(
+        alg=0, kernel_h=3, kernel_w=3, stride_h=2, stride_w=2, global_pool=0, caffe_flavor=0,
+        pad_h0=1, pad_w0=1, pad_h1=1, pad_w1=1))
+    t = pooled
+    for stage, (c_mid, depth) in enumerate(zip(widths, depths)):
+        c_out = 4 * c_mid
+        for i in range(depth):
+            name = f"res{stage + 2}{chr(ord('a') + i)}"
+            stride = 2 if (i == 0 and stage > 0) else 1
+            m = conv(f"{name}.c1", t, c_mid, 1, stride=stride, act=0)
+            m = conv(f"{name}.c2", m, c_mid, 3, pad=1, act=0)
+            m = conv(f"{name}.c3", m, c_out, 1, gain=0.5)
+            r = conv(f"{name}.c4", t, c_out, 1, stride=stride, gain=0.5) if i == 0 else t
+            s = g.add_tensor(f"{name}.sum", DType.FP32, list(m.shape), TensorType.VAR)
+            g.add_node("Eltwise", f"{name}.add", [m.idx, r.idx], [s.idx], dict(type=2))  # ELT_SUM
+            t = g.add_tensor(f"{name}.relu", DType.FP32, list(m.shape), TensorType.VAR)
+            g.add_node("ReLu", f"{name}.r", [s.idx], [t.idx], dict(negative_slope=0.0))
+    g.inputs = [inp.idx]
+    if not head:
+        g.outputs = [g.tensors[t.idx].producer]
+        return g
+    n, c, h, w = t.shape
+    gap = g.add_tensor("pool5.out", DType.FP32, [n, c, 1, 1], TensorType.VAR)
+    g.add_node("Pooling", "pool5", [t.idx], [gap.idx], dict(
+        alg=1, kernel_h=h, kernel_w=w, stride_h=1, stride_w=1, global_pool=1, caffe_flavor=0,
+        pad_h0=0, pad_w0=0, pad_h1=0, pad_w1=0))
+    wt = g.add_tensor("fc.w", DType.FP32, [classes, c], TensorType.CONST,
+                      data=(rng.standard_normal((classes, c)) * np.sqrt(1.0 / c)).astype(np.float32))
+    bt = g.add_tensor("fc.b", DType.FP32, [classes], TensorType.CONST,
+                      data=(rng.standard_normal(classes) * 0.05).astype(np.float32))
+    out = g.add_tensor("fc.out", DType.FP32, [n, classes, 1, 1], TensorType.VAR)
+    fc = g.add_node("FullyConnected", "fc", [gap.idx, wt.idx, bt.idx], [out.idx],
+                    dict(num_output=classes))
+    g.outputs = [fc.idx]
+    return g
 
 
 def log(msg: str) -> None:
@@ -405,6 +526,79 @@ def check_dw_kernel(torch):
     return entry
 
 
+def check_qblock_kernel(torch):
+    """Phase 2 for qblock_chain: bit for bit against qblock_chain_plain on the
+    test grid (tests/test_torch_cuda.py), exact and relaxed, under every
+    spatial tile, and at ResNet-50-224's stage-1 and stage-3 chains at batch
+    32; kernel and plain times at both chains. Returns the kernels-line entry
+    (the stage-3 chain: the larger of the two by operations)."""
+    import torch.nn.functional as F
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda import (
+        QBLOCK_CASES, QBLOCK_EXTRA_CASES, QBLOCK_TILES, port_qblock, qblock_inputs,
+    )
+
+    from tengine_tpu_torch.ops.cuda import qblock as pqb
+
+    worst = runs = 0
+    for case in QBLOCK_CASES + QBLOCK_EXTRA_CASES:
+        for relaxed in (False, True):
+            inp = qblock_inputs(case, seed=sum(case[:7]), relaxed=relaxed)
+            want = port_qblock(inp, "cuda", kernel=False)
+            for tile in QBLOCK_TILES + [None]:
+                got = port_qblock(inp, "cuda", kernel=True, tile=tile)
+                worst = max(worst, int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max()))
+                runs += 1
+    log(f"  qblock_chain grid: {runs} runs (cases x exact/relaxed x tiles), max|d|={worst} LSB")
+    if worst:
+        raise AssertionError(f"qblock_chain disagrees with its plain version on the grid: {worst} LSB")
+
+    entry = None
+    for name, case in RESNET_CHAINS.items():
+        N, H, W, c0, c_mid, c_out, nblocks = case[:7]
+        for relaxed in (False, True):
+            inp = qblock_inputs(case, seed=224, relaxed=relaxed)
+            x = torch.from_numpy(inp["x"]).cuda()
+            arrays = [torch.from_numpy(a).cuda() for a in inp["arrays"]]
+            run = dict(blocks=inp["blocks"], relaxed=relaxed)
+            got = pqb.qblock_chain(x, arrays, **run)
+            want = pqb.qblock_chain_plain(x, arrays, **run)
+            tier = "relaxed" if relaxed else "exact"
+            what = (f"qblock_chain resnet50-224 b{N} {name} {tier} {H}x{W}x{c0} -> {c_mid} -> "
+                    f"{c_out}, {nblocks} blocks, tile {pqb.pick_tile(N, H, W)}")
+            if max_lsb(torch, got, want, what):
+                raise AssertionError(f"{what}: kernel disagrees with its plain version")
+            ms = cuda_ms(lambda: pqb.qblock_chain(x, arrays, **run), iters=10)
+            if relaxed:
+                log(f"  {what}: kernel {ms:.4f} ms")
+                continue
+            plain_ms = cuda_ms(lambda: pqb.qblock_chain_plain(x, arrays, **run), iters=2, warmup=1)
+            # ops as the JAX kernel's cost estimate counts them; bytes: the
+            # chain's input and output and every weight, M and B once
+            ops = sum(2 * N * H * W * (b.c_in * b.c_mid + 9 * b.c_mid * b.c_mid + b.c_mid * b.c_out
+                                       + (b.c_in * b.c_out if b.proj else 0)) for b in inp["blocks"])
+            moved = x.numel() + got.numel() + sum(a.numel() * a.element_size() for a in arrays)
+            entry = kernel_entry("qblock_chain", pqb.SOURCE, pqb.REPLACES, 0, ms, plain_ms, moved,
+                                 ops, None)
+            log(f"  {name} exact: {ops / ms / 1e9:.1f} T int8 ops/s, one launch for the {nblocks} blocks")
+
+    # context, not a yardstick of the same function: one stage-3 identity
+    # bottleneck's three convs alone in cuDNN fp16, channels-last, no requant,
+    # no residual (no single PyTorch call computes a bottleneck)
+    N, H, W = RESNET_CHAINS["stage3"][:3]
+    xh = torch.randn(N, 1024, H, W, device="cuda").half().contiguous(memory_format=torch.channels_last)
+    ws = [torch.randn(o, c, k, k, device="cuda").half().contiguous(memory_format=torch.channels_last)
+          for o, c, k in ((256, 1024, 1), (256, 256, 3), (1024, 256, 1))]
+
+    def three_convs():
+        return F.conv2d(F.conv2d(F.conv2d(xh, ws[0]), ws[1], padding=1), ws[2])
+
+    log(f"  context: one stage-3 identity bottleneck's three cuDNN fp16 convs alone "
+        f"{cuda_ms(three_convs, iters=20):.4f} ms (the kernel's chain runs 6 bottlenecks)")
+    return entry
+
+
 @contextlib.contextmanager
 def dw_gate(value: str):
     """TT_DW_PALLAS set to `value` while a graph compiles (kernel selection
@@ -538,6 +732,39 @@ def check_fastest_small(torch, tt, build_yolofastest_graph, qmath, img=64):
                 raise AssertionError(f"{what} head {t.name}: {int(d.max())} LSB, {equal:.4f} equal")
 
 
+def check_resnet_small(torch, tt, ir, qmath):
+    """ResNet-50's tiers against each other on the card at small sizes,
+    calibrated on the CPU as the tests calibrate. G against F at img=32,
+    widths/8, depths (2, 2, 2, 2), batch 2 (the graph of
+    tests/test_torch_resnet.py): within 1 LSB at the logits. R against F at
+    the output of the full-width stage-1 chain (img=64, 3 bottlenecks, no
+    head, batch 4): the relaxed tier's bounds (tests/test_relaxed_tier.py)."""
+    def run_tiers(tiers, batch, **cfg):
+        g = build_resnet50_graph(ir, **cfg)
+        images = np.random.default_rng(1).standard_normal(
+            (batch, 3, cfg["img"], cfg["img"])).astype(np.float32)
+        qg = tt.quantize_graph(g, [images[:1]], scheme="int8", algorithm="minmax", device="cpu")
+        t_in = qg.tensors[qg.input_tensors[0]]
+        x = torch.from_numpy(qmath.quantize_np(images, t_in.quant, t_in.dtype)).cuda()
+        outs = {}
+        for tier in tiers:
+            opts = dict(quant_mode="fast", batch_size=batch, **RESNET_TIERS[tier][0])
+            cg = tt.compile_graph(qg, tt.Options(**opts))
+            outs[tier] = cg(x)
+        return outs, [cg.graph.tensors[t] for t in cg.output_ids]
+
+    outs, heads = run_tiers("FG", 2, img=32, classes=16, widths=(8, 16, 32, 64), depths=(2, 2, 2, 2))
+    check_within_lsb("resnet50-32 widths/8 b2 G vs F", outs["G"], outs["F"], heads)
+    outs, _ = run_tiers("FR", 4, img=64, widths=RESNET50_WIDTHS[:1], depths=RESNET50_DEPTHS[:1],
+                        head=False)
+    d = (outs["R"][0].int() - outs["F"][0].int()).abs()
+    worst, over1, over3 = int(d.max()), float((d > 1).double().mean()), float((d > 3).double().mean())
+    log(f"  resnet50 stage-1 chain {tuple(d.shape)} R vs F: max|d|={worst} LSB, "
+        f"{over1:.4f} beyond 1 LSB, {over3:.6f} beyond 3")
+    if worst > 6 or over1 >= 0.10 or over3 >= 0.01:
+        raise AssertionError("resnet50 stage-1 chain: R leaves the relaxed tier's bounds against F")
+
+
 def main(argv) -> int:
     import torch
 
@@ -550,7 +777,9 @@ def main(argv) -> int:
     from tengine_tpu_torch.models.yolov5 import build_yolov5s_graph
     from tengine_tpu_torch.ops import qmath
     from tengine_tpu_torch.ops.cuda import build
+    from tengine_tpu_torch.graph import ir
     from tengine_tpu_torch.ops.cuda.dw_conv import dw_qconv
+    from tengine_tpu_torch.ops.cuda.qblock import qblock_chain
     from tengine_tpu_torch.ops.cuda.qconv import qconv1x1, qconv_direct
     from tengine_tpu_torch.ops.cuda.qgemm import qgemm_requant
     from tengine_tpu_torch.ops.cuda.stem_conv import stem_qconv
@@ -570,8 +799,9 @@ def main(argv) -> int:
     check_igemm_grid(torch)
     entries.update(check_igemm_main(torch))
     entries["dw_qconv"] = check_dw_kernel(torch)
+    entries["qblock_chain"] = check_qblock_kernel(torch)
     counters = {"stem_qconv": stem_qconv, "qconv_direct": qconv_direct, "qconv1x1": qconv1x1,
-                "qgemm_requant": qgemm_requant, "dw_qconv": dw_qconv}
+                "qgemm_requant": qgemm_requant, "dw_qconv": dw_qconv, "qblock_chain": qblock_chain}
     log(f"phase 2 kernels: {time.time() - t0:.1f} s")
 
     # 3a. main path: yolov5s-640 INT8 at batch 8
@@ -590,7 +820,7 @@ def main(argv) -> int:
     x5 = torch.from_numpy(xq5).cuda()
     log(f"  yolov5s set-up (build graph, calibrate, compile): {time.time() - t0:.1f} s")
     outs5, batch_ms, launches = drive(torch, cg5, x5, counters)
-    want = {"stem_qconv": 3, "qconv_direct": 0, "qconv1x1": 0, "qgemm_requant": 0, "dw_qconv": 0}
+    want = dict.fromkeys(counters, 0) | {"stem_qconv": 3}
     if launches != want:
         raise AssertionError(f"yolov5s launches {launches}, expected {want}")
     entries["stem_qconv"]["launches"] = launches["stem_qconv"]
@@ -615,7 +845,7 @@ def main(argv) -> int:
         opts = dict(quant_mode="fast", quant_bf16_storage=False, batch_size=batch, **extra)
         cg3 = tt.compile_graph(qg3, tt.Options(**opts))
         outs3, batch_ms, launches = drive(torch, cg3, x3, counters)
-        want = {name: 3 * n for name, n in dict(per_forward, dw_qconv=0).items()}
+        want = dict.fromkeys(counters, 0) | {name: 3 * n for name, n in per_forward.items()}
         if launches != want:
             raise AssertionError(f"yolov3 {tier}: launches {launches}, expected {want}")
         tiers[tier] = (cg3, outs3, opts)
@@ -651,7 +881,7 @@ def main(argv) -> int:
             if by_route != (per_forward["dw_qconv"], per_forward["qconv1x1"], n_fast):
                 raise AssertionError(f"yolofastest {scheme} {tier}: convs by route {by_route}")
             outsf, batch_ms, launches = drive(torch, cgf, xf, counters)
-            want = {name: 3 * n for name, n in per_forward.items()}
+            want = dict.fromkeys(counters, 0) | {name: 3 * n for name, n in per_forward.items()}
             if launches != want:
                 raise AssertionError(f"yolofastest {scheme} {tier}: launches {launches}, expected {want}")
             fastest[scheme, tier] = (cgf, outsf, qgf, xqf, xf)
@@ -661,6 +891,42 @@ def main(argv) -> int:
                 f"{FASTEST_BATCH * 1e3 / med:.1f} img/s, launches {launches} [{time.time() - t1:.1f} s]")
     entries["dw_qconv"]["launches"] = 3 * FASTEST_TIERS["D"][1]["dw_qconv"]
     log(f"  yolofastest in all: {time.time() - t0:.1f} s")
+
+    # 3d. main path: ResNet-50-224 INT8 at batch 32, the bottlenecks on
+    # qblock_chain (F exact, R relaxed) or on the fast lowering (G)
+    t0 = time.time()
+    imgr = 224
+    gr = build_resnet50_graph(ir, img=imgr)
+    imagesr = np.random.default_rng(0).standard_normal(
+        (RESNET_BATCH, 3, imgr, imgr)).astype(np.float32)
+    qgr = tt.quantize_graph(gr, [imagesr[:1]], scheme="int8", algorithm="minmax")
+    t_in = qgr.tensors[qgr.input_tensors[0]]
+    xqr = qmath.quantize_np(imagesr, t_in.quant, t_in.dtype)
+    xr = torch.from_numpy(xqr).cuda()
+    log(f"  resnet50 set-up (build graph, calibrate): {time.time() - t0:.1f} s")
+    resnet = {}
+    for tier, (extra, per_forward) in RESNET_TIERS.items():
+        t1 = time.time()
+        opts = dict(quant_mode="fast", batch_size=RESNET_BATCH, **extra)
+        cgr = tt.compile_graph(qgr, tt.Options(**opts))
+        chains = [len(n.params["blocks"]) for n in cgr.graph.nodes if n.op == "FusedResBlockChain"]
+        n_convs = sum(n.op == "Convolution" for n in cgr.graph.nodes)
+        if (chains, n_convs) != (([3, 4, 6, 3], 1) if per_forward else ([], 53)):
+            raise AssertionError(f"resnet50 {tier}: chains {chains}, {n_convs} convs left")
+        if any(k.startswith("lower_conv_quant_pallas") for k in cgr.kernels.values()):
+            raise AssertionError(f"resnet50 {tier}: a conv left the fast lowering")
+        outsr, batch_ms, launches = drive(torch, cgr, xr, counters)
+        want = dict.fromkeys(counters, 0) | {"qblock_chain": 3 * per_forward}
+        if launches != want:
+            raise AssertionError(f"resnet50 {tier}: launches {launches}, expected {want}")
+        resnet[tier] = (cgr, outsr, opts)
+        med = float(np.median(batch_ms))
+        log(f"phase 3 main path: resnet50-{imgr} int8 batch {RESNET_BATCH} tier {tier} {extra}: "
+            f"ms/batch {batch_ms} (median {med:.3f}), {RESNET_BATCH * 1e3 / med:.1f} img/s, "
+            f"launches {launches} [{time.time() - t1:.1f} s]")
+    entries["qblock_chain"]["launches"] = 3 * RESNET_TIERS["F"][1]
+    log(f"  resnet50 in all: {time.time() - t0:.1f} s")
+
 
     # 4. correctness: fp32 engine on the card, and the port's CPU run
     t0 = time.time()
@@ -701,12 +967,33 @@ def main(argv) -> int:
         check_within_lsb(f"yolofastest {scheme} D card vs CPU (image 0)", [o[:1] for o in outsd],
                          cg_cpu.run(xqf[:1]), headsf)
     check_fastest_small(torch, tt, build_yolofastest_graph, qmath)
+
+    cg_f, outs_f, opts_f = resnet["F"]
+    logits = [cg_f.graph.tensors[t] for t in cg_f.output_ids]
+    foutsr = tt.compile_graph(gr, tt.Options(precision="fp32", batch_size=RESNET_BATCH))(
+        torch.from_numpy(imagesr).cuda())
+    for tier, (_, outsr, _) in resnet.items():
+        check_heads(torch, f"resnet50 {tier}", logits, outsr, foutsr, 0.99, torch.int8)
+        if outsr[0].shape != (RESNET_BATCH, 1000, 1, 1):
+            raise AssertionError(f"resnet50 {tier}: logits of shape {tuple(outsr[0].shape)}")
+        top1 = (outsr[0].reshape(RESNET_BATCH, -1).argmax(1)
+                == foutsr[0].reshape(RESNET_BATCH, -1).argmax(1)).double().mean()
+        log(f"  resnet50 {tier}: top-1 agreement with the fp32 engine {float(top1):.4f} "
+            f"over {RESNET_BATCH} images")
+    for tier in ("G", "R"):
+        check_tiers_agree(torch, f"resnet50-{imgr} {tier} vs F", resnet[tier][1], outs_f, logits)
+    t1 = time.time()
+    coutsr = tt.compile_graph(qgr, tt.Options(**dict(opts_f, batch_size=1)), device="cpu").run(xqr[:1])
+    log(f"  resnet50-{imgr} F on the CPU, image 0: {time.time() - t1:.1f} s")
+    check_within_lsb("resnet50 F card vs CPU (image 0)", [o[:1] for o in outs_f], coutsr, logits)
+    check_resnet_small(torch, tt, ir, qmath)
     log(f"phase 4 check: {time.time() - t0:.1f} s")
 
     if "--profile" in argv:
         profile_batch(torch, cg5, x5)
         profile_batch(torch, cg3a, x3)
         profile_batch(torch, fastest["int8", "D"][0], fastest["int8", "D"][4])
+        profile_batch(torch, resnet["F"][0], xr)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "tengine_tpu"))
     if leaked:
@@ -746,7 +1033,7 @@ def profile_batch(torch, cg, x_dev) -> None:
         f"device idle {100 * (1 - total / wall_ms):.1f}% of the wall time, "
         f"{sum(c for _, _, c in dev)} kernel launches")
     ranked = sorted(dev, key=lambda r: -r[1])
-    own = [r for r in ranked[15:] if "qconv" in r[0] and "at::" not in r[0]]
+    own = [r for r in ranked[15:] if ("qconv" in r[0] or "qblock" in r[0]) and "at::" not in r[0]]
     for key, ms, count in ranked[:15] + own:  # the top 15, then the port's own kernels below them
         log(f"  {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  x{count:<4d} {key[:90]}")
 

@@ -14,7 +14,7 @@
 //   q        = activation clamp around zp_out
 //   t        = clip(roundf(q), lo, hi)                     half away from zero
 //   with a fused residual r (the unfused eltwise-sum numerics):
-//   t        = clip(max?(roundf(((t-zp_mid)*s_mid + (r-zp_r)*s_r) / s_out2) + zp_out2), lo, hi)
+//   t        = clip(max?(roundf(((t-zp_mid)*s_mid + (r-zp_r)*s_r) * f32(1/s_out2)) + zp_out2), lo, hi)
 //
 // x' is the stored input, re-centred by -128 (a byte XOR 0x80) when it is
 // uint8; taps outside the image read the input zero-point zp_in (re-centred
@@ -36,7 +36,7 @@
 // are the next step.
 //
 // The epilogue is f32 without contraction (-fmad=false in the build, and
-// explicit __fmul_rn/__fadd_rn/__fdiv_rn), as the Pallas epilogue rounds each
+// explicit __fmul_rn/__fadd_rn), as the Pallas epilogue rounds each
 // product and sum separately; the clamp thresholds arrive as f32 values that
 // the host computed in double.
 
@@ -58,7 +58,7 @@ struct QconvArgs {
   int zp_in, cw, act;
   float act_lo, act_hi, zp_out, lo, hi;
   int x_u8, res_u8, out_u8, has_res, relu2;
-  float s_mid, zp_mid, s_r, zp_r, s_out2, zp_out2;
+  float s_mid, zp_mid, s_r, zp_r, inv_s_out2, zp_out2;  // inv_s_out2 = f32(1 / s_out2)
 };
 
 namespace {
@@ -229,7 +229,7 @@ __global__ void __launch_bounds__(THREADS, 2) qconv_igemm_kernel(const QconvArgs
                                  : (float)static_cast<const int8_t*>(a.res)[row + pn];
         const float tf = __fmul_rn(__fsub_rn(y, a.zp_mid), a.s_mid);
         const float rf = __fmul_rn(__fsub_rn(r, a.zp_r), a.s_r);
-        y = __fadd_rn(roundf(__fdiv_rn(__fadd_rn(tf, rf), a.s_out2)), a.zp_out2);
+        y = __fadd_rn(roundf(__fmul_rn(__fadd_rn(tf, rf), a.inv_s_out2)), a.zp_out2);
         if (a.relu2) y = fmaxf(y, a.zp_out2);
         y = fminf(fmaxf(y, a.lo), a.hi);
       }

@@ -24,7 +24,8 @@ import torch
 
 from ..graph.ir import Graph, Tensor
 from ..graph.passes import fold_shuffle_gathers, fuse_conv_add, fuse_resnet_blocks
-from ..ops import lowering as _lowering  # noqa: F401 — populate registry
+from ..ops import fused as _fused  # noqa: F401 — populate registry
+from ..ops import lowering as _lowering  # noqa: F401
 from ..ops import qmath
 from ..ops import quantized as _quantized  # noqa: F401
 from ..ops.layout import TArr, as_semantic, nchw, nhwc
@@ -339,16 +340,19 @@ def compile_graph(
         raise NotImplementedError(
             "native-int8 plan (tengine_tpu/graph/passes.py:to_native_int8) not ported yet"
         )
-    if fast_quant and options.fuse_resblock:
-        raise NotImplementedError(
-            "fuse_resblock routes to the qblock_chain kernel "
-            "(tengine_tpu/ops/pallas/qblock.py:411), which is not ported yet"
+    if fast_quant and (
+        options.fuse_resblock or (options.quant_relaxed and not native_int8)
+    ):
+        # whole bottleneck-block chains -> the qblock_chain kernel (runs
+        # before fuse_conv_add, which would otherwise absorb the residual
+        # Eltwise into the conv epilogue). quant_relaxed also enables the
+        # pass, from chain_min_cmid up; fuse_resblock forces it at any width.
+        graph = graph.clone()
+        fuse_resnet_blocks(
+            graph, min_cmid=0 if options.fuse_resblock else options.chain_min_cmid
         )
-    if fast_quant and options.quant_relaxed:
-        # a guard: raises where the JAX pass would fuse a bottleneck chain
-        fuse_resnet_blocks(graph, min_cmid=options.chain_min_cmid)
     if fast_quant and os.environ.get("TT_FOLD_SHUFFLE", "1") not in ("0", "off"):
-        fold_shuffle_gathers(graph)  # a guard, like fuse_resnet_blocks
+        fold_shuffle_gathers(graph)  # a guard: raises where the JAX pass would fold
     if fast_quant:
         # residual eltwise-sums fold into the conv requant epilogue
         graph = graph.clone()

@@ -1,18 +1,19 @@
 """Graph-level optimization passes (PyTorch port of the subset of
-tengine_tpu/graph/passes.py that the yolov5s path and the default compile
-pipeline run).
+tengine_tpu/graph/passes.py that the yolov5s and ResNet paths and the
+default compile pipeline run).
 
 The reference runs these at convert time (tools/convert_tool/utils/
 graph_optimizer/graph_opt.cpp:624-947: conv+bn fold, conv+relu fuse,
 bn+scale fold, ...). Here they run on the IR before compilation. The passes
 are numpy-only and copied unchanged, so both packages build the same IR.
-Default-pipeline passes not ported yet (fuse_resnet_blocks,
-fold_shuffle_gathers) are guards: each raises NotImplementedError exactly
-where the JAX pass would change the graph.
+The default-pipeline pass not ported yet (fold_shuffle_gathers) is a guard:
+it raises NotImplementedError exactly where the JAX pass would change the
+graph.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Set
 
 import numpy as np
@@ -749,19 +750,130 @@ def _match_bottleneck(g: Graph, add) -> Optional[dict]:
 
 
 def fuse_resnet_blocks(g: Graph, min_cmid: int = 0) -> int:
-    """Guard for the JAX pass that fuses int8 bottleneck chains into
-    FusedResBlockChain nodes for the qblock_chain kernel
-    (tengine_tpu/ops/pallas/qblock.py:411), which the port does not have
-    yet: raises NotImplementedError when any block would fuse, else 0."""
+    """Fuse runs of quantized bottleneck residual blocks into
+    `FusedResBlockChain` nodes, lowered to the whole-chain kernel
+    (ops/cuda/qblock.py) that keeps every intermediate of a block out of
+    device memory. Returns the number of blocks fused. Runs before
+    fuse_conv_add (which would otherwise absorb the Eltwise into conv3).
+    The rewrite is the JAX pass's (tengine_tpu/graph/passes.py), node for
+    node, so both engines compile the same IR.
+
+    min_cmid: skip blocks narrower than this (Options.chain_min_cmid)."""
+    matches = {}
     for add in g.nodes:
         m = _match_bottleneck(g, add)
         if m is not None and m["c_mid"] >= min_cmid:
-            raise NotImplementedError(
-                f"fuse_resnet_blocks would fuse the bottleneck ending at "
-                f"{add.name!r} into the qblock_chain kernel "
-                "(tengine_tpu/ops/pallas/qblock.py:411), not ported yet"
+            matches[m["x_tid"]] = m
+
+    # debug/experiment knob: restrict fusion to listed c_mid widths
+    # (TT_CHAIN_CMID="128,256,512" fuses only those stages)
+    _cmid_env = os.environ.get("TT_CHAIN_CMID")
+    if _cmid_env:
+        allowed = {int(v) for v in _cmid_env.split(",") if v}
+        matches = {k: m for k, m in matches.items() if m["c_mid"] in allowed}
+
+    fused_blocks = 0
+    consumed = set()
+    heads = [
+        m for x_tid, m in matches.items()
+        # chain heads: blocks whose input is not another matched block's
+        # output (those are picked up by walking forward from the head; a
+        # broken link simply starts a fresh chain at the break because the
+        # breaking conditions below are link-local)
+        if not any(
+            m2["out_tid"] == x_tid
+            and set(_consumers_of(g, x_tid))
+            == {m["conv1"].idx, (m["conv4"].idx if m["conv4"] else m["add"].idx)}
+            and m2["c_mid"] == m["c_mid"] and m2["c_out"] == m["c_out"]
+            and m["stride"] == 1 and m2["out_node"].idx not in g.outputs
+            for m2 in matches.values()
+        )
+    ]
+    for first in heads:
+        if first["add"].idx in consumed:
+            continue
+        chain = [first]
+        while True:
+            nxt = matches.get(chain[-1]["out_tid"])
+            if nxt is None or nxt["add"].idx in consumed:
+                break
+            # chain link: the block output feeds ONLY the next block
+            # (conv1 + residual/projection), and geometry stays uniform
+            cons = set(_consumers_of(g, chain[-1]["out_tid"]))
+            nxt_cons = {nxt["conv1"].idx}
+            nxt_cons.add(nxt["conv4"].idx if nxt["conv4"] else nxt["add"].idx)
+            if cons != nxt_cons:
+                break
+            if nxt["stride"] != 1:
+                break  # downsample blocks start a new chain (input resolution changes)
+            if (nxt["c_mid"], nxt["c_out"]) != (chain[0]["c_mid"], chain[0]["c_out"]):
+                break
+            if chain[-1]["out_node"].idx in g.outputs:
+                break
+            chain.append(nxt)
+
+        # build the fused node
+        x_tid = first["x_tid"]
+        inputs = [x_tid]
+        binfos = []
+        for m in chain:
+            info = dict(
+                act1=m["conv1"].params.get("activation", -1),
+                act2=m["conv2"].params.get("activation", -1),
+                stride=m["stride"],
+                mid1=m["mid1"], mid2=m["mid2"], mid3=m["mid3"],
+                r_tid=m["r_tid"], add_out=m["add"].outputs[0],
+                out_tid=m["out_tid"], has_relu=m["relu"] is not None,
+                proj=m["conv4"] is not None,
+                c_in=m["c_in"], c_mid=m["c_mid"], c_out=m["c_out"],
             )
-    return 0
+            for key, conv in (("w1", m["conv1"]), ("w2", m["conv2"]),
+                              ("w3", m["conv3"]), ("w4", m["conv4"])):
+                if conv is None:
+                    continue
+                info[key + "_pos"] = len(inputs)
+                inputs.append(conv.inputs[1])
+                if len(conv.inputs) > 2:
+                    info[key.replace("w", "b") + "_pos"] = len(inputs)
+                    inputs.append(conv.inputs[2])
+            binfos.append(info)
+
+        out_tid = chain[-1]["out_tid"]
+        absorbed = []
+        for m in chain:
+            absorbed += [m["conv1"], m["conv2"], m["conv3"], m["add"]]
+            if m["conv4"] is not None:
+                absorbed.append(m["conv4"])
+            if m["relu"] is not None:
+                absorbed.append(m["relu"])
+        absorbed_idx = {n.idx for n in absorbed}
+        for tid in set(inputs):
+            g.tensors[tid].consumers = [
+                c for c in g.tensors[tid].consumers if c not in absorbed_idx
+            ]
+        node = g.add_node(
+            "FusedResBlockChain",
+            f"resblocks[{chain[0]['conv1'].name}..x{len(chain)}]",
+            inputs, [out_tid], dict(blocks=binfos),
+        )
+        g.tensors[out_tid].producer = node.idx
+        # orphaned intermediate tensors keep their quant params (the lowering
+        # reads them by id), but no longer flow
+        for m in chain:
+            for tid in (m["mid1"], m["mid2"], m["mid3"]):
+                g.tensors[tid].consumers = []
+            if m is not chain[0]:
+                g.tensors[m["x_tid"]].consumers = []
+        last_out_node = chain[-1]["out_node"]
+        if last_out_node.idx in g.outputs:
+            g.outputs = [node.idx if o == last_out_node.idx else o for o in g.outputs]
+        for n in absorbed:
+            consumed.add(n.idx)
+            n.op = "Noop"
+            n.inputs = []
+            n.outputs = []
+        fused_blocks += len(chain)
+    return fused_blocks
 
 
 def ensure_shapes(g: Graph) -> None:

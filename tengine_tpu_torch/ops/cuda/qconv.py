@@ -17,8 +17,9 @@ with c0 = 128 re-centring uint8 input (0 for int8) and the rowsum taken
 over the re-centred receptive field, padded taps included. M and B are the
 host folds of ops/quantized.py (qconv_m / qconv_b), as the JAX lowering
 folds them. With a fused residual r the unfused eltwise-sum numerics follow:
-y = round((t - zp_mid)·s_mid + (r - zp_r)·s_r) / s_out2) + zp_out2, then
-the optional relu max(y, zp_out2) and the clip.
+y = round(((t - zp_mid)·s_mid + (r - zp_r)·s_r) · f32(1/s_out2)) + zp_out2
+(XLA compiles the JAX kernel's division by the constant s_out2 to that
+multiply), then the optional relu max(y, zp_out2) and the clip.
 
 On the card both are bound by operations: yolov3-416 batch 8 gives the k×k
 convs 204 GMAC over 236 MB and the 1×1 convs 26 GMAC over 249 MB (int8
@@ -61,7 +62,7 @@ class QconvArgs(ctypes.Structure):
             "pad_t", "pad_l", "cstride", "zp_in", "cw", "act")]
         + [(f, ctypes.c_float) for f in ("act_lo", "act_hi", "zp_out", "lo", "hi")]
         + [(f, ctypes.c_int) for f in ("x_u8", "res_u8", "out_u8", "has_res", "relu2")]
-        + [(f, ctypes.c_float) for f in ("s_mid", "zp_mid", "s_r", "zp_r", "s_out2", "zp_out2")]
+        + [(f, ctypes.c_float) for f in ("s_mid", "zp_mid", "s_r", "zp_r", "inv_s_out2", "zp_out2")]
     )
 
 
@@ -94,6 +95,11 @@ def act_bounds(act: Optional[int], inv_s_out: float, zp_out: int) -> Tuple[float
     return float(zp_out), float(np.float32(act * inv_s_out + zp_out))
 
 
+def _inv_f32(s: float) -> float:
+    """f32(1 / f32(s)): the multiplier that stands for a division by s."""
+    return float(np.float32(1.0) / np.float32(s))
+
+
 def epilogue_plain(acc, rsum, mult, bias, residual=None, res=None, *, cw, act,
                    inv_s_out, zp_out, lo, hi, out_dtype):
     """The kernels' f32 epilogue in plain torch ops, each op rounding once:
@@ -116,8 +122,7 @@ def epilogue_plain(acc, rsum, mult, bias, residual=None, res=None, *, cw, act,
         s_mid, zp_mid, s_r, zp_r, s_out2, zp_out2, relu2 = res
         tf = (t - float(zp_mid)) * float(np.float32(s_mid))
         rf = (residual.to(torch.float32) - float(zp_r)) * float(np.float32(s_r))
-        div = torch.full((), float(np.float32(s_out2)), dtype=torch.float32, device=t.device)
-        y = round_away((tf + rf) / div) + float(zp_out2)
+        y = round_away((tf + rf) * _inv_f32(s_out2)) + float(zp_out2)
         if relu2:
             y = torch.clamp_min(y, float(zp_out2))
         t = torch.clamp(y, float(lo), float(hi))
@@ -220,7 +225,7 @@ def launch_igemm(name, x, w, mult, bias, residual, res, *, n, h, w_in, c, oh, ow
     if res is not None:
         s_mid, zp_mid, s_r, zp_r, s_out2, zp_out2, _ = res
         args.s_mid, args.zp_mid, args.s_r = float(s_mid), float(zp_mid), float(s_r)
-        args.zp_r, args.s_out2, args.zp_out2 = float(zp_r), float(s_out2), float(zp_out2)
+        args.zp_r, args.inv_s_out2, args.zp_out2 = float(zp_r), _inv_f32(s_out2), float(zp_out2)
     vec = int(c % 16 == 0 and x.data_ptr() % 16 == 0)
 
     fn = load("qconv").qconv_igemm_launch

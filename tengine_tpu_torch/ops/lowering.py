@@ -1,7 +1,8 @@
 """Plain-torch op lowerings (the "reference kernel" tier) — PyTorch port of
 the subset of tengine_tpu/ops/lowering.py that the quantized yolov5s and
-yolov3 paths and their fp32 calibration run: activations, Convolution,
-Pooling, Eltwise, Concat, Upsample, ReLu (incl. leaky), Dropout and Noop.
+yolov3 paths, the ResNet path and their fp32 calibration run: activations,
+Convolution, Pooling, FullyConnected, Eltwise, Concat, Upsample, ReLu (incl.
+leaky), Dropout and Noop.
 
 Each function lowers one IR node to eager torch calls on the engine's
 device. Semantics follow the reference C kernels and shape-inference rules,
@@ -229,6 +230,35 @@ def lower_pooling(ctx: LowerCtx, x: TArr):
     count_t = torch.as_tensor(count.astype(np.float32), device=xf.device)
     out = sums / count_t
     return nhwc(out.permute(0, 2, 3, 1).to(xn.dtype))
+
+
+# ---------------------------------------------------------------------------
+# dense
+# ---------------------------------------------------------------------------
+
+
+def fc_output(out: torch.Tensor, rank: int) -> TArr:
+    """[M, N] FC result in the input's rank, trailing 1s in NCHW order
+    ([M, N], [M, N, 1], [M, N, 1, 1]; fc.c infer_shape)."""
+    m, n_out = out.shape
+    if rank == 3:
+        out = out.reshape(m, n_out, 1)
+    elif rank == 4:
+        out = out.reshape(m, n_out, 1, 1)
+    return TArr(out, "NCHW" if rank == 4 else None)
+
+
+@register_op("FullyConnected", predicate=node_is_float)
+def lower_fc(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """FC: flatten input to [M, K] in NCHW order, weight [N, K] (fc.c
+    infer_shape). Full float32 under "fp32" (TF32 off, executor/engine.py)."""
+    xs = as_semantic(x)
+    xf = xs.reshape(xs.shape[0], -1)
+    dt = compute_dtype(ctx)
+    out = (xf.to(dt) @ ctx.weight(1).to(dt).T).to(torch.float32)
+    if ctx.num_inputs > 2:
+        out = out + ctx.weight(2).to(torch.float32)
+    return fc_output(out, xs.ndim)
 
 
 # ---------------------------------------------------------------------------

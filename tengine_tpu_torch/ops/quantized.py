@@ -1,7 +1,9 @@
 """Quantized execution kernels (INT8 per-channel, UINT8 per-tensor) — PyTorch
 port of the subset of tengine_tpu/ops/quantized.py that the yolov5s INT8
-path, the yolov3 integer-storage path (quant_bf16_storage=False) and the
-YOLO-Fastest depthwise path (INT8 and UINT8) run.
+path, the yolov3 integer-storage path (quant_bf16_storage=False), the
+YOLO-Fastest depthwise path (INT8 and UINT8) and the ResNet-50 INT8 path
+(FullyConnected, global average pool, ReLu; the bottleneck chains lower in
+ops/fused.py) run.
 
 Two tiers, mirroring the reference's ref-vs-optimized kernel split:
 
@@ -39,8 +41,8 @@ from .cuda.dw_conv import dw_qconv, pack_dw_taps
 from .cuda.qconv import pack_qconv_weights, qconv1x1, qconv_direct
 from .cuda.qgemm import pack_qgemm_weights, qgemm_requant
 from .cuda.stem_conv import pack_stem_weights, stem_qconv
-from .layout import TArr, as_nchw, as_nhwc, as_semantic, nchw, nhwc
-from .lowering import ACT_SILU, _conv_pads, apply_activation, conv2d_nhwc
+from .layout import TArr, as_nchw, as_nhwc, as_semantic, nhwc
+from .lowering import ACT_SILU, _conv_pads, apply_activation, conv2d_nhwc, fc_output
 from .registry import SCORE_BEST, SCORE_CANDO, SCORE_STATIC, LowerCtx, register_op
 
 
@@ -66,13 +68,6 @@ def _wscales(quant: QuantParam, out_c: int) -> np.ndarray:
     if s.size == 1:
         s = np.full((out_c,), s[0], np.float32)
     return s
-
-
-def _f32(x: torch.Tensor, v: float) -> torch.Tensor:
-    """A 0-dim f32 tensor on x's device. Dividing by it is IEEE division on
-    every device (CUDA turns division by a host scalar into a multiply by
-    its reciprocal)."""
-    return torch.full((), v, dtype=torch.float32, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -300,7 +295,9 @@ def _requant_conv_out(ctx: LowerCtx, acc, pack, residual=None):
     zp_out2 = int(np.asarray(t_outf.quant.zero_points).reshape(-1)[0])
     tf = (t - zp_mid) * s_mid
     rf = (residual.to(torch.float32) - zp_r) * s_r
-    y = qmath.round_away((tf + rf) / _f32(tf, s_out2)) + zp_out2
+    # the JAX engine divides by s_out2 inside jit, where XLA turns a division
+    # by a constant into a multiply by its f32 reciprocal
+    y = qmath.round_away((tf + rf) * float(np.float32(1.0) / np.float32(s_out2))) + zp_out2
     if p.get("fused_add_relu"):
         y = torch.clamp_min(y, float(zp_out2))
     lo2, hi2 = qmath.qrange(t_outf.dtype, t_outf.quant)
@@ -772,11 +769,7 @@ def lower_fc_quant_pallas(ctx: LowerCtx, x: TArr, *rest: TArr):
         lo=lo, hi=hi,
         out_dtype="uint8" if t_out.dtype == DType.UINT8 else "int8",
     )
-    if rank == 3:
-        out = out.reshape(m, -1, 1)
-    elif rank == 4:
-        out = out.reshape(m, -1, 1, 1)
-    return nchw(out)
+    return fc_output(out, rank)
 
 
 @register_op("Convolution", score=SCORE_BEST, predicate=_fast_enabled, quant=True)
@@ -826,6 +819,104 @@ def lower_conv_quant_ref(ctx: LowerCtx, x: TArr, *rest: TArr):
         out = out + ctx.get_param("bias_deq", bias_f)
     out = apply_activation(out, p.get("activation", -1))
     return nhwc(qmath.requantize(out, t_out.quant, t_out.dtype))
+
+
+# ---------------------------------------------------------------------------
+# FullyConnected
+# ---------------------------------------------------------------------------
+
+
+@register_op("FullyConnected", score=SCORE_BEST, predicate=_fast_enabled, quant=True)
+def lower_fc_quant_fast(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """FC with exact integer accumulation and the folded requant
+    q = clip(round(acc*M + B) + zp_out). Symmetric INT8 operands: the dot of
+    the raw values (a nonzero zp_in corrected by the constant
+    -zp_in*colsum(w)); otherwise the dot of the shifted values
+    (x - zp_in)·(w - zp_w). The JAX lowering takes the second branch under
+    its bf16 storage and sums exact bf16 products in f32, which rounds on
+    the way once a partial sum passes 2^24; the float64 dot here sums
+    exactly and rounds once to f32, so a row with such sums is held to
+    1 LSB, not to the bit."""
+    t_in, t_w, t_out = ctx.in_tensor(0), ctx.in_tensor(1), ctx.out_tensor(0)
+    s_in = float(np.asarray(t_in.quant.scales).reshape(-1)[0])
+    zp_in = int(np.asarray(t_in.quant.zero_points).reshape(-1)[0])
+    out_c = t_w.shape[0]
+    w_scales = _wscales(t_w.quant, out_c)
+    s_out = float(np.asarray(t_out.quant.scales).reshape(-1)[0])
+    zp_out = int(np.asarray(t_out.quant.zero_points).reshape(-1)[0])
+
+    xs = as_semantic(x)
+    xf = xs.reshape(xs.shape[0], -1).to(torch.float64)
+
+    if (
+        t_in.dtype == DType.INT8
+        and t_w.dtype == DType.INT8
+        and (
+            t_w.quant.per_channel
+            or int(np.asarray(t_w.quant.zero_points).reshape(-1)[0]) == 0
+        )
+    ):
+        w = ctx.weight(1, lambda a: np.ascontiguousarray(a.T, np.float64), tag="kt_f64")
+        acc = (xf @ w).to(torch.float32)
+        if zp_in != 0:
+            zc = ctx.get_param(
+                "fc_zp_corr",
+                lambda: (
+                    -float(zp_in)
+                    * ctx.const_data(1).astype(np.int64).reshape(out_c, -1).sum(axis=1)
+                ).astype(np.float32),
+            )
+            acc = acc + zc
+    else:
+        zp_w = int(np.asarray(t_w.quant.zero_points).reshape(-1)[0])
+        w = ctx.weight(
+            1, lambda a: np.ascontiguousarray((a.astype(np.float64) - zp_w).T),
+            tag="kt_zshift_f64",
+        )
+        acc = ((xf - float(zp_in)) @ w).to(torch.float32)
+
+    M = ctx.get_param("requant_m", lambda: (s_in * w_scales / s_out).astype(np.float32))
+    q = acc * M
+    if ctx.num_inputs > 2:
+        B = ctx.get_param(
+            "requant_b",
+            lambda: (ctx.const_data(2).astype(np.float32) * s_in * w_scales / s_out).astype(
+                np.float32
+            ),
+        )
+        q = q + B
+    lo, hi = qmath.qrange(t_out.dtype, t_out.quant)
+    out = qmath.clip_cast(
+        qmath.round_away(q) + zp_out, lo, hi, qmath.TORCH_DTYPES[t_out.dtype]
+    )
+    return fc_output(out, xs.ndim)
+
+
+@register_op("FullyConnected", score=SCORE_CANDO, predicate=node_is_quant, quant=True)
+def lower_fc_quant_ref(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """fc_kernel_ref_uint8/int8 semantics: dequant -> fp32 dot -> requant."""
+    t_in, t_w, t_out = ctx.in_tensor(0), ctx.in_tensor(1), ctx.out_tensor(0)
+    s_in = float(np.asarray(t_in.quant.scales).reshape(-1)[0])
+    w_scales = _wscales(t_w.quant, t_w.shape[0])
+
+    xs = as_semantic(x)
+    xf = qmath.dequantize(xs.reshape(xs.shape[0], -1), t_in.quant)
+    w = ctx.weight(
+        1,
+        lambda a: np.ascontiguousarray(
+            qmath.dequantize_np(a, t_w.quant, channel_axis=0).astype(np.float32).T
+        ),
+        tag="kt_deq",
+    )
+    out = xf @ w
+    if ctx.num_inputs > 2:
+        out = out + ctx.get_param(
+            "bias_deq", lambda: ctx.const_data(2).astype(np.float32) * s_in * w_scales
+        )
+    return fc_output(
+        qmath.requantize(out, t_out.quant, t_out.dtype, reciprocal=True),
+        xs.ndim,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -923,6 +1014,56 @@ def lower_dropout_quant(ctx: LowerCtx, x: TArr):
     s_in, zp_in = _quant_scalars(ctx.in_tensor(0))
     a = x.x.to(torch.float32) - float(zp_in)
     return _round_store(ctx, x, a * _f32_product(s_in, _inv_out_scale(ctx)))
+
+
+# ---------------------------------------------------------------------------
+# A classifier's tail: global average pool and ReLu in the quantized domain.
+# ---------------------------------------------------------------------------
+
+
+@register_op(
+    "Pooling",
+    score=SCORE_BEST,
+    predicate=lambda c: node_is_quant(c)
+    and c.params.get("alg") == 1
+    and c.params.get("global_pool"),
+    quant=True,
+)
+def lower_global_avgpool_quant(ctx: LowerCtx, x: TArr):
+    """Global average pool on the raw quantized values: the mean commutes
+    with the affine dequant map, so the reduce is an exact integer sum S and
+    only the pooled [N, 1, 1, C] result pays the dequant -> requant affine
+    (pooling_kernel_ref_uint8.c computes dequant-sum-divide-requant; the
+    factored form differs in fp association, <= 1 LSB on round ties).
+
+    The affine is the JAX engine's as XLA compiles it (both divisions by a
+    constant become multiplies by its f32 reciprocal, and multiplies by
+    constants that follow one another fold into one f32 constant): with
+    zp_in = 0, q = round(S * f32(f32(f32(1/HW)*s_in) * f32(1/s_out))), bit
+    for bit; else q = round((S*f32(1/HW) - zp_in) * f32(s_in*f32(1/s_out))),
+    where XLA's CPU compiler contracts S*f32(1/HW) - zp_in into one fused
+    multiply-add and this lowering rounds twice: 1 LSB apart on .5 ties."""
+    t_in = ctx.in_tensor(0)
+    s_in, zp_in = _quant_scalars(t_in)
+    xn = as_nhwc(x)
+    inv_hw = np.float32(1.0) / np.float32(int(xn.shape[1]) * int(xn.shape[2]))
+    s = torch.sum(xn, dim=(1, 2), keepdim=True, dtype=torch.int32).to(torch.float32)
+    if zp_in == 0:
+        q = s * _f32_product(inv_hw * np.float32(s_in), _inv_out_scale(ctx))
+    else:
+        q = (s * float(inv_hw) - float(zp_in)) * _f32_product(s_in, _inv_out_scale(ctx))
+    return _round_store(ctx, TArr(s, "NHWC"), q)
+
+
+@register_op(
+    "ReLu", score=SCORE_BEST,
+    predicate=lambda c: _same_quant(c) and not c.params.get("negative_slope"),
+    quant=True,
+)
+def lower_relu_quant(ctx: LowerCtx, x: TArr):
+    """relu in the quantized domain: max(q, zp) (relu_ref uint8 path)."""
+    zp = int(np.asarray(ctx.in_tensor(0).quant.zero_points).reshape(-1)[0])
+    return TArr(torch.clamp_min(x.x, zp), x.layout)
 
 
 # ---------------------------------------------------------------------------

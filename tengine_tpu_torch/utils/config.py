@@ -80,11 +80,15 @@ class Options:
     # Native-int8 storage/compute plan ("auto" | "on" | "off"); the plan
     # itself (graph/passes.py:to_native_int8) is not ported yet.
     quant_native: str = "auto"
-    # Minimum bottleneck width (c_mid) for whole-chain fusion under
-    # quant_relaxed (fuse_resnet_blocks).
+    # Minimum bottleneck width (c_mid) from which quant_relaxed alone fuses
+    # int8 bottleneck chains into FusedResBlockChain nodes
+    # (graph/passes.py:fuse_resnet_blocks); narrower blocks stay on the
+    # per-conv lowerings. The default is the JAX package's.
     chain_min_cmid: int = 256
-    # Fuse int8 bottleneck residual chains into the qblock_chain kernel
-    # (not ported yet).
+    # Fuse every int8 bottleneck residual chain, at any width, into
+    # FusedResBlockChain nodes run by the qblock_chain kernel
+    # (ops/fused.py, ops/cuda/qblock.py): the exact epilogue with
+    # quant_relaxed=False, one rounding per block with quant_relaxed=True.
     fuse_resblock: bool = False
 
     @classmethod

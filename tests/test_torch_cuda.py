@@ -3,7 +3,8 @@ against its plain PyTorch version, on the card. They skip where
 torch.cuda.is_available() is false. The seeded input grids live here and
 tests/test_torch_stem.py, tests/test_torch_qconv.py and
 tests/test_torch_dwconv.py hold the plain versions to the Pallas kernels
-with them on the CPU. This file imports
+with them on the CPU (tests/test_torch_qblock.py does so for the chain
+kernel, on the JAX test's own cases). This file imports
 neither JAX nor the JAX package, so it also runs on a machine without them:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -298,6 +299,95 @@ def dw_oracle(inp):
     return y.astype(np.uint8 if a["out_u8"] else np.int8)
 
 
+# qblock_chain: the six cases of tests/test_qblock_pallas.py:179-210, then what
+# that grid lacks: c_mid above 64 (the kernel's wider GEMM tile), channel
+# counts that are no multiple of 16 or 4, the clip and relu-n activations, a
+# block that ends at the sum, H, W that no tile divides, and a chain of more
+# blocks than one launch takes.
+#   N, H, W, c0, c_mid, c_out, nblocks, first_proj, bias, relu ("same" grid,
+#   "own" grid, None), (act1, act2)
+QBLOCK_CASES = [
+    (2, 6, 6, 16, 8, 16, 1, False, True, "same", (0, 0)),
+    (2, 5, 7, 16, 8, 16, 3, False, True, "same", (0, 0)),
+    (4, 6, 14, 8, 8, 16, 2, True, True, "same", (0, 0)),
+    (2, 6, 6, 8, 8, 8, 1, False, False, "same", (0, 0)),
+    (8, 7, 7, 8, 8, 8, 2, False, True, "same", (0, 0)),
+    (2, 6, 6, 16, 8, 16, 2, False, True, "own", (0, 0)),
+]
+QBLOCK_EXTRA_CASES = [
+    (2, 9, 10, 40, 72, 160, 2, True, True, "same", (0, 0)),
+    (1, 8, 8, 64, 96, 64, 2, False, True, "own", (6, 1)),
+    (3, 5, 5, 6, 7, 10, 2, True, True, None, (-1, 0)),
+    (2, 14, 14, 128, 32, 128, 1, False, False, None, (0, 6)),
+    (1, 4, 4, 8, 8, 8, 9, False, True, "same", (0, 0)),  # longer than one launch holds
+]
+QBLOCK_TILES = [(8, 8), (7, 7), (4, 4)]
+
+
+def qblock_inputs(case, seed, relaxed=False):
+    """Seeded numpy inputs of one qblock_chain case, in the recipe of
+    tests/test_qblock_pallas.py make_block: x [N, H, W, c0] int8, the QBlock
+    of every block, and the flat list of the wrapper's arrays
+    (build_block_args then pack_block_args)."""
+    from tengine_tpu_torch.ops.cuda import qblock as pqb
+
+    N, H, W, c0, c_mid, c_out, nblocks, first_proj, bias, relu, (act1, act2) = case
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-127, 128, (N, H, W, c0)).astype(np.int8)
+
+    def scale():
+        return float(rng.uniform(0.01, 0.03))
+
+    blocks, arrays = [], []
+    s_prev, cin = 0.02, c0
+    for i in range(nblocks):
+        proj = first_proj and i == 0
+        s_out = scale()
+        blk = pqb.QBlock(
+            c_in=cin, c_mid=c_mid, c_out=c_out, act1=act1, act2=act2, s1=scale(), s2=scale(),
+            s_mid=scale(), s_r=scale() if proj else s_prev, s_out=s_out,
+            s_relu={"same": s_out, "own": scale(), None: None}[relu], proj=proj)
+
+        def w(o, c, k):
+            return rng.integers(-127, 128, (o, c, k, k)).astype(np.int8)
+
+        def b(o):
+            return rng.integers(-8000, 8000, o).astype(np.int32) if bias else None
+
+        def sw(o, k, s_from, s_to):
+            # weight scales that put int8 outputs around +-40 at fan-in k
+            # (|acc| ~ sqrt(k)*73^2 for uniform int8 operands), so that
+            # neither the clip at +-127 nor the relu hides the arithmetic
+            m = rng.uniform(0.5, 1.5, o) * 40.0 / (np.sqrt(k) * 73.0 * 73.0)
+            return (m * s_to / s_from).astype(np.float32)
+
+        args = pqb.build_block_args(
+            blk, w(c_mid, cin, 1), b(c_mid), w(c_mid, c_mid, 3), b(c_mid), w(c_out, c_mid, 1),
+            b(c_out), s_prev, sw(c_mid, cin, s_prev, blk.s1), sw(c_mid, 9 * c_mid, blk.s1, blk.s2),
+            sw(c_out, c_mid, blk.s2, blk.s_mid),
+            w4=w(c_out, cin, 1) if proj else None, b4_q=b(c_out) if proj else None,
+            sw4=sw(c_out, cin, s_prev, blk.s_r) if proj else None, relaxed=relaxed)
+        arrays += pqb.pack_block_args(args)
+        blocks.append(blk)
+        s_prev = blk.s_relu if blk.s_relu is not None else blk.s_out
+        cin = c_out
+    return dict(x=x, blocks=blocks, arrays=arrays, relaxed=relaxed)
+
+
+def port_qblock(inp, device, kernel=True, tile=None):
+    """Run one qblock_chain case through the port on `device`: the kernel's
+    wrapper (kernel=True) or the plain version. Returns a numpy NHWC result."""
+    from tengine_tpu_torch.ops.cuda import qblock as pqb
+
+    x = torch.from_numpy(inp["x"]).to(device)
+    arrays = [torch.from_numpy(a).to(device) for a in inp["arrays"]]
+    if kernel:
+        out = pqb.qblock_chain(x, arrays, inp["blocks"], relaxed=inp["relaxed"], tile=tile)
+    else:
+        out = pqb.qblock_chain_plain(x, arrays, inp["blocks"], relaxed=inp["relaxed"])
+    return out.cpu().numpy()
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: a CUDA kernel has no CPU mode")
@@ -339,6 +429,29 @@ def test_dw_kernel_matches_plain_on_card(case):
     assert dw_qconv.launches == before + 1
     want = port_dw(inp, "cuda", kernel=False)
     assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", QBLOCK_TILES + [None], ids=str)
+@pytest.mark.parametrize("relaxed", [False, True], ids=["exact", "relaxed"])
+@pytest.mark.parametrize("case", QBLOCK_CASES + QBLOCK_EXTRA_CASES, ids=str)
+def test_qblock_kernel_matches_plain_on_card(case, relaxed, tile):
+    """qblock_chain: the kernel equals its plain version bit for bit, exact
+    and relaxed, with every spatial tile the kernel is built for (both sum
+    exactly and round the same f32 epilogue, product by product); one launch
+    per chain of up to MAX_CHAIN blocks."""
+    _need_card()
+    from tengine_tpu_torch.ops.cuda.qblock import MAX_CHAIN, qblock_chain
+
+    inp = qblock_inputs(case, seed=sum(case[:7]), relaxed=relaxed)
+    before = qblock_chain.launches
+    got = port_qblock(inp, "cuda", kernel=True, tile=tile)
+    torch.cuda.synchronize()
+    assert qblock_chain.launches == before + -(-len(inp["blocks"]) // MAX_CHAIN)
+    want = port_qblock(inp, "cuda", kernel=False)
+    assert got.dtype == want.dtype == np.int8
+    assert got.shape == want.shape == case[:3] + (case[5],)
     np.testing.assert_array_equal(got, want)
 
 

@@ -30,6 +30,7 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     assert {"tengine_tpu_torch.ops.cuda.stem_conv", "tengine_tpu_torch.ops.cuda.qconv",
             "tengine_tpu_torch.ops.cuda.qgemm", "tengine_tpu_torch.ops.cuda.dw_conv",
+            "tengine_tpu_torch.ops.cuda.qblock", "tengine_tpu_torch.ops.fused",
             "tengine_tpu_torch.convert.darknet_frontend",
             "tengine_tpu_torch.models.darknet_zoo"} <= set(mods)
     code = (
@@ -115,9 +116,42 @@ def tiny_dw_graph(c=32, k=3, ir=None):
     return g
 
 
+def two_block_chain_graph(c=16, c_mid=8, hw=8):
+    """input -> two identity bottlenecks 1x1(relu) -> 3x3 p1(relu) -> 1x1 ->
+    Eltwise SUM -> ReLu, built with the port's IR."""
+    from tengine_tpu_torch.graph.ir import DType, Graph, TensorType
+
+    rng = np.random.default_rng(5)
+    g = Graph(name="chain")
+    t = g.add_tensor("data", DType.FP32, [2, c, hw, hw], TensorType.INPUT)
+    inp = g.add_node("InputOp", "input", [], [t.idx])
+
+    def conv(name, x, c_out, k, act):
+        c_in = x.shape[1]
+        w = g.add_tensor(f"{name}.w", DType.FP32, [c_out, c_in, k, k], TensorType.CONST,
+                         data=(rng.standard_normal((c_out, c_in, k, k)) * 0.3).astype(np.float32))
+        y = g.add_tensor(f"{name}.out", DType.FP32, [2, c_out, hw, hw])
+        g.add_node("Convolution", name, [x.idx, w.idx], [y.idx], params=dict(
+            kernel_h=k, kernel_w=k, stride_h=1, stride_w=1, pad_h0=k // 2, pad_h1=k // 2,
+            pad_w0=k // 2, pad_w1=k // 2, dilation_h=1, dilation_w=1, group=1,
+            output_channel=c_out, input_channel=c_in, activation=act))
+        return y
+
+    for i in range(2):
+        m = conv(f"b{i}.c3", conv(f"b{i}.c2", conv(f"b{i}.c1", t, c_mid, 1, 0), c_mid, 3, 0), c, 1, -1)
+        s = g.add_tensor(f"b{i}.sum", DType.FP32, [2, c, hw, hw])
+        g.add_node("Eltwise", f"b{i}.add", [m.idx, t.idx], [s.idx], params=dict(type=2))
+        t = g.add_tensor(f"b{i}.relu", DType.FP32, [2, c, hw, hw])
+        g.add_node("ReLu", f"b{i}.r", [s.idx], [t.idx], params=dict(negative_slope=0.0))
+    g.inputs = [inp.idx]
+    g.outputs = [g.tensors[t.idx].producer]
+    return g
+
+
 def test_kernel_wrappers_refuse_other_devices():
     """A wrapper takes its plain version only for a CPU (or meta) tensor; the
-    dw wrapper checks what its kernel takes before it would launch."""
+    dw and chain wrappers check what their kernels take before they would
+    launch."""
     from tengine_tpu_torch.ops.cuda import dw_conv as pd
 
     w = np.zeros((8, 1, 3, 3), np.float32)
@@ -133,6 +167,25 @@ def test_kernel_wrappers_refuse_other_devices():
         pd._launch(x, *args, k=7, stride=1, pad_t=3, pad_b=3, pad_l=3, pad_r=3, zp_in=0,
                    zp_out=0, act=-1, s_out=1.0, lo=-128.0, hi=127.0, out_u8=False)
 
+    from tengine_tpu_torch.ops.cuda import qblock as pqb
+
+    blk = pqb.QBlock(c_in=8, c_mid=8, c_out=8, act1=-1, act2=-1)
+    eye = np.eye(8, dtype=np.int8).reshape(8, 8, 1, 1)
+    w2 = np.zeros((8, 8, 3, 3), np.int8)
+    w2[:, :, 1, 1] = np.eye(8, dtype=np.int8)
+    one = np.ones(8, np.float32)
+    a = [torch.from_numpy(t) for t in pqb.pack_block_args(
+        pqb.build_block_args(blk, eye, None, w2, None, eye, None, 1.0, one, one, one))]
+    out = pqb.qblock_chain(x, a, [blk])
+    # identity convs, every scale 1: y = t + r = 2x, clipped
+    assert pqb.qblock_chain.launches == 0 and torch.equal(out, torch.clamp(2 * x.int(), -127, 127).to(torch.int8))
+    meta = pqb.qblock_chain(x.to("meta"), [t.to("meta") for t in a], [blk])
+    assert meta.shape == x.shape and meta.dtype == torch.int8
+    with pytest.raises(ValueError, match="channels"):
+        pqb._block_args(x[..., :4].contiguous(), x, a, blk, False, (4, 4))
+    with pytest.raises(ValueError, match="tile"):
+        pqb._block_args(x, x, a, blk, False, (5, 5))
+
 
 def test_unported_settings_raise(monkeypatch):
     import tengine_tpu_torch as tt
@@ -141,7 +194,6 @@ def test_unported_settings_raise(monkeypatch):
     calib = [np.random.default_rng(0).standard_normal((1, 3, 8, 8)).astype(np.float32)]
     qg = tt.quantize_graph(_tiny_float_graph(), calib, scheme="int8", device="cpu")
     for graph, opts, what in (
-        (qg, tt.Options(quant_mode="fast", fuse_resblock=True), "qblock_chain"),
         (qg, tt.Options(quant_mode="fast", stem_s2d=True), "stem_s2d"),
         (qg, tt.Options(quant_mode="fast", quant_native="on"), "native-int8"),
     ):
@@ -157,3 +209,13 @@ def test_unported_settings_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="eq"):
         tt.quantize_graph(_tiny_float_graph(), calib, scheme="int8", algorithm="eq",
                           device="cpu")
+    # fuse_resblock routes bottleneck chains to the chain kernel: ported, so a
+    # two-block chain compiles under the exact chain tier and names it
+    chain = two_block_chain_graph()
+    calib_c = [np.random.default_rng(0).standard_normal((2, 16, 8, 8)).astype(np.float32)]
+    qc = tt.quantize_graph(chain, calib_c, scheme="int8", device="cpu")
+    cg = tt.compile_graph(
+        qc, tt.Options(quant_mode="fast", fuse_resblock=True, quant_relaxed=False), device="cpu")
+    (node,) = [n for n in cg.graph.nodes if n.op == "FusedResBlockChain"]
+    assert len(node.params["blocks"]) == 2 and cg.kernels[node.name] == "lower_resblock_chain"
+    assert not any(n.op == "Convolution" for n in cg.graph.nodes)
