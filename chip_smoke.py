@@ -6,7 +6,10 @@ hand-written kernels against their plain PyTorch versions.
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one
                                      # yolov5s batch, one yolov3 batch (A), one
                                      # YOLO-Fastest batch (D, int8) and one
-                                     # ResNet-50 batch (F)
+                                     # ResNet-50 batch each under F and H
+    python3 chip_smoke.py --tiles    # also the implicit-GEMM kernel's time
+                                     # under every tile and route at each
+                                     # timed shape
 
 Phases, in order; any failure raises and the exit code is not 0:
   1. build     nvcc builds every tengine_tpu_torch/csrc/*.cu for sm_90a, one
@@ -15,7 +18,15 @@ Phases, in order; any failure raises and the exit code is not 0:
                test grid (tests/test_torch_cuda.py) and at the main path's
                largest launch shape of its kind; kernel, plain and
                library-call times (CUDA events) and the least time the card
-               could take (bound). qblock_chain: the grid, exact and
+               could take (bound). The int8 implicit-GEMM kernel
+               (qconv_direct, qconv1x1, qgemm_requant): the grid and the
+               edge cases under the tile it picks and under every tile and
+               route forced (wgmma, mma.sync), 0 LSB; the built library's
+               SASS must hold tensor-core instructions (IMMA or IGMMA); at
+               the three main shapes, three ResNet-50 shapes and two narrow
+               YOLO-Fastest shapes the tile picked and the device time, taken by replaying the launches
+               from a CUDA graph (the kernels run shorter than their
+               wrappers' host time). qblock_chain: the grid, exact and
                relaxed, under every spatial tile, then ResNet-50's stage-1
                and stage-3 chains at batch 32, 0 differing elements required.
   3. main path yolov5s 640x640 INT8 (MinMax), seed-0 weights: quantize_graph
@@ -50,6 +61,11 @@ Phases, in order; any failure raises and the exit code is not 0:
                  G  F without fuse_resblock: the 52 bottleneck convs on the
                     fast lowering with fuse_conv_add (timed only: the port's
                     own "before").
+                 H  G + quant_bf16_storage=False, pallas_qgemm=True: conv by
+                    conv on the implicit-GEMM kernel, 13 qconv_direct (the
+                    3x3 convs with C_in % 128 == 0), 36 qconv1x1 (the fused
+                    residual among them), the FC on qgemm_requant; the stem
+                    and stage 1's 3x3 convs stay on the fast lowering.
                Every kernel's launch count is set to 0 just before each
                timed run and read just after; the counts must be exact.
   4. check     every head's dequantized cosine against the port's fp32 engine
@@ -69,9 +85,9 @@ Phases, in order; any failure raises and the exit code is not 0:
                depthwise layers part by 1 LSB on a few elements in 100,000),
                within 8 LSB with 85% of the elements equal; at 320 the
                cosine gate. ResNet-50: the logits' dequantized cosine against
-               the fp32 engine > 0.99 under F, R and G, top-1 agreement
-               printed; F on the card within 1 LSB of the port's CPU run on
-               the first image; G against F within 1 LSB at img=32 with
+               the fp32 engine > 0.99 under F, R, G and H, top-1 agreement
+               printed; F and H on the card within 1 LSB of the port's CPU
+               run on the first image; H against G by cosine > 0.99; G against F within 1 LSB at img=32 with
                widths/8 and depths (2, 2, 2, 2), and by cosine > 0.99 at 224;
                R against F by cosine > 0.99 at 224 and, at the output of the
                full-width stage-1 chain (img=64, 3 bottlenecks, no head), by
@@ -132,12 +148,15 @@ FASTEST_TIERS = {
 
 
 RESNET_BATCH = 32
-# the tiers of phase 3d and qblock_chain's launches per forward (one per
-# FusedResBlockChain node)
+# the tiers of phase 3d and their launches per forward (qblock_chain: one per
+# FusedResBlockChain node; H: the 13 3x3 convs with C_in % 128 == 0, the 36
+# 1x1 convs and the FC)
 RESNET_TIERS = {
-    "F": (dict(fuse_resblock=True, quant_relaxed=False), 4),
-    "R": (dict(fuse_resblock=True, quant_relaxed=True, quant_native="off"), 4),
-    "G": (dict(quant_relaxed=False), 0),
+    "F": (dict(fuse_resblock=True, quant_relaxed=False), {"qblock_chain": 4}),
+    "R": (dict(fuse_resblock=True, quant_relaxed=True, quant_native="off"), {"qblock_chain": 4}),
+    "G": (dict(quant_relaxed=False), {}),
+    "H": (dict(quant_relaxed=False, quant_bf16_storage=False, pallas_qgemm=True),
+          {"qconv_direct": 13, "qconv1x1": 36, "qgemm_requant": 1}),
 }
 # ResNet-50-224's two main chains at batch 32 as qblock_inputs cases
 # (tests/test_torch_cuda.py): stage 1 (56x56, 64 -> 64 -> 256, projection
@@ -254,6 +273,35 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of fn() over `iters` calls captured into one CUDA
+    graph and replayed: the launches run back to back on the card with no
+    host work between them, so a kernel shorter than its wrapper's host time
+    (tens of microseconds) is still timed as the card runs it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture needs
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def stem_case(torch, k, mode, zp_w, B, H, seed, C=3, Cout=32):
     """Seeded stem inputs on the card (the grid of tests/test_torch_stem.py)."""
     from tengine_tpu_torch.ops.cuda.stem_conv import pack_stem_weights
@@ -357,29 +405,55 @@ def check_stem_kernel(torch):
 
 
 def check_igemm_grid(torch) -> None:
-    """Phase 2 on the test grid (tests/test_torch_cuda.py): qconv_direct and
+    """Phase 2 on the test grids (tests/test_torch_cuda.py): qconv_direct and
     qconv1x1 with and without a fused residual, and qgemm_requant, each
-    kernel bit for bit against its plain version."""
+    kernel bit for bit against its plain version: the grid and the edge cases
+    under the tile pick_tile chooses and under every tile forced."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     from test_torch_cuda import (
-        QCONV_CASES, QCONV_RES_CASES, QGEMM_CASES, port_qconv, port_qgemm,
-        qconv_inputs, qgemm_inputs,
+        IGEMM_TILES, QCONV_CASES, QCONV_EDGE_CASES, QCONV_RES_CASES, QGEMM_CASES,
+        QGEMM_EDGE_CASES, port_qconv, port_qgemm, qconv_edge_inputs, qconv_inputs,
+        qgemm_edge_inputs, qgemm_inputs, wgmma_refused,
     )
 
-    worst = 0
-    cases = [(False, c) for c in QCONV_CASES] + [(True, c) for c in QCONV_RES_CASES]
-    for with_res, case in cases:
-        inp = qconv_inputs(case, seed=sum(case[:5]), with_res=with_res)
-        got, want = port_qconv(inp, "cuda", kernel=True), port_qconv(inp, "cuda", kernel=False)
-        worst = max(worst, int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max()))
-    for case in QGEMM_CASES:
-        inp = qgemm_inputs(case, seed=sum(case[:3]))
-        got, want = port_qgemm(inp, "cuda", kernel=True), port_qgemm(inp, "cuda", kernel=False)
-        worst = max(worst, int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max()))
-    log(f"  qconv/qgemm grid: {len(cases)} qconv and {len(QGEMM_CASES)} qgemm cases, "
-        f"max|d|={worst} LSB")
+    from tengine_tpu_torch.ops.cuda.qconv import TILES
+
+    if sorted({t[:2] for t in IGEMM_TILES}) != sorted(TILES):
+        raise AssertionError(f"the tests force tiles {IGEMM_TILES}, the kernel is built for {TILES}")
+    conv = [qconv_inputs(c, seed=sum(c[:5]), with_res=False) for c in QCONV_CASES]
+    conv += [qconv_inputs(c, seed=sum(c[:5]), with_res=True) for c in QCONV_RES_CASES]
+    conv += [qconv_edge_inputs(c, seed=sum(c[:7])) for c in QCONV_EDGE_CASES]
+    gemm = [qgemm_inputs(c, seed=sum(c[:3])) for c in QGEMM_CASES]
+    gemm += [qgemm_edge_inputs(c, seed=sum(c[:3])) for c in QGEMM_EDGE_CASES]
+    worst = runs = 0
+    for port, inputs in ((port_qconv, conv), (port_qgemm, gemm)):
+        for inp in inputs:
+            want = port(inp, "cuda", kernel=False).astype(np.int32)
+            for tile in [None] + IGEMM_TILES:
+                if wgmma_refused(inp, tile):  # uint8 input: the mma.sync route only
+                    continue
+                got = port(inp, "cuda", kernel=True, tile=tile).astype(np.int32)
+                worst = max(worst, int(np.abs(got - want).max()))
+                runs += 1
+    log(f"  qconv/qgemm grid: {len(conv)} qconv and {len(gemm)} qgemm cases, each under the "
+        f"chosen tile and {len(IGEMM_TILES)} forced tiles and routes (wgmma: int8 input only) = "
+        f"{runs} runs, max|d|={worst} LSB")
     if worst:
         raise AssertionError(f"qconv/qgemm kernels disagree with their plain versions: {worst} LSB")
+
+
+def check_tensor_core_sass(build) -> None:
+    """The built qconv library must reach the int8 tensor cores: count the
+    IMMA (mma.sync) and IGMMA (wgmma) instructions in its SASS."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or str(Path(build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(build.library_path("qconv"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    imma, igmma, dp4a = sass.count("IMMA."), sass.count("IGMMA."), sass.count("IDP.4A")
+    log(f"  qconv library SASS: {imma} IMMA, {igmma} IGMMA, {dp4a} IDP.4A instructions")
+    if imma + igmma == 0:
+        raise AssertionError("the qconv library holds no int8 tensor-core instruction")
 
 
 def _requant_vectors(rng, n, k):
@@ -390,21 +464,13 @@ def _requant_vectors(rng, n, k):
     return m, b
 
 
-def int_mm_ms(torch, x, w_nk):
-    """library_ms of a pointwise kernel: torch._int_mm on the same int8
-    [M, K] x [K, N] (the GEMM alone, int32 out)."""
-    wt = w_nk.t()  # [K, N], column-major, as cuBLASLt takes it
-    try:
-        torch._int_mm(x, wt)
-    except RuntimeError as exc:
-        log(f"  torch._int_mm refused the column-major operand ({exc}); timing a row-major copy")
-        wt = wt.contiguous()
-    return cuda_ms(lambda: torch._int_mm(x, wt), iters=20)
-
-
-def check_igemm_main(torch):
+def check_igemm_main(torch, sweep=False):
     """Phase 2 at yolov3-416 b8's largest launch of each kernel: returns the
-    kernels-line entries of qconv_direct, qconv1x1 and qgemm_requant."""
+    kernels-line entries of qconv_direct, qconv1x1 and qgemm_requant. Kernel
+    and library times are device times (graph_ms); the wrapper's eager time
+    per call is logged beside them. Then, as log lines, three ResNet-50 b32
+    shapes of tier H and two narrow YOLO-Fastest shapes. With sweep, every
+    tile's time at every shape."""
     import torch.nn.functional as F
 
     from tengine_tpu_torch.ops.cuda import qconv as pq
@@ -412,51 +478,90 @@ def check_igemm_main(torch):
 
     rng = np.random.default_rng(416)
     entries = {}
-    common = dict(act=-1, lo=-127, hi=127)
+    common = dict(lo=-127, hi=127)
 
-    # qconv_direct: stride-2 3x3, 104x104x128 -> 52x52x256
-    d = YOLOV3_DIRECT
-    N, H, C, O, k, s, pad = d["N"], d["H"], d["C"], d["O"], d["k"], d["s"], d["pad"]
-    x = torch.from_numpy(rng.integers(-127, 128, (N, H, H, C), dtype=np.int8)).cuda()
-    w_oihw = rng.integers(-127, 128, (O, C, k, k), dtype=np.int8)
-    w = torch.from_numpy(pq.pack_qconv_weights(w_oihw, False)).cuda()
-    m, b = (torch.from_numpy(a).cuda() for a in _requant_vectors(rng, O, C * k * k))
-    geo = dict(kh=k, kw=k, stride=s, pad_t=pad, pad_b=pad, pad_l=pad, pad_r=pad, **common)
-    got = pq.qconv_direct(x, w, m, b, **geo)
-    err = max_lsb(torch, got, pq.qconv_direct_plain(x, w, m, b, **geo),
-                  f"qconv_direct yolov3-416 b8 {H}x{H}x{C} -> {tuple(got.shape[1:])}")
-    ms = cuda_ms(lambda: pq.qconv_direct(x, w, m, b, **geo), iters=20)
-    plain_ms = cuda_ms(lambda: pq.qconv_direct_plain(x, w, m, b, **geo), iters=3, warmup=1)
-    # library yardstick: cuDNN fp16 conv, channels-last, the conv alone (not
-    # exact: fp16 holds int8 values but not every int32 sum)
-    xh = x.permute(0, 3, 1, 2).half().contiguous(memory_format=torch.channels_last)
-    wh = torch.from_numpy(w_oihw).cuda().half().contiguous(memory_format=torch.channels_last)
-    library_ms = cuda_ms(lambda: F.conv2d(xh, wh, stride=s, padding=pad), iters=20)
-    moved = x.numel() + w_oihw.size + 8 * O + got.numel()
-    ops = 2 * got.numel() * C * k * k
-    entries["qconv_direct"] = kernel_entry("qconv_direct", pq.SOURCE, pq.REPLACES_DIRECT, err,
-                                           ms, plain_ms, moved, ops, library_ms)
+    def measure(name, what, fn, plain, library, m_rows, c2, moved, ops, source, replaces,
+                entry=True):
+        got = fn()
+        err = max_lsb(torch, got, plain(), f"{name} {what}")
+        tile = pq.pick_tile(m_rows, c2)
+        route = "wgmma" if tile in pq.WGMMA_TILES else "mma.sync"  # int8 input, no rowsum
+        tiles = -(-m_rows // tile[0]) * -(-c2 // tile[1])
+        ms, eager_ms = graph_ms(fn, iters=20), cuda_ms(fn, iters=20)
+        library_ms = graph_ms(library, iters=20)
+        log(f"  {name} {what}: tile {tile[0]}x{tile[1]} by {route} ({tiles} tiles), device "
+            f"{ms:.4f} ms, eager wrapper {eager_ms:.4f} ms a call, {ops / ms / 1e9:.1f} T int8 ops/s, "
+            f"{moved / ms / 1e6:.0f} GB/s")
+        if sweep:
+            forced = [t + (r,) for t in pq.TILES for r in (("mma", "wgmma") if t in pq.WGMMA_TILES else ("mma",))]
+            times = {t: graph_ms(lambda: fn(tile=t), iters=20) for t in forced}
+            log("    by tile: " + ", ".join(f"{t[0]}x{t[1]} {t[2]} {v:.4f}" for t, v in times.items()))
+        if not entry:
+            t_bound = max(moved / H100_BYTES_PER_S, ops / H100_INT8_OPS_PER_S) * 1e3
+            log(f"    library {library_ms:.4f} ms, bound {t_bound:.4f} ms ({moved} bytes, {ops} int8 ops)")
+            return
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        entries[name] = kernel_entry(name, source, replaces, err, ms, plain_ms, moved, ops, library_ms)
 
-    # qconv1x1 and qgemm_requant: flat [M, K] x [K, N]
-    for name, shape in (("qconv1x1", YOLOV3_1X1), ("qgemm_requant", YOLOV3_QGEMM)):
-        M, K, Nn = shape["M"], shape["K"], shape["N"]
+    def conv_case(name, N, H, C, O, k, s, pad, act, what, entry=True):
+        x = torch.from_numpy(rng.integers(-127, 128, (N, H, H, C), dtype=np.int8)).cuda()
+        w_oihw = rng.integers(-127, 128, (O, C, k, k), dtype=np.int8)
+        w = torch.from_numpy(pq.pack_qconv_weights(w_oihw, False)).cuda()
+        m, b = (torch.from_numpy(a).cuda() for a in _requant_vectors(rng, O, C * k * k))
+        geo = dict(kh=k, kw=k, stride=s, pad_t=pad, pad_b=pad, pad_l=pad, pad_r=pad, act=act, **common)
+        oh = (H + 2 * pad - k) // s + 1
+        # library yardstick: cuDNN fp16 conv, channels-last, the conv alone (not
+        # exact: fp16 holds int8 values but not every int32 sum)
+        xh = x.permute(0, 3, 1, 2).half().contiguous(memory_format=torch.channels_last)
+        wh = torch.from_numpy(w_oihw).cuda().half().contiguous(memory_format=torch.channels_last)
+        measure(name, f"{what} {H}x{H}x{C} -> {oh}x{oh}x{O} k{k} s{s}",
+                lambda tile=None: pq.qconv_direct(x, w, m, b, tile=tile, **geo),
+                lambda: pq.qconv_direct_plain(x, w, m, b, **geo),
+                lambda: F.conv2d(xh, wh, stride=s, padding=pad), N * oh * oh, O,
+                x.numel() + w_oihw.size + 8 * O + N * oh * oh * O, 2 * N * oh * oh * O * C * k * k,
+                pq.SOURCE, pq.REPLACES_DIRECT, entry)
+
+    def gemm_case(name, M, K, Nn, act, what, with_res=False, entry=True):
         x = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8)).cuda()
         w_nk = rng.integers(-127, 128, (Nn, K), dtype=np.int8)
         m, b = (torch.from_numpy(a).cuda() for a in _requant_vectors(rng, Nn, K))
+        kw = dict(act=act, **common)
         if name == "qconv1x1":
             w = torch.from_numpy(pq.pack_qconv_weights(w_nk.reshape(Nn, K, 1, 1), False)).cuda()
             fn, plain, source, replaces = pq.qconv1x1, pq.qconv1x1_plain, pq.SOURCE, pq.REPLACES_1X1
+            if with_res:
+                r = torch.from_numpy(rng.integers(-127, 128, (M, Nn), dtype=np.int8)).cuda()
+                kw.update(residual=r, res=(0.05, 0, 0.03, 0, 0.07, 0, True), inv_s_out=20.0)
         else:
             w = torch.from_numpy(pg.pack_qgemm_weights(w_nk, False)).cuda()
             fn, plain, source, replaces = pg.qgemm_requant, pg.qgemm_requant_plain, pg.SOURCE, pg.REPLACES
-        got = fn(x, w, m, b, **common)
-        err = max_lsb(torch, got, plain(x, w, m, b, **common), f"{name} yolov3-416 b8 [{M},{K}]x[{K},{Nn}]")
-        ms = cuda_ms(lambda: fn(x, w, m, b, **common), iters=20)
-        plain_ms = cuda_ms(lambda: plain(x, w, m, b, **common), iters=3, warmup=1)
-        library_ms = int_mm_ms(torch, x, torch.from_numpy(w_nk).cuda())
-        moved = M * K + Nn * K + 8 * Nn + M * Nn
-        entries[name] = kernel_entry(name, source, replaces, err, ms, plain_ms, moved,
-                                     2 * M * K * Nn, library_ms)
+        # library yardstick: torch._int_mm on the same operands (the GEMM alone,
+        # int32 out), the weights column-major as cuBLASLt takes them
+        wt = torch.from_numpy(w_nk).cuda().t()
+        try:
+            torch._int_mm(x, wt)
+        except RuntimeError as exc:
+            log(f"  torch._int_mm refused the column-major operand ({exc}); timing a row-major copy")
+            wt = wt.contiguous()
+        measure(name, f"{what} [{M},{K}]x[{K},{Nn}]" + (" + residual + relu" if with_res else ""),
+                lambda tile=None: fn(x, w, m, b, tile=tile, **kw), lambda: plain(x, w, m, b, **kw),
+                lambda: torch._int_mm(x, wt), M, Nn,
+                M * K + Nn * K + 8 * Nn + M * Nn * (2 if with_res else 1), 2 * M * K * Nn,
+                source, replaces, entry)
+
+    d = YOLOV3_DIRECT
+    conv_case("qconv_direct", d["N"], d["H"], d["C"], d["O"], d["k"], d["s"], d["pad"], -1, "yolov3-416 b8")
+    gemm_case("qconv1x1", YOLOV3_1X1["M"], YOLOV3_1X1["K"], YOLOV3_1X1["N"], -1, "yolov3-416 b8")
+    gemm_case("qgemm_requant", YOLOV3_QGEMM["M"], YOLOV3_QGEMM["K"], YOLOV3_QGEMM["N"], -1, "yolov3-416 b8")
+    # tier H's shapes, log lines only: a stage-3 3x3, the stage-4 pointwise
+    # convs (the second with the fused residual and relu)
+    b = RESNET_BATCH
+    conv_case("qconv_direct", b, 14, 256, 256, 3, 1, 1, 0, f"resnet50-224 b{b}", entry=False)
+    gemm_case("qconv1x1", b * 7 * 7, 2048, 512, 0, f"resnet50-224 b{b}", entry=False)
+    gemm_case("qconv1x1", b * 7 * 7, 512, 2048, -1, f"resnet50-224 b{b}", with_res=True, entry=False)
+    # YOLO-Fastest-320 b32's narrowest pointwise convs (C_in 8: 8-byte copies)
+    gemm_case("qconv1x1", FASTEST_BATCH * 160 * 160, 8, 8, -1, f"yolofastest-320 b{FASTEST_BATCH}", entry=False)
+    gemm_case("qconv1x1", FASTEST_BATCH * 80 * 80, 16, 48, -1, f"yolofastest-320 b{FASTEST_BATCH}", entry=False)
     return entries
 
 
@@ -509,7 +614,9 @@ def check_dw_kernel(torch):
             err = max_lsb(torch, got, pd.dw_qconv_plain(xd, wd, md, bd, **run), what)
             if err:
                 raise AssertionError(f"{what}: kernel disagrees with its plain version")
-            ms = cuda_ms(lambda: pd.dw_qconv(xd, wd, md, bd, **run), iters=100)
+            # device time: the kernel is shorter than its wrapper's host time
+            # on a busy host
+            ms = graph_ms(lambda: pd.dw_qconv(xd, wd, md, bd, **run), iters=50)
             if u8 or stride == 2:
                 log(f"  {what}: kernel {ms:.4f} ms")
                 continue
@@ -518,8 +625,8 @@ def check_dw_kernel(torch):
             # conv alone (not exact: the fp16 result rounds; no requant epilogue)
             xh = xd.permute(0, 3, 1, 2).half().contiguous(memory_format=torch.channels_last)
             wh = torch.from_numpy(w_true.astype(np.float16)).cuda()
-            library_ms = cuda_ms(lambda: F.conv2d(xh, wh, stride=stride, padding=pad, groups=C),
-                                 iters=20)
+            library_ms = graph_ms(lambda: F.conv2d(xh, wh, stride=stride, padding=pad, groups=C),
+                                  iters=20)
             moved = xd.numel() + got.numel() + wd.numel() * 2 + 8 * C
             entry = kernel_entry("dw_qconv", pd.SOURCE, pd.REPLACES, err, ms, plain_ms, moved,
                                  2 * got.numel() * k * k, library_ms)
@@ -797,7 +904,8 @@ def main(argv) -> int:
     t0 = time.time()
     entries = {"stem_qconv": check_stem_kernel(torch)}
     check_igemm_grid(torch)
-    entries.update(check_igemm_main(torch))
+    check_tensor_core_sass(build)
+    entries.update(check_igemm_main(torch, sweep="--tiles" in argv))
     entries["dw_qconv"] = check_dw_kernel(torch)
     entries["qblock_chain"] = check_qblock_kernel(torch)
     counters = {"stem_qconv": stem_qconv, "qconv_direct": qconv_direct, "qconv1x1": qconv1x1,
@@ -910,13 +1018,25 @@ def main(argv) -> int:
         opts = dict(quant_mode="fast", batch_size=RESNET_BATCH, **extra)
         cgr = tt.compile_graph(qgr, tt.Options(**opts))
         chains = [len(n.params["blocks"]) for n in cgr.graph.nodes if n.op == "FusedResBlockChain"]
-        n_convs = sum(n.op == "Convolution" for n in cgr.graph.nodes)
-        if (chains, n_convs) != (([3, 4, 6, 3], 1) if per_forward else ([], 53)):
-            raise AssertionError(f"resnet50 {tier}: chains {chains}, {n_convs} convs left")
-        if any(k.startswith("lower_conv_quant_pallas") for k in cgr.kernels.values()):
+        convs = [n for n in cgr.graph.nodes if n.op == "Convolution"]
+        if (chains, len(convs)) != (([3, 4, 6, 3], 1) if "qblock_chain" in per_forward else ([], 53)):
+            raise AssertionError(f"resnet50 {tier}: chains {chains}, {len(convs)} convs left")
+        routed = [cgr.kernels[n.name] for n in convs].count("lower_conv_quant_pallas_direct")
+        if tier == "H":
+            # from the IR: a conv takes the kernel if it is 1x1, or k x k with
+            # C_in % 128 == 0; the 1x1 convs go to qconv1x1 (the stride-2 ones
+            # after a subsample), the FC to qgemm_requant
+            ks = [(n.params["kernel_h"], int(cgr.graph.tensors[n.inputs[1]].shape[1])) for n in convs]
+            derived = {"qconv_direct": sum(k > 1 and c % 128 == 0 for k, c in ks),
+                       "qconv1x1": sum(k == 1 for k, _ in ks), "qgemm_requant": 1}
+            fc = [cgr.kernels[n.name] for n in cgr.graph.nodes if n.op == "FullyConnected"]
+            if derived != per_forward or routed != 49 or fc != ["lower_fc_quant_pallas"]:
+                raise AssertionError(f"resnet50 H: the IR gives {derived}, {routed} convs took "
+                                     f"the kernel's lowering, FC on {fc}")
+        elif routed:
             raise AssertionError(f"resnet50 {tier}: a conv left the fast lowering")
         outsr, batch_ms, launches = drive(torch, cgr, xr, counters)
-        want = dict.fromkeys(counters, 0) | {"qblock_chain": 3 * per_forward}
+        want = dict.fromkeys(counters, 0) | {name: 3 * n for name, n in per_forward.items()}
         if launches != want:
             raise AssertionError(f"resnet50 {tier}: launches {launches}, expected {want}")
         resnet[tier] = (cgr, outsr, opts)
@@ -924,7 +1044,7 @@ def main(argv) -> int:
         log(f"phase 3 main path: resnet50-{imgr} int8 batch {RESNET_BATCH} tier {tier} {extra}: "
             f"ms/batch {batch_ms} (median {med:.3f}), {RESNET_BATCH * 1e3 / med:.1f} img/s, "
             f"launches {launches} [{time.time() - t1:.1f} s]")
-    entries["qblock_chain"]["launches"] = 3 * RESNET_TIERS["F"][1]
+    entries["qblock_chain"]["launches"] = 3 * RESNET_TIERS["F"][1]["qblock_chain"]
     log(f"  resnet50 in all: {time.time() - t0:.1f} s")
 
 
@@ -982,10 +1102,14 @@ def main(argv) -> int:
             f"over {RESNET_BATCH} images")
     for tier in ("G", "R"):
         check_tiers_agree(torch, f"resnet50-{imgr} {tier} vs F", resnet[tier][1], outs_f, logits)
-    t1 = time.time()
-    coutsr = tt.compile_graph(qgr, tt.Options(**dict(opts_f, batch_size=1)), device="cpu").run(xqr[:1])
-    log(f"  resnet50-{imgr} F on the CPU, image 0: {time.time() - t1:.1f} s")
-    check_within_lsb("resnet50 F card vs CPU (image 0)", [o[:1] for o in outs_f], coutsr, logits)
+    check_tiers_agree(torch, f"resnet50-{imgr} H vs G", resnet["H"][1], resnet["G"][1], logits)
+    for tier in ("F", "H"):
+        t1 = time.time()
+        opts = dict(resnet[tier][2], batch_size=1)
+        coutsr = tt.compile_graph(qgr, tt.Options(**opts), device="cpu").run(xqr[:1])
+        log(f"  resnet50-{imgr} {tier} on the CPU, image 0: {time.time() - t1:.1f} s")
+        check_within_lsb(f"resnet50 {tier} card vs CPU (image 0)",
+                         [o[:1] for o in resnet[tier][1]], coutsr, logits)
     check_resnet_small(torch, tt, ir, qmath)
     log(f"phase 4 check: {time.time() - t0:.1f} s")
 
@@ -994,6 +1118,7 @@ def main(argv) -> int:
         profile_batch(torch, cg3a, x3)
         profile_batch(torch, fastest["int8", "D"][0], fastest["int8", "D"][4])
         profile_batch(torch, resnet["F"][0], xr)
+        profile_batch(torch, resnet["H"][0], xr)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "tengine_tpu"))
     if leaked:

@@ -3,8 +3,8 @@
 Each source under tengine_tpu_torch/csrc/ has a plain C interface and is
 compiled by nvcc for sm_90a (Hopper) into its own shared library, loaded
 with ctypes. Libraries go to build/kernels/ at the repository root, named
-by a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing here runs at import time: a kernel is
+by a hash of the source, every header under csrc/ and the flags, so an
+edited source or header rebuilds and an unchanged one is reused. Nothing here runs at import time: a kernel is
 built at its first launch, or ahead of time through build_all().
 """
 
@@ -47,9 +47,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where csrc/<name>.cu's library goes: named by a digest of the source,
+    of every csrc/*.cuh (name and bytes: any source may include any header)
+    and of the flags."""
+    h = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start_build(name: str) -> Optional[subprocess.Popen]:

@@ -21,19 +21,23 @@ y = round(((t - zp_mid)·s_mid + (r - zp_r)·s_r) · f32(1/s_out2)) + zp_out2
 (XLA compiles the JAX kernel's division by the constant s_out2 to that
 multiply), then the optional relu max(y, zp_out2) and the clip.
 
-On the card both are bound by operations: yolov3-416 batch 8 gives the k×k
-convs 204 GMAC over 236 MB and the 1×1 convs 26 GMAC over 249 MB (int8
-tensor cores at 1,979 TOP/s against 3.35 TB/s of HBM). The kernel is one
-tiled dp4a implicit GEMM (design note in csrc/qconv.cu); qgemm_requant
-(ops/cuda/qgemm.py) launches the same kernel. None of the TPU layout tricks
-carry over — int16 hops, the stride-2 column phase split, the OWp garbage
-columns, the halo DMA, the MXU ones-column: the kernel reads NHWC bytes
-directly, masks ragged edges, and sums the rowsum itself.
+On the card the k×k convs are bound by operations (yolov3-416 batch 8 gives
+them 204 GMAC over 236 MB: int8 tensor cores at 1,979 TOP/s against 3.35
+TB/s of HBM) and the narrow 1×1 convs by bytes. The kernel is one persistent
+implicit GEMM on the int8 tensor cores (wgmma m64n128k32 for int8 input on
+the 128-channel tiles, mma.sync m16n8k32 otherwise, both fed by cp.async
+through a shared-memory ring; design note in csrc/qconv.cu) with the block's
+tile picked per shape by pick_tile; qgemm_requant (ops/cuda/qgemm.py)
+launches the same kernel. None of the TPU layout tricks carry over — int16
+hops, the stride-2 column phase split, the OWp garbage columns, the halo
+DMA: the kernel gathers NHWC bytes directly and masks ragged edges. The MXU
+ones-column does: the rowsum is one more MMA against a fragment of ones.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -46,7 +50,14 @@ SOURCE = "tengine_tpu_torch/csrc/qconv.cu"
 REPLACES_DIRECT = "tengine_tpu/ops/pallas/qconv.py:232"
 REPLACES_1X1 = "tengine_tpu/ops/pallas/qconv.py:413"
 
-CHUNK = 32  # the kernel's K chunk: weight channels per tap pad to a multiple
+CHUNK = 32  # one MMA step's K: weight channels per tap pad to a multiple
+# the block tiles the kernel is built for, (BM pixels, BN channels), in the
+# order pick_tile prefers them
+TILES = ((128, 128), (64, 128), (128, 64), (64, 64), (128, 32), (64, 32))
+# the tiles whose product can also run as warpgroup MMA (wgmma), given int8
+# input and no rowsum term; a third tile element "mma" or "wgmma" forces one
+WGMMA_TILES = ((128, 128), (64, 128))
+SM_COUNT = 132  # H100 SXM
 
 _DTYPES = {"int8": torch.int8, "uint8": torch.uint8}
 
@@ -63,6 +74,7 @@ class QconvArgs(ctypes.Structure):
         + [(f, ctypes.c_float) for f in ("act_lo", "act_hi", "zp_out", "lo", "hi")]
         + [(f, ctypes.c_int) for f in ("x_u8", "res_u8", "out_u8", "has_res", "relu2")]
         + [(f, ctypes.c_float) for f in ("s_mid", "zp_mid", "s_r", "zp_r", "inv_s_out2", "zp_out2")]
+        + [(f, ctypes.c_int) for f in ("bm", "bn", "wgmma")]
     )
 
 
@@ -84,6 +96,7 @@ def pack_qconv_weights(w_oihw: np.ndarray, is_u8: bool) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def act_bounds(act: Optional[int], inv_s_out: float, zp_out: int) -> Tuple[float, float]:
     """The activation clamp's thresholds in the requant domain, computed in
     double on the host and then rounded to f32, as the Pallas kernels'
@@ -95,6 +108,7 @@ def act_bounds(act: Optional[int], inv_s_out: float, zp_out: int) -> Tuple[float
     return float(zp_out), float(np.float32(act * inv_s_out + zp_out))
 
 
+@functools.lru_cache(maxsize=None)
 def _inv_f32(s: float) -> float:
     """f32(1 / f32(s)): the multiplier that stands for a division by s."""
     return float(np.float32(1.0) / np.float32(s))
@@ -172,43 +186,86 @@ def qconv1x1_plain(x, w, mult, bias, residual=None, res=None, *, cw=0, act=-1,
     return out.reshape(M, C2)
 
 
-def _check(name, cond, what):
-    if not cond:
-        raise ValueError(f"{name}: {what}")
+@functools.lru_cache(maxsize=None)
+def _launch_fn():
+    """csrc/qconv.cu's one entry, built and bound at the first launch."""
+    from .build import load
+
+    fn = load("qconv").qconv_igemm_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(QconvArgs), ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def pick_tile(m: int, c2: int) -> Tuple[int, int]:
+    """The block's (BM, BN) for an [m, K] × [K, c2] product. BN: the widths
+    that leave the fewest masked channels (c2 = 32 takes 32, not 128); BM = 64
+    when there are no more rows than that. Then the first tile, largest
+    first, with a tile for at least three quarters of the card's SMs (the
+    kernel is persistent: a block walks its tiles and loads the next one's
+    operands during a tile's epilogue, so few large tiles beat many small
+    ones; measured by chip_smoke.py --tiles); failing that the one with the
+    most tiles."""
+    padded = {bn: _ru(c2, bn) for bn in (128, 64, 32)}
+    tiles = [t for t in TILES if padded[t[1]] == min(padded.values()) and (m > 64 or t[0] == 64)]
+
+    def blocks(t):
+        return -(-m // t[0]) * -(-c2 // t[1])
+
+    for t in tiles:
+        if blocks(t) >= 3 * SM_COUNT // 4:
+            return t
+    return max(tiles, key=blocks)  # the first (largest) of equals
 
 
 def launch_igemm(name, x, w, mult, bias, residual, res, *, n, h, w_in, c, oh, ow,
                  kh, kw, stride, pad_t, pad_l, zp_in, cw, act, inv_s_out, zp_out,
-                 lo, hi, out_dtype, out_shape):
+                 lo, hi, out_dtype, out_shape, tile=None):
     """Check the operands and launch csrc/qconv.cu's kernel on the current
     stream. x is NHWC [n, h, w_in, c] (a flat [M, K] is n=1, h=1, w_in=M);
-    w is [C2, kh*kw, Cp]. Raises on what the kernel does not take, and if
-    the launch returns a CUDA error."""
-    from .build import load
+    w is [C2, kh*kw, Cp]. tile forces one of TILES, and with a third element
+    "mma" or "wgmma" the route (the card tests cover each); by default
+    pick_tile chooses, and wgmma runs where it can. Raises on what the kernel does not
+    take, and if the launch returns a CUDA error. The checks build their
+    messages only when they fail: this runs once per conv per forward."""
+    def refuse(what):
+        raise ValueError(f"{name}: {what}")
 
     C2 = int(w.shape[0])
-    _check(name, x.dtype in (torch.int8, torch.uint8) and x.is_contiguous(),
-           "x must be a contiguous int8/uint8 tensor")
-    _check(name, x.numel() == n * h * w_in * c, f"x has {x.numel()} elements, not {n}x{h}x{w_in}x{c}")
     cp = _ru(c, CHUNK)
-    _check(name, w.dtype == torch.int8 and tuple(w.shape) == (C2, kh * kw, cp)
-           and w.is_contiguous() and w.data_ptr() % 16 == 0,
-           f"w must be contiguous 16-byte-aligned int8 [C2, {kh * kw}, {cp}]")
+    if not (x.dtype in (torch.int8, torch.uint8) and x.is_contiguous()):
+        refuse("x must be a contiguous int8/uint8 tensor")
+    if x.numel() != n * h * w_in * c or x.numel() >= 2 ** 31:
+        refuse(f"x has {x.numel()} elements, not {n}x{h}x{w_in}x{c} (and fewer than 2^31)")
+    if not (w.dtype == torch.int8 and tuple(w.shape) == (C2, kh * kw, cp)
+            and w.is_contiguous() and w.data_ptr() % 16 == 0):
+        refuse(f"w must be contiguous 16-byte-aligned int8 [C2, {kh * kw}, {cp}]")
     for nm, v in (("mult", mult), ("bias", bias)):
-        _check(name, v.dtype == torch.float32 and tuple(v.shape) == (C2,) and v.is_contiguous(),
-               f"{nm} must be contiguous f32 [{C2}]")
-    _check(name, out_dtype in _DTYPES, f"out_dtype {out_dtype!r}")
-    _check(name, oh >= 1 and ow >= 1, f"empty output {oh}x{ow}")
+        if not (v.dtype == torch.float32 and tuple(v.shape) == (C2,) and v.is_contiguous()):
+            refuse(f"{nm} must be contiguous f32 [{C2}]")
+    if out_dtype not in _DTYPES:
+        refuse(f"out_dtype {out_dtype!r}")
+    if oh < 1 or ow < 1 or not (1 <= kh <= 16 and 1 <= kw <= 16):
+        refuse(f"output {oh}x{ow}, window {kh}x{kw}: the kernel takes windows up to 16x16")
     operands = [w, mult, bias]
     if res is not None:
-        _check(name, residual is not None and residual.dtype in (torch.int8, torch.uint8)
-               and residual.is_contiguous() and residual.numel() == n * oh * ow * C2,
-               "residual must be a contiguous int8/uint8 tensor shaped like the output")
+        if not (residual is not None and residual.dtype in (torch.int8, torch.uint8)
+                and residual.is_contiguous() and residual.numel() == n * oh * ow * C2):
+            refuse("residual must be a contiguous int8/uint8 tensor shaped like the output")
         operands.append(residual)
-    _check(name, all(t.device == x.device for t in operands), "all operands must be on one device")
+    if any(t.device != x.device for t in operands):
+        refuse("all operands must be on one device")
+    tile = tuple(tile) if tile is not None else pick_tile(n * oh * ow, C2)
+    tile, route = tile[:2], tile[2] if len(tile) == 3 else None
+    if tile not in TILES:
+        refuse(f"tile {tile} is not one of {TILES}")
+    can_wgmma = tile in WGMMA_TILES and x.dtype == torch.int8 and not cw
+    if route not in (None, "mma", "wgmma") or (route == "wgmma" and not can_wgmma):
+        refuse(f"route {route!r} with tile {tile}, {x.dtype} input, cw={cw}")
+    wgmma = can_wgmma if route is None else route == "wgmma"
 
     out = torch.empty(out_shape, dtype=_DTYPES[out_dtype], device=x.device)
-    _check(name, out.data_ptr() % 8 == 0, "output must be 8-byte aligned")
     a_lo, a_hi = act_bounds(act, inv_s_out, zp_out)
     args = QconvArgs(
         x=x.data_ptr(), w=w.data_ptr(), mult=mult.data_ptr(), bias=bias.data_ptr(),
@@ -221,17 +278,16 @@ def launch_igemm(name, x, w, mult, bias, residual, res, *, n, h, w_in, c, oh, ow
         res_u8=int(res is not None and residual.dtype == torch.uint8),
         out_u8=int(out_dtype == "uint8"), has_res=int(res is not None),
         relu2=int(bool(res[6])) if res is not None else 0,
+        bm=tile[0], bn=tile[1], wgmma=int(wgmma),
     )
     if res is not None:
         s_mid, zp_mid, s_r, zp_r, s_out2, zp_out2, _ = res
         args.s_mid, args.zp_mid, args.s_r = float(s_mid), float(zp_mid), float(s_r)
         args.zp_r, args.inv_s_out2, args.zp_out2 = float(zp_r), _inv_f32(s_out2), float(zp_out2)
-    vec = int(c % 16 == 0 and x.data_ptr() % 16 == 0)
+    # the widest piece (16, 8 or 4 bytes) that divides C and the input's address
+    vec = next((v for v in (16, 8, 4) if c % v == 0 and x.data_ptr() % v == 0), 0)
 
-    fn = load("qconv").qconv_igemm_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(QconvArgs), ctypes.c_int, ctypes.c_void_p]
-    rc = fn(ctypes.byref(args), vec, torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _launch_fn()(ctypes.byref(args), vec, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
     return out
@@ -247,7 +303,7 @@ def _dispatch(name, x, kernel, plain):
 
 def qconv_direct(x, w, mult, bias, residual=None, res=None, *, kh, kw, stride=1,
                  pad_t=0, pad_b=0, pad_l=0, pad_r=0, zp_in=0, cw=0, act=-1,
-                 inv_s_out=1.0, zp_out=0, lo=-127, hi=127, out_dtype="int8"):
+                 inv_s_out=1.0, zp_out=0, lo=-127, hi=127, out_dtype="int8", tile=None):
     """Direct k×k conv + requant (+ fused residual): x [N, H, W, C] s8/u8
     raw quantized activations, w [C2, kh*kw, Cp] from pack_qconv_weights,
     mult/bias f32 [C2], residual [N, OH, OW, C2] with res = (s_mid, zp_mid,
@@ -255,7 +311,7 @@ def qconv_direct(x, w, mult, bias, residual=None, res=None, *, kh, kw, stride=1,
 
     On a CUDA tensor this launches the kernel (or raises); on a CPU tensor,
     or a meta tensor during shape inference, it runs qconv_direct_plain.
-    qconv_direct.launches counts kernel launches."""
+    qconv_direct.launches counts kernel launches; tile forces one of TILES."""
     N, H, W, C = map(int, x.shape)
     OH = (H + pad_t + pad_b - kh) // stride + 1
     OW = (W + pad_l + pad_r - kw) // stride + 1
@@ -266,7 +322,7 @@ def qconv_direct(x, w, mult, bias, residual=None, res=None, *, kh, kw, stride=1,
         out = launch_igemm(
             "qconv_direct", x, w, mult, bias, residual, res, n=N, h=H, w_in=W, c=C,
             oh=OH, ow=OW, kh=kh, kw=kw, stride=stride, pad_t=pad_t, pad_l=pad_l,
-            zp_in=zp_in, out_shape=(N, OH, OW, int(w.shape[0])), **ep,
+            zp_in=zp_in, out_shape=(N, OH, OW, int(w.shape[0])), tile=tile, **ep,
         )
         qconv_direct.launches += 1
         return out
@@ -277,11 +333,12 @@ def qconv_direct(x, w, mult, bias, residual=None, res=None, *, kh, kw, stride=1,
 
 
 def qconv1x1(x, w, mult, bias, residual=None, res=None, *, cw=0, act=-1,
-             inv_s_out=1.0, zp_out=0, lo=-127, hi=127, out_dtype="int8"):
+             inv_s_out=1.0, zp_out=0, lo=-127, hi=127, out_dtype="int8", tile=None):
     """1×1 conv as a flat GEMM + requant (+ fused residual): x [M, C] s8/u8,
     w [C2, 1, Cp] from pack_qconv_weights, residual [M, C2]. Returns
     [M, C2]. Kernel on a CUDA tensor, qconv1x1_plain on a CPU or meta
-    tensor; qconv1x1.launches counts kernel launches."""
+    tensor; qconv1x1.launches counts kernel launches; tile forces one of
+    TILES."""
     M, C = map(int, x.shape)
     ep = dict(cw=cw, act=act, inv_s_out=inv_s_out, zp_out=zp_out, lo=lo, hi=hi,
               out_dtype=out_dtype)
@@ -290,7 +347,7 @@ def qconv1x1(x, w, mult, bias, residual=None, res=None, *, cw=0, act=-1,
         out = launch_igemm(
             "qconv1x1", x, w, mult, bias, residual, res, n=1, h=1, w_in=M, c=C,
             oh=1, ow=M, kh=1, kw=1, stride=1, pad_t=0, pad_l=0, zp_in=0,
-            out_shape=(M, int(w.shape[0])), **ep,
+            out_shape=(M, int(w.shape[0])), tile=tile, **ep,
         )
         qconv1x1.launches += 1
         return out

@@ -13,11 +13,13 @@ qgemm_requant — the int-storage tier's pointwise-conv and FC engine:
 B folds the bias, the colsum / K·cx·cw zero-point terms and zp_out on the
 host (ops/quantized.py:_qgemm_inputs), as the JAX lowering folds them.
 
-On the card it is bound by operations at yolov3-416 batch 8 (the 1×1 convs
-with C_in, C_out >= 128: int8 tensor cores at 1,979 TOP/s against 3.35 TB/s
-of HBM). It is the kh = kw = 1 case of the one tiled dp4a implicit-GEMM
-kernel (design note in csrc/qconv.cu); the TPU kernel's M/N padding to its
-tiles has no counterpart: the kernel masks ragged edges.
+On the card it is bound by bytes at yolov3-416 batch 8 (the 1×1 convs with
+C_in, C_out >= 128 do under 200 int8 operations per byte moved; the card
+balances 1,979 TOP/s against 3.35 TB/s of HBM at 590). It is the kh = kw = 1
+case of the one int8 tensor-core implicit-GEMM kernel (mma.sync fed by
+cp.async; design note in csrc/qconv.cu), with the tile picked per shape by
+ops/cuda/qconv.py:pick_tile; the TPU kernel's M/N padding to its tiles has no
+counterpart: the kernel masks ragged edges.
 """
 
 from __future__ import annotations
@@ -49,11 +51,12 @@ def qgemm_requant_plain(x, w, mult, bias, *, cw=0, act=-1, inv_s_out=1.0, zp_out
 
 
 def qgemm_requant(x, w, mult, bias, *, cw=0, act=-1, inv_s_out=1.0, zp_out=0,
-                  lo=-127, hi=127, out_dtype="int8"):
+                  lo=-127, hi=127, out_dtype="int8", tile=None):
     """[M, K] × [K, N] int8 GEMM + requant: x [M, K] s8/u8, w [N, 1, Kp] from
     pack_qgemm_weights, mult/bias f32 [N]. Returns [M, N]. Kernel on a CUDA
     tensor, qgemm_requant_plain on a CPU or meta tensor;
-    qgemm_requant.launches counts kernel launches."""
+    qgemm_requant.launches counts kernel launches; tile forces one of
+    ops/cuda/qconv.py:TILES."""
     M, K = map(int, x.shape)
     ep = dict(cw=cw, act=act, inv_s_out=inv_s_out, zp_out=zp_out, lo=lo, hi=hi,
               out_dtype=out_dtype)
@@ -62,7 +65,7 @@ def qgemm_requant(x, w, mult, bias, *, cw=0, act=-1, inv_s_out=1.0, zp_out=0,
         out = launch_igemm(
             "qgemm_requant", x, w, mult, bias, None, None, n=1, h=1, w_in=M, c=K,
             oh=1, ow=M, kh=1, kw=1, stride=1, pad_t=0, pad_l=0, zp_in=0,
-            out_shape=(M, int(w.shape[0])), **ep,
+            out_shape=(M, int(w.shape[0])), tile=tile, **ep,
         )
         qgemm_requant.launches += 1
         return out

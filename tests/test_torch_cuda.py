@@ -140,9 +140,187 @@ def qconv_inputs(case, seed, with_res=False):
                 residual=residual, res=res, pointwise=kh == 1 and s == 1 and pad == 0)
 
 
-def port_qconv(inp, device, kernel=True):
+# Aimed at the tensor-core kernel's seams: M that no block tile divides, C2
+# and C around and between the tile and K-chunk widths (8- and 4-byte copies
+# and the scalar loader for C % 16 != 0, byte stores for C2 % 4 != 0), K long
+# enough that |acc| passes 2^24 and the int -> f32 conversion rounds ("max"
+# fill: operands of magnitude 120..127), 49 and 25 taps, stride 2 on odd sizes with asymmetric
+# pads, uint8 with zp_in far from 128 on padded borders and cw != 0, with
+# and without a residual (+ relu).
+#   N, H, W, C, O, k, s, (pad_t, pad_b, pad_l, pad_r), u8, act, res (None,
+#   "sum", "relu"), fill ("rand", "max"), zp_in (uint8 only)
+QCONV_EDGE_CASES = [
+    (1, 13, 13, 128, 64, 3, 1, (1, 1, 1, 1), False, 0, None, "rand", 0),
+    (1, 7, 11, 96, 24, 1, 1, (0, 0, 0, 0), False, -1, None, "rand", 0),
+    (2, 5, 7, 8, 8, 1, 1, (0, 0, 0, 0), False, 0, None, "rand", 0),
+    (2, 5, 7, 24, 24, 1, 1, (0, 0, 0, 0), True, -1, "relu", "rand", 200),
+    (2, 5, 7, 48, 40, 1, 1, (0, 0, 0, 0), False, 6, "sum", "rand", 0),
+    (2, 5, 7, 96, 64, 1, 1, (0, 0, 0, 0), True, 0, None, "rand", 3),
+    (2, 5, 7, 384, 130, 1, 1, (0, 0, 0, 0), False, 1, "relu", "rand", 0),
+    (1, 9, 9, 1024, 256, 1, 1, (0, 0, 0, 0), False, -1, None, "rand", 0),
+    (1, 6, 6, 512, 32, 3, 1, (1, 1, 1, 1), False, -1, None, "max", 0),
+    (1, 6, 6, 512, 32, 3, 1, (1, 1, 1, 1), True, -1, None, "max", 126),
+    (1, 6, 5, 2048, 16, 1, 1, (0, 0, 0, 0), False, 0, "sum", "max", 0),
+    (2, 15, 13, 128, 40, 7, 2, (3, 3, 3, 3), False, 0, None, "rand", 0),
+    (1, 11, 11, 128, 32, 5, 1, (2, 2, 2, 2), True, -1, "sum", "rand", 251),
+    (2, 15, 15, 128, 32, 3, 2, (0, 1, 0, 1), False, -1, None, "rand", 0),
+    (2, 15, 13, 128, 32, 3, 2, (1, 0, 2, 1), True, 0, "relu", "rand", 77),
+    (1, 9, 9, 24, 8, 3, 1, (1, 1, 1, 1), True, 0, None, "rand", 19),
+    (3, 10, 10, 384, 130, 3, 1, (1, 1, 1, 1), True, 6, "relu", "rand", 240),
+    (4, 12, 12, 256, 256, 3, 2, (1, 1, 1, 1), False, 0, "sum", "rand", 0),
+    # C a multiple of 4 only (4-byte copies), and of nothing (the scalar loader)
+    (2, 9, 7, 12, 16, 3, 1, (1, 1, 1, 1), False, 0, None, "rand", 0),
+    (2, 9, 7, 20, 24, 3, 2, (1, 1, 1, 1), True, -1, "relu", "rand", 33),
+    (2, 6, 5, 7, 8, 1, 1, (0, 0, 0, 0), False, -1, None, "rand", 0),
+    (1, 10, 10, 3, 32, 3, 1, (1, 1, 1, 1), True, 0, None, "rand", 140),
+    (1, 8, 8, 70, 33, 3, 1, (1, 1, 1, 1), False, 6, "sum", "rand", 0),
+]
+# qgemm_requant: M, K, N, u8, act, fill
+QGEMM_EDGE_CASES = [
+    (169, 384, 128, False, 0, "rand"),
+    (77, 24, 8, True, -1, "rand"),
+    (1, 2048, 1000, False, -1, "rand"),
+    (32, 2048, 1000, False, -1, "max"),
+    (300, 48, 40, True, 1, "rand"),
+    (130, 1024, 256, True, 6, "max"),
+    (65, 8, 24, False, 0, "rand"),
+    (50, 12, 24, True, -1, "rand"),
+    (33, 7, 8, False, 0, "rand"),
+]
+# the block tiles csrc/qconv.cu is built for (ops/cuda/qconv.py:TILES), the
+# 128-channel ones under both of their routes (WGMMA_TILES)
+IGEMM_TILES = [(128, 128, "mma"), (128, 128, "wgmma"), (64, 128, "mma"), (64, 128, "wgmma"),
+               (128, 64), (64, 64), (128, 32), (64, 32)]
+
+
+def wgmma_refused(inp, tile):
+    """Whether forcing `tile` on this case must raise: the warpgroup route
+    takes int8 input without a rowsum term only."""
+    return tile is not None and tile[2:] == ("wgmma",) and (inp["u8"] or inp["kw_args"]["cw"] != 0)
+
+
+def _fill(rng, fill, shape, u8, signed_rows=False):
+    """Stored operand values: uniform over the dtype's range, or ("max") of
+    magnitude 120..127 above the dtype's centre, so that every product is
+    near 127^2 and a sum over K of them passes 2^24; with signed_rows each
+    leading index (an output channel's weights) takes one random sign."""
+    if fill == "rand":
+        return (rng.integers(0, 256, shape).astype(np.uint8) if u8
+                else rng.integers(-127, 128, shape).astype(np.int8))
+    v = rng.integers(120, 128, shape)
+    if signed_rows:
+        v = v * rng.choice([-1, 1], (shape[0],) + (1,) * (len(shape) - 1))
+    return (v + 128).astype(np.uint8) if u8 else v.astype(np.int8)
+
+
+def qconv_edge_inputs(case, seed):
+    """Seeded numpy inputs of one QCONV_EDGE_CASES entry, in the form of
+    qconv_inputs. The multiplier puts outputs around +-50 whatever K is, so
+    neither the clip nor the relu hides the arithmetic."""
+    N, H, W, C, O, k, s, pads, u8, act, res_kind, fill, zp_in = case
+    rng = np.random.default_rng(seed)
+    x = _fill(rng, fill, (N, H, W, C), u8)
+    w = _fill(rng, fill, (O, C, k, k), u8, signed_rows=True)
+    K = C * k * k
+    spread = K * 124.0 * 124.0 if fill == "max" else np.sqrt(K) * 73.0 * 73.0
+    M = (rng.uniform(0.5, 1.5, O) * 50.0 / spread).astype(np.float32)
+    bias = rng.integers(-1000, 1000, O).astype(np.int64)
+    zp_out = 9 if u8 else 0
+    if u8:
+        zp_w = 131
+        cx, cw = 128 - zp_in, 128 - zp_w
+        b0 = cx * (w.astype(np.int64) - 128).sum(axis=(1, 2, 3)) + K * cx * cw + bias
+    else:
+        zp_in, cw, b0 = 0, 0, bias
+    B = (b0.astype(np.float64) * M + zp_out).astype(np.float32)
+    s_out = 0.05
+    lo, hi = (0, 255) if u8 else (-127, 127)
+    kw_args = dict(cw=cw, act=act, inv_s_out=1 / s_out, zp_out=zp_out, lo=lo, hi=hi,
+                   out_dtype="uint8" if u8 else "int8")
+    pt, pb, pl, pr = pads
+    geo = dict(kh=k, kw=k, stride=s, pad_t=pt, pad_b=pb, pad_l=pl, pad_r=pr, zp_in=zp_in)
+    OH, OW = (H + pt + pb - k) // s + 1, (W + pl + pr - k) // s + 1
+    residual = res = None
+    if res_kind is not None:
+        residual = rng.integers(lo, hi + 1, (N, OH, OW, O)).astype(x.dtype)
+        res = (s_out, zp_out, 0.03, 5 if u8 else 0, 0.07, 11 if u8 else 0, res_kind == "relu")
+    return dict(x=x, w=w, u8=u8, M=M, B=B, kw_args=kw_args, geo=geo, residual=residual,
+                res=res, pointwise=k == 1 and s == 1 and not any(pads))
+
+
+def qgemm_edge_inputs(case, seed):
+    """Seeded numpy inputs of one QGEMM_EDGE_CASES entry, in the form of
+    qgemm_inputs."""
+    Mr, K, N, u8, act, fill = case
+    inp = qconv_edge_inputs((1, 1, Mr, K, N, 1, 1, (0, 0, 0, 0), u8, act, None, fill, 121), seed)
+    return dict(x=inp["x"].reshape(Mr, K), w=inp["w"].reshape(N, K), u8=u8, M=inp["M"],
+                B=inp["B"], kw_args=inp["kw_args"])
+
+
+def _round_away_np(q):
+    """C round() on f32 values: the fraction q - trunc(q) is exact, so ties
+    are decided exactly (floor(|q| + 0.5) is not: 0.49999997 + 0.5 is 1.0)."""
+    t = np.trunc(q)
+    return t + np.sign(q) * (np.abs(q - t) >= np.float32(0.5))
+
+
+def qconv_oracle(inp):
+    """qconv_direct / qconv1x1 in numpy alone: int64 sums over the
+    zp_in-padded, re-centred input, wrapped to int32 as the kernel's
+    accumulators wrap, then the f32 epilogue op by op (numpy rounds each f32
+    op once; int -> f32 rounds to nearest even like __int2float_rn)."""
+    a, g = inp["kw_args"], inp["geo"]
+    k, s = g["kh"], g["stride"]
+    c0 = 128 if inp["u8"] else 0
+    x = np.pad(inp["x"].astype(np.int64),
+               ((0, 0), (g["pad_t"], g["pad_b"]), (g["pad_l"], g["pad_r"]), (0, 0)),
+               constant_values=g["zp_in"]) - c0
+    w = inp["w"].astype(np.int64) - c0  # [O, C, k, k]
+    OH, OW = (x.shape[1] - k) // s + 1, (x.shape[2] - k) // s + 1
+    acc = np.zeros((x.shape[0], OH, OW, w.shape[0]), np.int64)
+    rsum = np.zeros((x.shape[0], OH, OW, 1), np.int64)
+    for ky in range(k):
+        for kx in range(k):
+            patch = x[:, ky:ky + (OH - 1) * s + 1:s, kx:kx + (OW - 1) * s + 1:s, :]
+            acc += patch @ w[:, :, ky, kx].T
+            rsum += patch.sum(axis=-1, keepdims=True)
+    accf = acc.astype(np.int32).astype(np.float32)
+    if a["cw"]:
+        accf = accf + np.float32(a["cw"]) * rsum.astype(np.int32).astype(np.float32)
+    q = accf * inp["M"] + inp["B"]
+    act, zp_out = a["act"], np.float32(a["zp_out"])
+    if act == 1:
+        q = np.clip(q, np.float32(a["zp_out"] - a["inv_s_out"]), np.float32(a["zp_out"] + a["inv_s_out"]))
+    elif act >= 0:
+        q = np.maximum(q, zp_out)
+        if act > 0:
+            q = np.minimum(q, np.float32(act * a["inv_s_out"] + a["zp_out"]))
+    t = np.clip(_round_away_np(q), np.float32(a["lo"]), np.float32(a["hi"]))
+    if inp["res"] is not None:
+        s_mid, zp_mid, s_r, zp_r, s_out2, zp_out2, relu2 = inp["res"]
+        tf = (t - np.float32(zp_mid)) * np.float32(s_mid)
+        rf = (inp["residual"].astype(np.float32) - np.float32(zp_r)) * np.float32(s_r)
+        y = _round_away_np((tf + rf) * (np.float32(1.0) / np.float32(s_out2))) + np.float32(zp_out2)
+        if relu2:
+            y = np.maximum(y, np.float32(zp_out2))
+        t = np.clip(y, np.float32(a["lo"]), np.float32(a["hi"]))
+    return t.astype(np.uint8 if inp["u8"] else np.int8)
+
+
+def qgemm_oracle(inp):
+    """qgemm_requant through qconv_oracle: a 1x1 conv over one row of M pixels."""
+    Mr, K = inp["x"].shape
+    N = inp["w"].shape[0]
+    conv = dict(inp, x=inp["x"].reshape(1, 1, Mr, K), w=inp["w"].reshape(N, K, 1, 1),
+                geo=dict(kh=1, kw=1, stride=1, pad_t=0, pad_b=0, pad_l=0, pad_r=0, zp_in=0),
+                residual=None, res=None)
+    return qconv_oracle(conv).reshape(Mr, N)
+
+
+def port_qconv(inp, device, kernel=True, tile=None):
     """Run one qconv case through the port on `device`: the kernel's wrapper
-    (kernel=True) or the plain version. Returns a numpy NHWC result."""
+    (kernel=True; tile forces the kernel's block tile) or the plain version.
+    Returns a numpy NHWC result."""
     from tengine_tpu_torch.ops.cuda import qconv as pq
 
     x = torch.from_numpy(inp["x"]).to(device)
@@ -151,15 +329,17 @@ def port_qconv(inp, device, kernel=True):
     r = torch.from_numpy(inp["residual"]).to(device) if inp["res"] is not None else None
     N, H, W, C = x.shape
     O = wk.shape[0]
+    tile_kw = dict(tile=tile) if kernel else {}
     if inp["pointwise"]:
         fn = pq.qconv1x1 if kernel else pq.qconv1x1_plain
         out = fn(x.reshape(-1, C), wk, M, B,
                  residual=None if r is None else r.reshape(-1, O), res=inp["res"],
-                 **inp["kw_args"])
+                 **inp["kw_args"], **tile_kw)
         out = out.reshape(N, H, W, O)
     else:
         fn = pq.qconv_direct if kernel else pq.qconv_direct_plain
-        out = fn(x, wk, M, B, residual=r, res=inp["res"], **inp["geo"], **inp["kw_args"])
+        out = fn(x, wk, M, B, residual=r, res=inp["res"], **inp["geo"], **inp["kw_args"],
+                 **tile_kw)
     return out.cpu().numpy()
 
 
@@ -193,14 +373,15 @@ def qgemm_inputs(case, seed):
     return dict(x=x, w=w, u8=u8, M=mult, B=B, kw_args=kw_args)
 
 
-def port_qgemm(inp, device, kernel=True):
+def port_qgemm(inp, device, kernel=True, tile=None):
     from tengine_tpu_torch.ops.cuda import qgemm as pg
 
     x = torch.from_numpy(inp["x"]).to(device)
     wk = torch.from_numpy(pg.pack_qgemm_weights(inp["w"], inp["u8"])).to(device)
     M, B = (torch.from_numpy(inp[k]).to(device) for k in ("M", "B"))
     fn = pg.qgemm_requant if kernel else pg.qgemm_requant_plain
-    return fn(x, wk, M, B, **inp["kw_args"]).cpu().numpy()
+    tile_kw = dict(tile=tile) if kernel else {}
+    return fn(x, wk, M, B, **inp["kw_args"], **tile_kw).cpu().numpy()
 
 
 # dw_qconv: the grid of tests/test_dw_conv_pallas.py:57-69 with symmetric
@@ -411,6 +592,94 @@ def test_qconv_kernel_matches_plain_on_card(with_res, case):
     want = port_qconv(inp, "cuda", kernel=False)
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [None] + IGEMM_TILES, ids=str)
+@pytest.mark.parametrize("case", QCONV_EDGE_CASES, ids=str)
+def test_qconv_kernel_edge_cases_on_card(case, tile):
+    """The tensor-core kernel's seams, under the tile pick_tile chooses and
+    under every tile and route forced: bit-equal to the plain version and to
+    the numpy oracle; the warpgroup route refuses uint8 input."""
+    _need_card()
+    from tengine_tpu_torch.ops.cuda import qconv as pq
+
+    inp = qconv_edge_inputs(case, seed=sum(case[:7]))
+    counter = pq.qconv1x1 if inp["pointwise"] else pq.qconv_direct
+    before = counter.launches
+    if wgmma_refused(inp, tile):
+        with pytest.raises(ValueError, match="route"):
+            port_qconv(inp, "cuda", kernel=True, tile=tile)
+        assert counter.launches == before
+        return
+    got = port_qconv(inp, "cuda", kernel=True, tile=tile)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = port_qconv(inp, "cuda", kernel=False)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, qconv_oracle(inp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [None] + IGEMM_TILES, ids=str)
+@pytest.mark.parametrize("case", QGEMM_EDGE_CASES, ids=str)
+def test_qgemm_kernel_edge_cases_on_card(case, tile):
+    _need_card()
+    from tengine_tpu_torch.ops.cuda import qgemm as pg
+
+    inp = qgemm_edge_inputs(case, seed=sum(case[:3]))
+    before = pg.qgemm_requant.launches
+    if wgmma_refused(inp, tile):
+        with pytest.raises(ValueError, match="route"):
+            port_qgemm(inp, "cuda", kernel=True, tile=tile)
+        return
+    got = port_qgemm(inp, "cuda", kernel=True, tile=tile)
+    torch.cuda.synchronize()
+    assert pg.qgemm_requant.launches == before + 1
+    want = port_qgemm(inp, "cuda", kernel=False)
+    assert got.dtype == want.dtype and got.shape == want.shape == (case[0], case[2])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, qgemm_oracle(inp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", IGEMM_TILES, ids=str)
+@pytest.mark.parametrize("with_res,case", [(False, c) for c in QCONV_CASES]
+                         + [(True, c) for c in QCONV_RES_CASES])
+def test_qconv_kernel_every_tile_on_card(with_res, case, tile):
+    """The grid again with each block tile forced."""
+    _need_card()
+    inp = qconv_inputs(case, seed=sum(case[:5]), with_res=with_res)
+    if wgmma_refused(inp, tile):
+        with pytest.raises(ValueError, match="route"):
+            port_qconv(inp, "cuda", kernel=True, tile=tile)
+        return
+    np.testing.assert_array_equal(port_qconv(inp, "cuda", kernel=True, tile=tile),
+                                  port_qconv(inp, "cuda", kernel=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", IGEMM_TILES, ids=str)
+@pytest.mark.parametrize("case", QGEMM_CASES, ids=str)
+def test_qgemm_kernel_every_tile_on_card(case, tile):
+    _need_card()
+    inp = qgemm_inputs(case, seed=sum(case[:3]))
+    if wgmma_refused(inp, tile):
+        with pytest.raises(ValueError, match="route"):
+            port_qgemm(inp, "cuda", kernel=True, tile=tile)
+        return
+    np.testing.assert_array_equal(port_qgemm(inp, "cuda", kernel=True, tile=tile),
+                                  port_qgemm(inp, "cuda", kernel=False))
+
+
+@pytest.mark.cuda
+def test_igemm_refuses_unknown_tile_on_card():
+    """A tile the kernel is not built for raises; nothing falls back."""
+    _need_card()
+    inp = qgemm_inputs(QGEMM_CASES[0], seed=1)
+    with pytest.raises(ValueError, match="tile"):
+        port_qgemm(inp, "cuda", kernel=True, tile=(32, 32))
 
 
 @pytest.mark.cuda

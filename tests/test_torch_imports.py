@@ -219,3 +219,33 @@ def test_unported_settings_raise(monkeypatch):
     (node,) = [n for n in cg.graph.nodes if n.op == "FusedResBlockChain"]
     assert len(node.params["blocks"]) == 2 and cg.kernels[node.name] == "lower_resblock_chain"
     assert not any(n.op == "Convolution" for n in cg.graph.nodes)
+
+
+def test_library_digest_follows_sources_headers_and_flags(tmp_path, monkeypatch):
+    """A kernel's library is named by a digest of its source, of every header
+    under csrc/ and of the nvcc flags, so that editing a header rebuilds the
+    sources that include it. Checked on copies, without nvcc."""
+    from tengine_tpu_torch.ops.cuda import build
+
+    headers = sorted(build.CSRC_DIR.glob("*.cuh"))
+    assert [h.name for h in headers] == ["mma_s8.cuh"]
+    assert '#include "mma_s8.cuh"' in (build.CSRC_DIR / "qconv.cu").read_text()
+    for f in list(build.CSRC_DIR.glob("*.cu")) + headers:
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    before = build.library_path("qconv")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    assert build.library_path("qconv") == before  # the digest reads bytes, not paths
+    names = {"start": build.library_path("qconv")}
+    with open(tmp_path / "mma_s8.cuh", "ab") as f:
+        f.write(b"// edited\n")
+    names["header edited"] = build.library_path("qconv")
+    (tmp_path / "new.cuh").write_bytes(b"")
+    names["header added"] = build.library_path("qconv")
+    with open(tmp_path / "qconv.cu", "ab") as f:
+        f.write(b"// edited\n")
+    names["source edited"] = build.library_path("qconv")
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
+    names["flag added"] = build.library_path("qconv")
+    assert len(set(names.values())) == len(names), names
+    assert all(p.parent == build.BUILD_DIR and p.name.startswith("libqconv-") for p in names.values())
+    assert build.library_path("dw_conv") != build.library_path("qconv")

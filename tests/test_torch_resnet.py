@@ -49,6 +49,11 @@ SMALL = dict(img=32, classes=16, widths=(8, 16, 32, 64), depths=(2, 2, 2, 2))
 BATCH = 2
 F = dict(quant_mode="fast", fuse_resblock=True, quant_relaxed=False, batch_size=BATCH)
 G = dict(quant_mode="fast", quant_relaxed=False, batch_size=BATCH)
+# the integer-storage tier without the chains: every 1x1 conv on qconv1x1 (the
+# fused residual included), the FC on qgemm_requant; at these widths no 3x3
+# conv has C_in % 128 == 0, so none takes qconv_direct
+H = dict(quant_mode="fast", quant_relaxed=False, quant_bf16_storage=False, pallas_qgemm=True,
+         batch_size=BATCH)
 
 
 @functools.lru_cache(maxsize=None)
@@ -230,10 +235,10 @@ def test_relu_on_a_shared_grid_matches_jax(scheme, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("tier", ["F", "G"])
+@pytest.mark.parametrize("tier", ["F", "G", "H"])
 def test_whole_net_matches_jax_node_by_node(tier, monkeypatch):
     *_, jqg, _, xq = net()
-    opts = {"F": F, "G": G}[tier]
+    opts = {"F": F, "G": G, "H": H}[tier]
     blob = graph_to_tm_bytes(jqg)
     jax_env, jax_routes, output_ids = jax_run_all(blob, opts, xq, monkeypatch)
     cg = pt.compile_graph(pt.load_tm_bytes(blob), pt.Options(**opts), device="cpu")
@@ -252,7 +257,11 @@ def test_whole_net_matches_jax_node_by_node(tier, monkeypatch):
     assert cg.kernels["conv1"] == "lower_conv_quant_fast"
     assert cg.kernels["pool1"] == "lower_maxpool_quant"
     assert cg.kernels["pool5"] == "lower_global_avgpool_quant"
-    assert cg.kernels["fc"] == "lower_fc_quant_fast"
+    assert cg.kernels["fc"] == ("lower_fc_quant_pallas" if tier == "H" else "lower_fc_quant_fast")
+    if tier == "H":
+        routes = [cg.kernels[n.name] for n in cg.graph.nodes if n.op == "Convolution"]
+        assert routes.count("lower_conv_quant_pallas_direct") == 2 * 8 + 4  # the 1x1 convs
+        assert routes.count("lower_conv_quant_fast") == 1 + 8  # the stem and the 3x3 convs
 
     seen, _ = port_run_forced(blob, opts, xq, jax_env, monkeypatch)
     assert {"conv1", "pool1", "pool5", "fc"} <= set(seen)
