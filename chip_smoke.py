@@ -9,7 +9,9 @@ hand-written kernels against their plain PyTorch versions.
                                      # ResNet-50 batch each under F and H
     python3 chip_smoke.py --tiles    # also the implicit-GEMM kernel's time
                                      # under every tile and route at each
-                                     # timed shape
+                                     # timed shape, and the chain kernel's
+                                     # under every spatial tile at each of
+                                     # ResNet-50's four chains
 
 Phases, in order; any failure raises and the exit code is not 0:
   1. build     nvcc builds every tengine_tpu_torch/csrc/*.cu for sm_90a, one
@@ -26,9 +28,11 @@ Phases, in order; any failure raises and the exit code is not 0:
                the three main shapes, three ResNet-50 shapes and two narrow
                YOLO-Fastest shapes the tile picked and the device time, taken by replaying the launches
                from a CUDA graph (the kernels run shorter than their
-               wrappers' host time). qblock_chain: the grid, exact and
-               relaxed, under every spatial tile, then ResNet-50's stage-1
-               and stage-3 chains at batch 32, 0 differing elements required.
+               wrappers' host time). qblock_chain: its library's SASS must
+               hold IMMA and no IDP.4A; the grid, exact and relaxed, under
+               every spatial tile and the one picked, then ResNet-50-224's
+               four chains at batch 32 (stages 1-4), 0 differing elements
+               required, each timed by graph replay.
   3. main path yolov5s 640x640 INT8 (MinMax), seed-0 weights: quantize_graph
                on the card with one seeded calibration image, compile_graph
                at batch 8, one untimed forward, 3 timed batches. Then
@@ -158,14 +162,19 @@ RESNET_TIERS = {
     "H": (dict(quant_relaxed=False, quant_bf16_storage=False, pallas_qgemm=True),
           {"qconv_direct": 13, "qconv1x1": 36, "qgemm_requant": 1}),
 }
-# ResNet-50-224's two main chains at batch 32 as qblock_inputs cases
-# (tests/test_torch_cuda.py): stage 1 (56x56, 64 -> 64 -> 256, projection
-# head, 3 blocks) and stage 3 (14x14 after the head's stride 2, 512 -> 256 ->
-# 1024, 6 blocks)
+# ResNet-50-224's four chains at batch 32 as qblock_inputs cases
+# (tests/test_torch_cuda.py), each with a projection head, the later ones
+# after the head's stride 2: stage 1 (56x56, 64 -> 64 -> 256, 3 blocks),
+# stage 2 (28x28, 256 -> 128 -> 512, 4), stage 3 (14x14, 512 -> 256 -> 1024,
+# 6), stage 4 (7x7, 1024 -> 512 -> 2048, 3). The kernels line's qblock_chain
+# entry is stage 3's, the largest by operations.
 RESNET_CHAINS = {
     "stage1": (RESNET_BATCH, 56, 56, 64, 64, 256, 3, True, True, "own", (0, 0)),
+    "stage2": (RESNET_BATCH, 28, 28, 256, 128, 512, 4, True, True, "own", (0, 0)),
     "stage3": (RESNET_BATCH, 14, 14, 512, 256, 1024, 6, True, True, "own", (0, 0)),
+    "stage4": (RESNET_BATCH, 7, 7, 1024, 512, 2048, 3, True, True, "own", (0, 0)),
 }
+QBLOCK_ENTRY_CHAIN = "stage3"
 RESNET50_WIDTHS = (64, 128, 256, 512)  # c_mid per stage; c_out = 4 * c_mid
 RESNET50_DEPTHS = (3, 4, 6, 3)
 
@@ -443,17 +452,20 @@ def check_igemm_grid(torch) -> None:
 
 
 def check_tensor_core_sass(build) -> None:
-    """The built qconv library must reach the int8 tensor cores: count the
-    IMMA (mma.sync) and IGMMA (wgmma) instructions in its SASS."""
+    """The built qconv and qblock libraries must reach the int8 tensor cores:
+    count the IMMA (mma.sync), IGMMA (wgmma) and IDP.4A (dp4a) instructions
+    in their SASS. qconv needs IMMA or IGMMA; qblock IMMA and no IDP.4A."""
     import shutil
 
     tool = shutil.which("cuobjdump") or str(Path(build._nvcc()).with_name("cuobjdump"))
-    sass = subprocess.run([tool, "-sass", str(build.library_path("qconv"))],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
-    imma, igmma, dp4a = sass.count("IMMA."), sass.count("IGMMA."), sass.count("IDP.4A")
-    log(f"  qconv library SASS: {imma} IMMA, {igmma} IGMMA, {dp4a} IDP.4A instructions")
-    if imma + igmma == 0:
-        raise AssertionError("the qconv library holds no int8 tensor-core instruction")
+    for name in ("qconv", "qblock"):
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        imma, igmma, dp4a = sass.count("IMMA."), sass.count("IGMMA."), sass.count("IDP.4A")
+        log(f"  {name} library SASS: {imma} IMMA, {igmma} IGMMA, {dp4a} IDP.4A instructions")
+        if imma + igmma == 0 or (name == "qblock" and (imma == 0 or dp4a)):
+            raise AssertionError(f"the {name} library does not compute its products on the "
+                                 f"int8 tensor cores")
 
 
 def _requant_vectors(rng, n, k):
@@ -633,12 +645,14 @@ def check_dw_kernel(torch):
     return entry
 
 
-def check_qblock_kernel(torch):
+def check_qblock_kernel(torch, sweep=False):
     """Phase 2 for qblock_chain: bit for bit against qblock_chain_plain on the
     test grid (tests/test_torch_cuda.py), exact and relaxed, under every
-    spatial tile, and at ResNet-50-224's stage-1 and stage-3 chains at batch
-    32; kernel and plain times at both chains. Returns the kernels-line entry
-    (the stage-3 chain: the larger of the two by operations)."""
+    spatial tile and the one picked, and at ResNet-50-224's four chains at
+    batch 32 under the tile picked; device time (graph_ms) of each chain,
+    plain time of each exact one. With sweep, every built tile's time (and
+    result) at each chain. Returns the kernels-line entry of stage 3's exact
+    chain."""
     import torch.nn.functional as F
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
@@ -648,6 +662,8 @@ def check_qblock_kernel(torch):
 
     from tengine_tpu_torch.ops.cuda import qblock as pqb
 
+    if sorted(QBLOCK_TILES) != sorted(pqb.TILES):
+        raise AssertionError(f"the tests force tiles {QBLOCK_TILES}, the kernel is built for {pqb.TILES}")
     worst = runs = 0
     for case in QBLOCK_CASES + QBLOCK_EXTRA_CASES:
         for relaxed in (False, True):
@@ -664,6 +680,7 @@ def check_qblock_kernel(torch):
     entry = None
     for name, case in RESNET_CHAINS.items():
         N, H, W, c0, c_mid, c_out, nblocks = case[:7]
+        tile = pqb.pick_tile(N, H, W)
         for relaxed in (False, True):
             inp = qblock_inputs(case, seed=224, relaxed=relaxed)
             x = torch.from_numpy(inp["x"]).cuda()
@@ -673,22 +690,33 @@ def check_qblock_kernel(torch):
             want = pqb.qblock_chain_plain(x, arrays, **run)
             tier = "relaxed" if relaxed else "exact"
             what = (f"qblock_chain resnet50-224 b{N} {name} {tier} {H}x{W}x{c0} -> {c_mid} -> "
-                    f"{c_out}, {nblocks} blocks, tile {pqb.pick_tile(N, H, W)}")
+                    f"{c_out}, {nblocks} blocks, tile {tile}")
             if max_lsb(torch, got, want, what):
                 raise AssertionError(f"{what}: kernel disagrees with its plain version")
-            ms = cuda_ms(lambda: pqb.qblock_chain(x, arrays, **run), iters=10)
-            if relaxed:
-                log(f"  {what}: kernel {ms:.4f} ms")
-                continue
-            plain_ms = cuda_ms(lambda: pqb.qblock_chain_plain(x, arrays, **run), iters=2, warmup=1)
             # ops as the JAX kernel's cost estimate counts them; bytes: the
             # chain's input and output and every weight, M and B once
             ops = sum(2 * N * H * W * (b.c_in * b.c_mid + 9 * b.c_mid * b.c_mid + b.c_mid * b.c_out
                                        + (b.c_in * b.c_out if b.proj else 0)) for b in inp["blocks"])
             moved = x.numel() + got.numel() + sum(a.numel() * a.element_size() for a in arrays)
-            entry = kernel_entry("qblock_chain", pqb.SOURCE, pqb.REPLACES, 0, ms, plain_ms, moved,
-                                 ops, None)
-            log(f"  {name} exact: {ops / ms / 1e9:.1f} T int8 ops/s, one launch for the {nblocks} blocks")
+            ms = graph_ms(lambda: pqb.qblock_chain(x, arrays, **run), iters=10)
+            bound = max(moved / H100_BYTES_PER_S, ops / H100_INT8_OPS_PER_S) * 1e3
+            log(f"  {what}: device {ms:.4f} ms, {ops / ms / 1e9:.1f} T int8 ops/s, "
+                f"{ms / bound:.1f}x its bound {bound:.4f} ms, one launch for the {nblocks} blocks")
+            if relaxed:
+                continue
+            if sweep:
+                times = {}
+                for t in pqb.TILES:
+                    err = int((pqb.qblock_chain(x, arrays, tile=t, **run).int() - want.int()).abs().max())
+                    if err:
+                        raise AssertionError(f"{what}: tile {t} disagrees by {err} LSB")
+                    times[t] = graph_ms(lambda: pqb.qblock_chain(x, arrays, tile=t, **run), iters=5)
+                log("    by tile: " + ", ".join(f"{t[0]}x{t[1]} {v:.4f}" for t, v in times.items()))
+            plain_ms = cuda_ms(lambda: pqb.qblock_chain_plain(x, arrays, **run), iters=2, warmup=1)
+            e = kernel_entry("qblock_chain", pqb.SOURCE, pqb.REPLACES, 0, ms, plain_ms, moved,
+                             ops, None)
+            if name == QBLOCK_ENTRY_CHAIN:
+                entry = e
 
     # context, not a yardstick of the same function: one stage-3 identity
     # bottleneck's three convs alone in cuDNN fp16, channels-last, no requant,
@@ -702,7 +730,7 @@ def check_qblock_kernel(torch):
         return F.conv2d(F.conv2d(F.conv2d(xh, ws[0]), ws[1], padding=1), ws[2])
 
     log(f"  context: one stage-3 identity bottleneck's three cuDNN fp16 convs alone "
-        f"{cuda_ms(three_convs, iters=20):.4f} ms (the kernel's chain runs 6 bottlenecks)")
+        f"{graph_ms(three_convs, iters=20):.4f} ms (the kernel's chain runs 6 bottlenecks)")
     return entry
 
 
@@ -907,7 +935,7 @@ def main(argv) -> int:
     check_tensor_core_sass(build)
     entries.update(check_igemm_main(torch, sweep="--tiles" in argv))
     entries["dw_qconv"] = check_dw_kernel(torch)
-    entries["qblock_chain"] = check_qblock_kernel(torch)
+    entries["qblock_chain"] = check_qblock_kernel(torch, sweep="--tiles" in argv)
     counters = {"stem_qconv": stem_qconv, "qconv_direct": qconv_direct, "qconv1x1": qconv1x1,
                 "qgemm_requant": qgemm_requant, "dw_qconv": dw_qconv, "qblock_chain": qblock_chain}
     log(f"phase 2 kernels: {time.time() - t0:.1f} s")

@@ -34,12 +34,17 @@ activation layout, image packs, lane padding and VMEM chain splitter do not
 carry over: the kernel takes NHWC int8 in and out, any N, H, W and channel
 counts.
 
-On the card a block is bound by operations: at ResNet-50's widths a
+On the card a chain is one persistent cooperative launch whose thread
+blocks meet at a grid-wide barrier between bottlenecks, each bottleneck's
+output passing to the next through a device buffer. Within a block q1, q2, t
+and r stay in shared memory and registers, and every product runs on the
+int8 tensor cores (mma.sync m16n8k32, int32 sums). At ResNet-50's widths a
 bottleneck does 1,100 to 2,300 multiply-adds for each activation byte it
-reads or writes. Within a block q1, q2, t and r stay in shared memory and
-registers; a chain is one persistent cooperative launch whose thread blocks
-meet at a grid-wide barrier between bottlenecks, each bottleneck's output
-passing to the next through a device buffer (design note in csrc/qblock.cu).
+reads or writes, so the operations do not bound it: the shared-memory loads
+that feed the products, one barrier per 64 bytes of K, and the weights'
+re-reads from L2 by every spatial tile do (design note in csrc/qblock.cu).
+pick_tile trades the halo's recompute against those re-reads and the card's
+fill.
 """
 
 from __future__ import annotations
@@ -59,9 +64,41 @@ REPLACES = "tengine_tpu/ops/pallas/qblock.py:411"
 
 CHUNK = 32  # the kernel's K chunk: weight rows pad to a multiple
 
-# spatial tiles the kernel is built for: (tile_h, tile_w) -> rows of threads
-TILES = {(8, 8): 16, (7, 7): 16, (4, 4): 4}
-SM_COUNT_TARGET = 264  # two thread blocks on each of an H100's 132 SMs
+# spatial tiles (tile_h, tile_w) the kernel is built for
+TILES = ((8, 8), (7, 7), (4, 4))
+# the kernel's shared-memory layout (csrc/qblock.cu): a ring of STAGES
+# chunks, rows RING_ROW_WORDS words apart; at most SMEM_LIMIT bytes a block
+STAGES = 4
+RING_ROW_WORDS = 20
+SMEM_LIMIT = 227 * 1024
+SM_FILL = 128  # 64-pixel tiles below which pick_tile takes 4×4
+
+
+def gemm_tile(tile, c_mid: int) -> Tuple[int, int]:
+    """The (BM, BN) GEMM tile the kernel runs a spatial tile with
+    (qblock_chain_launch in csrc/qblock.cu)."""
+    if tile[0] * tile[1] <= 16:
+        return 16, 256
+    return (64, 64) if c_mid <= 64 else (64, 128)
+
+
+def _pad8(v: int) -> int:
+    """The smallest row stride >= v that is 8 mod 16 words (pad8 in the .cu)."""
+    return v + (24 - v % 16) % 16
+
+
+def smem_bytes(tile, c_mid: int, c_out: int) -> int:
+    """Dynamic shared memory of one thread block (smem_words in the .cu): q2
+    [kwm][pad8(BM)] words, the ring, q1 [kwm][pad8(halo pixels)] words, the
+    staged output tile [BM][BN / 4 + 4] words, then M and B of the
+    bottleneck, m1 b1 m2 b2 at stride kp_mid and m3 b3 m4 b4 at stride c_out
+    rounded up to 8."""
+    bm, bn = gemm_tile(tile, c_mid)
+    kp_mid = _ru(c_mid, CHUNK)
+    kwm = kp_mid // 4
+    halo = (tile[0] + 2) * (tile[1] + 2)
+    return 4 * (kwm * _pad8(bm) + STAGES * (bm + bn) * RING_ROW_WORDS + kwm * _pad8(halo)
+                + bm * (bn // 4 + 4) + 4 * kp_mid + 4 * _ru(c_out, 8))
 
 
 @dataclass(frozen=True)
@@ -287,15 +324,17 @@ class ChainArgs(ctypes.Structure):
 
 
 def pick_tile(n: int, h: int, w: int) -> Tuple[int, int]:
-    """The spatial tile of one thread block: 64-pixel tiles (8×8, or 7×7
-    where that wastes fewer pixels) while they give every SM two blocks,
-    else 4×4 tiles, which recompute more of conv1's halo but fill the card
-    at the late stages' small images."""
+    """The spatial tile of one thread block: a 64-pixel tile (8×8, or 7×7
+    where that wastes fewer pixels) while it gives at least SM_FILL tiles,
+    about one for each SM; else 4×4, which recomputes more of conv1's halo
+    and re-reads the weights for fewer pixels but fills the card. Measured at
+    ResNet-50-224 b32 (PERF.md §6): 7×7 beats 4×4 at 128 tiles (stage 3) and
+    loses at 32 (stage 4)."""
     def count(t):
         return n * (-(-h // t)) * (-(-w // t))
 
     big = min((8, 7), key=lambda t: (count(t) * t * t, -t))
-    if count(big) >= SM_COUNT_TARGET:
+    if count(big) >= SM_FILL:
         return big, big
     return 4, 4
 
@@ -314,6 +353,8 @@ def _block_args(x, out, a, blk: QBlock, relaxed: bool, tile) -> QblockArgs:
     _check(c_in == blk.c_in, f"x has {c_in} channels, the block takes {blk.c_in}")
     _check(blk.proj or blk.c_in == blk.c_out, "an identity residual needs c_in == c_out")
     _check(tile in TILES, f"tile {tile} is not one of {sorted(TILES)}")
+    _check(smem_bytes(tile, blk.c_mid, blk.c_out) <= SMEM_LIMIT,
+           f"tile {tile} at c_mid {blk.c_mid} needs more than {SMEM_LIMIT} bytes of shared memory")
     kp_in, kp_mid = _ru(blk.c_in, CHUNK), _ru(blk.c_mid, CHUNK)
     shapes = [(blk.c_mid, kp_in), (blk.c_mid,), (blk.c_mid,),
               (blk.c_mid, 9, kp_mid), (blk.c_mid,), (blk.c_mid,),

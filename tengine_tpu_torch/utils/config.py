@@ -3,9 +3,11 @@ flag system (CMake options / options_t / TG_DEBUG_* env vars; SURVEY §5).
 
 PyTorch port of tengine_tpu/utils/config.py: the same fields and the same
 TT_* environment variables, so one Options value means the same thing to
-both engines. Fields that select a kernel the port does not have yet make
-compile_graph raise NotImplementedError naming that kernel
-(executor/engine.py); none silently takes another path.
+both engines. Fields that select a kernel or pass the port does not have
+yet make compile_graph raise NotImplementedError naming it
+(executor/engine.py). Three fields are accepted and ignored until the port
+has their host layer: profile and dump_dir (ROADMAP queue 1, item 12) and
+donate_input (item 3, the compiled forward).
 """
 
 from __future__ import annotations
@@ -38,9 +40,12 @@ class Options:
                 "float" — ignore quant params, run everything fp32.
     force_ref_kernels: pick the lowest-score kernel for every op
         (TG_DEBUG_REF analog, cpu_module.c:157-166).
-    profile: record per-op timing (TG_DEBUG_TIME analog, cpu_device.c:79-156).
-    dump_dir: dump every node's output tensors (TG_DEBUG_DATA analog).
-    donate_input: allow the engine to reuse input buffers.
+    profile: record per-op timing (TG_DEBUG_TIME analog, cpu_device.c:79-156);
+        accepted and ignored by the port for now.
+    dump_dir: dump every node's output tensors (TG_DEBUG_DATA analog);
+        accepted and ignored by the port for now.
+    donate_input: allow the engine to reuse input buffers; accepted and
+        ignored by the port for now.
     """
 
     precision: str = "fp32"
@@ -61,14 +66,14 @@ class Options:
     # conv at compile time (passes.stem_conv_s2d; not ported yet).
     stem_s2d: bool = False
     # Route large pointwise convs / FC to the qgemm_requant kernel (with
-    # quant_bf16_storage=False; not ported yet).
+    # quant_bf16_storage=False; ops/cuda/qgemm.py).
     pallas_qgemm: bool = False
     # The JAX engine stores quantized activations as bf16 when True. The
     # port always stores the integer dtype (both hold identical values);
     # the field still decides which kernels the JAX rules would route to.
     quant_bf16_storage: bool = True
     # Direct k×k int8 conv kernels qconv_direct / qconv1x1 when
-    # quant_bf16_storage=False (not ported yet).
+    # quant_bf16_storage=False (ops/cuda/qconv.py).
     pallas_qconv: bool = True
     # Fused stem kernel (ops/cuda/stem_conv.py) for the first-layer
     # small-channel stride-2 quantized conv.

@@ -501,6 +501,16 @@ QBLOCK_EXTRA_CASES = [
     (3, 5, 5, 6, 7, 10, 2, True, True, None, (-1, 0)),
     (2, 14, 14, 128, 32, 128, 1, False, False, None, (0, 6)),
     (1, 4, 4, 8, 8, 8, 9, False, True, "same", (0, 0)),  # longer than one launch holds
+    # where the tensor-core fragments' bounds bite: c_mid and c_out no
+    # multiple of 8 (a part-filled n8 fragment), of 16 or of 32, a second
+    # column pass holding one fragment (c_mid 136), c_out no multiple of 4
+    # (byte stores), c_in no multiple of 16 (the x rows' scalar loader), odd H
+    # and W at every tile, projection then identity heads, both ReLu grids
+    (2, 9, 11, 20, 100, 36, 2, True, True, "own", (0, 0)),
+    (3, 13, 5, 48, 44, 48, 2, False, True, "own", (1, 0)),
+    (2, 7, 9, 64, 136, 250, 1, True, True, "same", (0, 0)),
+    (1, 15, 15, 32, 64, 32, 2, False, True, None, (0, 0)),
+    (2, 11, 3, 16, 12, 24, 3, True, False, "same", (0, 2)),
 ]
 QBLOCK_TILES = [(8, 8), (7, 7), (4, 4)]
 

@@ -264,3 +264,47 @@ def test_wrapper_takes_the_plain_version_on_cpu_and_meta():
     assert meta.device.type == "meta" and meta.shape == got.shape and meta.dtype == torch.int8
     with pytest.raises(ValueError, match="arguments"):
         pqb.qblock_chain(torch.from_numpy(x), tensors[:-1], pblocks)
+
+
+# ResNet-50-224's four chains at batch 32, (n, h, w, c_mid), and the tile the
+# kernel's wrapper picks for each: the fastest built tile at each on the card
+# (PERF.md §6, chip_smoke.py --tiles)
+RESNET50_B32_PICKS = [
+    ((32, 56, 56, 64), (8, 8)),
+    ((32, 28, 28, 128), (7, 7)),
+    ((32, 14, 14, 256), (7, 7)),
+    ((32, 7, 7, 512), (4, 4)),
+]
+
+
+def test_pick_tile_at_resnet50_chains_and_every_tile_fits():
+    """The pick at ResNet-50-224 b32's four chains, and every built tile's
+    shared memory within the limit at ResNet's widths (c_out = 4·c_mid) and
+    at the test grid's."""
+    for (n, h, w, c_mid), want in RESNET50_B32_PICKS:
+        assert pqb.pick_tile(n, h, w) == want
+        assert pqb.smem_bytes(want, c_mid, 4 * c_mid) <= pqb.SMEM_LIMIT
+    for tile in pqb.TILES:
+        for c_mid in (8, 44, 64, 100, 128, 136, 256, 512):
+            assert pqb.smem_bytes(tile, c_mid, max(4 * c_mid, 250)) <= pqb.SMEM_LIMIT, (tile, c_mid)
+
+
+def test_layout_constants_mirror_the_kernel():
+    """The wrapper's copy of the kernel's shared-memory layout (ring depth,
+    ring row stride, row padding, GEMM tile per spatial tile) against
+    csrc/qblock.cu."""
+    import re
+    from pathlib import Path
+
+    src = (Path(pqb.__file__).resolve().parents[2] / "csrc" / "qblock.cu").read_text()
+    stages = int(re.search(r"constexpr int STAGES = (\d+);", src).group(1))
+    ksteps = int(re.search(r"constexpr int KSTEPS = (\d+);", src).group(1))
+    assert re.search(r"constexpr int RW = BKW \+ 4;", src)
+    assert (pqb.STAGES, pqb.RING_ROW_WORDS) == (stages, 8 * ksteps + 4)
+    for v in range(1, 400):
+        p = pqb._pad8(v)
+        assert p >= v and p % 16 == 8 and p - v < 16
+    launches = re.findall(r"launch<Cfg<(\d+), (\d+), \d+, \d+, \d+>>", src)
+    assert launches[0] == ("16", "256") and ("64", "64") in launches and ("64", "128") in launches
+    assert pqb.gemm_tile((4, 4), 512) == (16, 256)
+    assert pqb.gemm_tile((8, 8), 64) == (64, 64) and pqb.gemm_tile((7, 7), 256) == (64, 128)

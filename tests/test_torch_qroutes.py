@@ -159,6 +159,39 @@ def test_leaky_and_dropout_requant_match_jax(scheme, monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
+def test_per_channel_output_through_the_generic_wrapper_refused_by_both(monkeypatch):
+    """A leaky ReLU whose output grid is per-channel has no quantized
+    lowering (its predicate wants one scale), so it runs as a float node
+    inside the generic dequant -> op -> requant wrapper. Neither engine's
+    wrapper passes a channel axis: both refuse the graph with the same
+    AssertionError from qmath.requantize (tengine_tpu/ops/qmath.py and the
+    port's ops/qmath.py), so the engines do not part here (ROADMAP §3)."""
+    rng = np.random.default_rng(7)
+    c = 8
+    g = jir.Graph(name="leaky_pc")
+    x = g.add_tensor("x", jir.DType.FP32, [1, c, 6, 6], jir.TensorType.INPUT)
+    y = g.add_tensor("y", jir.DType.FP32, [1, c, 6, 6], jir.TensorType.VAR)
+    g.add_node("InputOp", "in", [], [x.idx])
+    g.add_node("ReLu", "leaky", [x.idx], [y.idx], params=dict(negative_slope=0.1))
+    g.inputs = [0]
+    g.outputs = [1]
+    calib = [rng.standard_normal((1, c, 6, 6)).astype(np.float32) for _ in range(2)]
+    qg = jax_quantize(g, calib, scheme="int8")
+    out = qg.tensors[y.idx]
+    out.quant = jir.QuantParam(scales=np.linspace(0.01, 0.03, c).astype(np.float32),
+                               zero_points=np.zeros(c, np.int32))
+    assert out.quant.per_channel
+    xq = _quantized_input(qg, calib[0])
+    blob = graph_to_tm_bytes(qg)
+    opts = dict(quant_mode="fast", batch_size=1)
+    for engine in (jt, pt):
+        kw = {} if engine is jt else dict(device="cpu")
+        with pytest.raises(AssertionError) as err:
+            engine.compile_graph(engine.load_tm_bytes(blob), engine.Options(**opts), **kw).run(xq)
+        last = err.traceback[-1]
+        assert last.name == "requantize" and str(last.path).endswith("ops/qmath.py")
+
+
 DW_OPTS = dict(quant_mode="fast", quant_bf16_storage=False, batch_size=32)
 
 
