@@ -11,7 +11,9 @@ hand-written kernels against their plain PyTorch versions.
                                      # under every tile and route at each
                                      # timed shape, and the chain kernel's
                                      # under every spatial tile at each of
-                                     # ResNet-50's four chains
+                                     # ResNet-50's four chains, and the
+                                     # depthwise kernel's under every tile
+                                     # at six of its shapes
 
 Phases, in order; any failure raises and the exit code is not 0:
   1. build     nvcc builds every tengine_tpu_torch/csrc/*.cu for sm_90a, one
@@ -32,7 +34,16 @@ Phases, in order; any failure raises and the exit code is not 0:
                hold IMMA and no IDP.4A; the grid, exact and relaxed, under
                every spatial tile and the one picked, then ResNet-50-224's
                four chains at batch 32 (stages 1-4), 0 differing elements
-               required, each timed by graph replay.
+               required, each timed by graph replay. stem_qconv: its
+               library's SASS must hold IMMA or IGMMA; the grid and the edge
+               cases, int8/uint8 and f32 out, 0 LSB (SiLU within 1), then
+               yolov5s-640 b8 timed by graph replay with SiLU and without.
+               dw_qconv: the grid and the edge cases under the tile it picks
+               and tiles forced, 0 LSB, its library's IDP.2A / IDP.4A / IMAD
+               counts printed; then YOLO-Fastest-320 b32's 13 depthwise
+               launches (the two 160x160x32 ones int8 and uint8) and
+               mobilenet-v1-224 b32's 13, 0 LSB, each timed by graph replay
+               beside cuDNN's fp16 depthwise conv, with each net's sum.
   3. main path yolov5s 640x640 INT8 (MinMax), seed-0 weights: quantize_graph
                on the card with one seeded calibration image, compile_graph
                at batch 8, one untimed forward, 3 timed batches. Then
@@ -142,6 +153,17 @@ YOLOV3_TIERS = {
 # fast lowering
 FASTEST_BATCH = 32
 FASTEST_DW = dict(N=32, H=160, C=32, k=3, pad=1)
+# YOLO-Fastest-320 batch 32's depthwise convs beyond FASTEST_DW's two, and
+# mobilenet-v1-224 batch 32's (3x3, Caffe pads 1), as (input H = W, C,
+# stride, launches a forward): 13 launches each
+FASTEST_DW_MORE = [(80, 64, 1, 1), (80, 64, 2, 1), (40, 128, 1, 1), (40, 128, 2, 1),
+                   (20, 192, 1, 3), (20, 288, 2, 1), (10, 576, 1, 2), (10, 192, 1, 1)]
+MOBILENET_DW = [(112, 32, 1, 1), (112, 64, 2, 1), (56, 128, 1, 1), (56, 128, 2, 1),
+                (28, 256, 1, 1), (28, 256, 2, 1), (14, 512, 1, 5), (14, 512, 2, 1),
+                (7, 1024, 1, 1)]
+# with --tiles, the dw tile sweep's shapes (H, C, stride)
+DW_SWEEP_SHAPES = [(160, 32, 1), (160, 32, 2), (40, 128, 1), (10, 576, 1), (28, 256, 1),
+                   (7, 1024, 1)]
 FASTEST_OPTS = dict(quant_mode="fast", quant_bf16_storage=False, batch_size=FASTEST_BATCH)
 FASTEST_TIERS = {
     "D": ("1", {"dw_qconv": 13, "qconv1x1": 29, "qconv_direct": 0, "qgemm_requant": 0,
@@ -311,28 +333,6 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def stem_case(torch, k, mode, zp_w, B, H, seed, C=3, Cout=32):
-    """Seeded stem inputs on the card (the grid of tests/test_torch_stem.py)."""
-    from tengine_tpu_torch.ops.cuda.stem_conv import pack_stem_weights
-
-    rng = np.random.default_rng(seed)
-    if mode == "s8":
-        x = rng.integers(-127, 128, (B, C, H, H)).astype(np.int8)
-        q = dict(zp_in=0, zp_out=0, lo=-127.0, hi=127.0)
-        w = rng.integers(-127, 128, (Cout, C, k, k)).astype(np.float32)
-    else:
-        x = rng.integers(0, 256, (B, C, H, H)).astype(np.uint8)
-        q = dict(zp_in=117, zp_out=121, lo=0.0, hi=255.0)
-        w = rng.integers(0 if zp_w else -127, 128 + (128 if zp_w else 0),
-                         (Cout, C, k, k)).astype(np.float32)
-    mult = rng.random(Cout).astype(np.float32) * 1e-3 + 1e-4
-    bias = rng.standard_normal(Cout).astype(np.float32)
-    wm, m, b = pack_stem_weights(w, mult, bias, k=k, zp_in=q["zp_in"], zp_w=zp_w,
-                                 signed_in=mode == "s8")
-    args = [torch.from_numpy(a).cuda() for a in (x, wm, m, b)]
-    return args, dict(q, s_out=0.05)
-
-
 def kernel_entry(name, source, replaces, err, ms, plain_ms, moved, ops, library_ms):
     """One kernel's entry of the kernels line (launches filled in by phase
     3). Bound: the larger of bytes over the HBM rate and int8 operations over
@@ -364,48 +364,87 @@ def max_lsb(torch, got, want, what) -> int:
     return err
 
 
+def _check_smem_mirror(lib, fn_name, mirror, arg_lists) -> None:
+    """The wrapper's copy of a kernel's shared-memory layout must give the
+    bytes the kernel's own (an exported C function) gives."""
+    import ctypes
+
+    from tengine_tpu_torch.ops.cuda.build import load
+
+    fn = getattr(load(lib), fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * len(arg_lists[0])
+    for args in arg_lists:
+        want, got = fn(*[int(a) for a in args]), mirror(*args)
+        if want != got:
+            raise AssertionError(f"{lib}: {fn_name}{tuple(args)} = {want}, the wrapper's copy {got}")
+
+
 def check_stem_kernel(torch):
-    """Phase 2 for the stem kernel. Returns its kernels-line entry."""
+    """Phase 2 for the stem kernel: bit for bit against its plain version
+    (SiLU within 1 LSB) on the test grid and the edge cases
+    (tests/test_torch_cuda.py), int8/uint8 and f32 out, then at yolov5s-640
+    b8, timed by graph replay with SiLU and without (the epilogue's share).
+    Returns its kernels-line entry."""
     import torch.nn.functional as F
 
-    from tengine_tpu_torch.ops.cuda.stem_conv import (
-        REPLACES, SOURCE, stem_qconv, stem_qconv_plain,
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda import (
+        STEM_CASES, STEM_EDGE_CASES, stem_edge_inputs, stem_inputs, stem_port_args,
     )
 
-    grid = [  # k, pad, act, mode, zp_w, B, H
-        (6, 2, 100, "s8", 0, 2, 32),
-        (3, 1, 0, "u8", 0, 2, 32),
-        (7, 3, -1, "s8", 0, 2, 32),
-        (6, 2, 6, "u8", 113, 2, 32),
-    ]
-    for i, (k, pad, act, mode, zp_w, B, H) in enumerate(grid):
-        args, q = stem_case(torch, k, mode, zp_w, B, H, seed=i)
+    from tengine_tpu_torch.ops.cuda.stem_conv import (
+        REPLACES, SOURCE, pick_stem_tile, stem_qconv, stem_qconv_plain, stem_smem_bytes,
+        stem_true_weights,
+    )
+
+    cases = []
+    for k, pad, act, mode, zp_w, B, H in STEM_CASES:
+        x, w, mult, bias, q = stem_inputs(k, mode, zp_w, B, H, seed=k * 100 + H + zp_w)
+        cases.append((f"k={k} {mode} zp_w={zp_w} {B}x{H}", x, w, mult, bias, q, k, zp_w,
+                      dict(k=k, pad=pad, act=act, **q)))
+    for case in STEM_EDGE_CASES:
+        x, w, mult, bias, q, run = stem_edge_inputs(case, seed=sum(case[5:]))
+        cases.append((f"edge {case}", x, w, mult, bias, q, case[0], case[4], run))
+    worst = 0.0
+    for what, x, w, mult, bias, q, k, zp_w, run in cases:
+        tensors, w_corr = stem_port_args(x, w, mult, bias, q, k, zp_w)
+        args = [t.cuda() for t in tensors]
         for out_f32 in (False, True):
-            got = stem_qconv(*args, k=k, pad=pad, act=act, out_f32=out_f32, **q)
-            want = stem_qconv_plain(*args, k=k, pad=pad, act=act, out_f32=out_f32, **q)
+            got = stem_qconv(*args, w_corr=w_corr, out_f32=out_f32, **run)
+            want = stem_qconv_plain(*args, w_corr=w_corr, out_f32=out_f32, **run)
             torch.cuda.synchronize()
-            d = (got.float() - want.float()).abs()
-            n_diff = int((d > 0).sum())
-            log(f"  stem grid k={k} pad={pad} act={act} {mode} zp_w={zp_w} "
-                f"out_f32={out_f32}: max|d|={d.max().item():g}, {n_diff} elements differ")
-            if d.max().item() > (1 if act == 100 else 0):
-                raise AssertionError(f"stem kernel disagrees with its plain version: {d.max().item()}")
+            d = (got.float() - want.float()).abs().max().item()
+            if d > (1 if run["act"] == 100 else 0):
+                raise AssertionError(f"stem kernel disagrees with its plain version at {what} "
+                                     f"out_f32={out_f32}: {d}")
+            worst = max(worst, d)
+    log(f"  stem grid: {len(cases)} cases x int/f32 out, max|d|={worst:g} (SiLU may differ by 1)")
+    _check_smem_mirror("stem_conv", "stem_qconv_smem_bytes", stem_smem_bytes,
+                       [(c_, k_, *pick_stem_tile(oh, ow), f32) for c_, k_, oh, ow in
+                        [(3, 6, 320, 320), (1, 3, 17, 17), (4, 7, 8, 330)] for f32 in (0, 1)])
 
     # the main path's shape: yolov5s-640 batch 8, s8 in and out, SiLU
     k, pad, B, H, C, Cout = 6, 2, 8, 640, 3, 32
-    args, q = stem_case(torch, k, "s8", 0, B, H, seed=640, C=C, Cout=Cout)
-    run = dict(k=k, pad=pad, act=100, **q)
+    x, w, mult, bias, q = stem_inputs(k, "s8", 0, B, H, seed=640, C=C, Cout=Cout)
+    tensors, w_corr = stem_port_args(x, w, mult, bias, q, k, 0)
+    args = [t.cuda() for t in tensors]
+    run = dict(k=k, pad=pad, act=100, w_corr=w_corr, **q)
     got = stem_qconv(*args, **run)
     want = stem_qconv_plain(*args, **run)
     err = max_lsb(torch, got, want, "stem yolov5s-640 b8 (SiLU)")
 
-    ms = cuda_ms(lambda: stem_qconv(*args, **run), iters=50)
+    ms = graph_ms(lambda: stem_qconv(*args, **run), iters=50)
+    no_act = dict(run, act=-1)
+    ms_no_act = graph_ms(lambda: stem_qconv(*args, **no_act), iters=50)
+    log(f"  stem yolov5s-640 b8: {ms:.4f} ms with SiLU, {ms_no_act:.4f} ms without "
+        f"(the SiLU epilogue {ms - ms_no_act:.4f} ms)")
     plain_ms = cuda_ms(lambda: stem_qconv_plain(*args, **run), iters=5, warmup=1)
     # library yardstick: one cuDNN conv in bf16 on the re-centred values
     # (exact: |acc| < 2^24 at K = 108); the conv alone, no requant epilogue
     xb = args[0].to(torch.bfloat16)
-    wb = args[1].reshape(Cout, C, k, k).to(torch.bfloat16)
-    library_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=2, padding=pad), iters=50)
+    wb = stem_true_weights(args[1], Cout, C, k, w_corr).to(torch.bfloat16)
+    library_ms = graph_ms(lambda: F.conv2d(xb, wb, stride=2, padding=pad), iters=20)
     oh = ow = H // 2
     moved = (args[0].numel() * args[0].element_size() + got.numel() * got.element_size()
              + sum(a.numel() * a.element_size() for a in args[1:]))
@@ -452,20 +491,29 @@ def check_igemm_grid(torch) -> None:
 
 
 def check_tensor_core_sass(build) -> None:
-    """The built qconv and qblock libraries must reach the int8 tensor cores:
-    count the IMMA (mma.sync), IGMMA (wgmma) and IDP.4A (dp4a) instructions
-    in their SASS. qconv needs IMMA or IGMMA; qblock IMMA and no IDP.4A."""
+    """The built qconv, qblock and stem_conv libraries must reach the int8
+    tensor cores: count the IMMA (mma.sync), IGMMA (wgmma) and IDP.4A (dp4a)
+    instructions in their SASS. qconv and stem_conv need IMMA or IGMMA;
+    qblock IMMA and no IDP.4A. The dw_conv library's packed dots (IDP.2A,
+    IDP.4A) and IMADs are counted and printed."""
     import shutil
 
     tool = shutil.which("cuobjdump") or str(Path(build._nvcc()).with_name("cuobjdump"))
-    for name in ("qconv", "qblock"):
-        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+
+    def sass(name):
+        return subprocess.run([tool, "-sass", str(build.library_path(name))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
-        imma, igmma, dp4a = sass.count("IMMA."), sass.count("IGMMA."), sass.count("IDP.4A")
+
+    for name in ("qconv", "qblock", "stem_conv"):
+        text = sass(name)
+        imma, igmma, dp4a = text.count("IMMA."), text.count("IGMMA."), text.count("IDP.4A")
         log(f"  {name} library SASS: {imma} IMMA, {igmma} IGMMA, {dp4a} IDP.4A instructions")
         if imma + igmma == 0 or (name == "qblock" and (imma == 0 or dp4a)):
             raise AssertionError(f"the {name} library does not compute its products on the "
                                  f"int8 tensor cores")
+    text = sass("dw_conv")
+    log(f"  dw_conv library SASS: {text.count('IDP.2A')} IDP.2A, {text.count('IDP.4A')} IDP.4A, "
+        f"{text.count('IMAD')} IMAD instructions")
 
 
 def _requant_vectors(rng, n, k):
@@ -577,71 +625,136 @@ def check_igemm_main(torch, sweep=False):
     return entries
 
 
-def check_dw_kernel(torch):
+def _dw_inputs_on_card(torch, rng, N, H, C, k, u8):
+    """Seeded dw_qconv operands on the card: raw NHWC x, packed taps, M, the
+    folded B, the true taps and the quant keywords."""
+    from tengine_tpu_torch.ops.cuda import dw_conv as pd
+
+    if u8:
+        x = rng.integers(0, 256, (N, H, H, C), dtype=np.uint8)
+        w_true = rng.integers(-255, 256, (C, 1, k, k))
+        q = dict(zp_in=119, zp_out=131, lo=0.0, hi=255.0, out_u8=True)
+    else:
+        x = rng.integers(-127, 128, (N, H, H, C), dtype=np.int8)
+        w_true = rng.integers(-127, 128, (C, 1, k, k))
+        q = dict(zp_in=0, zp_out=0, lo=-127.0, hi=127.0, out_u8=False)
+    m = (rng.uniform(0.5, 1.5, C) * 50.0 / (3.0 * 73.0 * (146.0 if u8 else 73.0))).astype(np.float32)
+    colsum = w_true.reshape(C, -1).sum(axis=1)
+    b = ((rng.integers(-500, 500, C) - q["zp_in"] * colsum) * m.astype(np.float64)).astype(np.float32)
+    dev = [torch.from_numpy(a).cuda() for a in (x, pd.pack_dw_taps(w_true), m, b)]
+    return dev, w_true, q
+
+
+def _dw_sweep_tiles(pd, N, H, C, k, stride):
+    """Every block tile worth timing at one shape: channel groups of 4-32
+    words, 1-16 column slots, 1-8 row strips, each row walk, 32-256 threads,
+    at most 100 KB of shared memory."""
+    cwords = -(-C // 4)
+    tiles = []
+    for rpt in pd.THREAD_TILE[(k, stride)][1]:
+        for cgw in (4, 8, 16, 32):
+            for ncs in (1, 2, 4, 8, 16):
+                for nrs in (1, 2, 4, 8):
+                    if (cgw <= cwords and 32 <= cgw * ncs * nrs <= pd.MAX_THREADS
+                            and pd.dw_smem_bytes(k, stride, cgw, ncs, nrs, rpt) <= 100 * 1024):
+                        tiles.append((cgw, ncs, nrs, rpt))
+    return tiles
+
+
+def check_dw_kernel(torch, sweep=False):
     """Phase 2 for dw_qconv: bit for bit against dw_qconv_plain on the test
-    grid (tests/test_torch_cuda.py) and at YOLO-Fastest-320 batch 32's
-    largest launch of each stride, int8 and uint8; times at the stride-1
-    launch. Returns its kernels-line entry."""
+    grid and the redesign's edge cases under forced tiles
+    (tests/test_torch_cuda.py); then at YOLO-Fastest-320 batch 32's 13
+    depthwise launches (its two 160x160x32 shapes int8 and uint8, the rest
+    int8) and mobilenet-v1-224 batch 32's 13 (Caffe pads 1, int8), each at 0
+    LSB and timed by graph replay beside cuDNN's fp16 depthwise conv, with
+    each net's sum over its 13 launches. With sweep, every tile's time at six of the
+    shapes. Returns the kernels-line entry (160x160x32 s1 int8)."""
     import torch.nn.functional as F
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-    from test_torch_cuda import DW_CASES, DW_EXTRA_CASES, dw_inputs, port_dw
+    from test_torch_cuda import DW_CASES, DW_EDGE_CASES, DW_EXTRA_CASES, dw_inputs, port_dw
 
     from tengine_tpu_torch.ops.cuda import dw_conv as pd
 
-    worst = 0
+    worst = runs = 0
     for case in DW_CASES + DW_EXTRA_CASES:
         inp = dw_inputs(case, seed=sum(case[:5]))
         got, want = port_dw(inp, "cuda", kernel=True), port_dw(inp, "cuda", kernel=False)
         worst = max(worst, int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max()))
-    log(f"  dw_qconv grid: {len(DW_CASES) + len(DW_EXTRA_CASES)} cases, max|d|={worst} LSB")
+        runs += 1
+    for case, tiles in DW_EDGE_CASES:
+        inp = dw_inputs(case, seed=sum(case[:5]), extremes=True)
+        want = port_dw(inp, "cuda", kernel=False).astype(np.int32)
+        for tile in tiles:
+            got = port_dw(inp, "cuda", kernel=True, tile=tile).astype(np.int32)
+            worst = max(worst, int(np.abs(got - want).max()))
+            runs += 1
+    log(f"  dw_qconv grid and edge cases: {runs} runs, max|d|={worst} LSB")
+    _check_smem_mirror("dw_conv", "dw_qconv_smem_bytes", pd.dw_smem_bytes,
+                       [(k_, s_, *pd.pick_dw_tile(N_, oh, oh, c_, k_, s_))
+                        for N_, oh, c_, k_, s_ in [(32, 160, 32, 3, 1), (32, 80, 32, 3, 2),
+                                                   (32, 7, 1024, 3, 1), (2, 9, 30, 5, 1),
+                                                   (3, 6, 30, 5, 2)]])
     if worst:
         raise AssertionError(f"dw_qconv disagrees with its plain version on the grid: {worst} LSB")
 
-    d = FASTEST_DW
-    N, H, C, k, pad = d["N"], d["H"], d["C"], d["k"], d["pad"]
+    k, pad, N = 3, 1, FASTEST_BATCH
+    shapes = [("yolofastest-320", FASTEST_DW["H"], FASTEST_DW["C"], s, u8, 1)
+              for u8 in (False, True) for s in (1, 2)]
+    shapes += [("yolofastest-320", H, C, s, False, n) for H, C, s, n in FASTEST_DW_MORE]
+    shapes += [("mobilenet-v1-224", H, C, s, False, n) for H, C, s, n in MOBILENET_DW]
     rng = np.random.default_rng(320)
     entry = None
-    for u8 in (False, True):
-        if u8:
-            x = rng.integers(0, 256, (N, H, H, C), dtype=np.uint8)
-            w_true = rng.integers(-255, 256, (C, 1, k, k))
-            q = dict(zp_in=119, zp_out=131, lo=0.0, hi=255.0, out_u8=True)
-        else:
-            x = rng.integers(-127, 128, (N, H, H, C), dtype=np.int8)
-            w_true = rng.integers(-127, 128, (C, 1, k, k))
-            q = dict(zp_in=0, zp_out=0, lo=-127.0, hi=127.0, out_u8=False)
-        m = (rng.uniform(0.5, 1.5, C) * 50.0 / (3.0 * 73.0 * (146.0 if u8 else 73.0))).astype(np.float32)
-        colsum = w_true.reshape(C, -1).sum(axis=1)
-        b = ((rng.integers(-500, 500, C) - q["zp_in"] * colsum) * m.astype(np.float64)).astype(np.float32)
-        xd = torch.from_numpy(x).cuda()
-        wd = torch.from_numpy(pd.pack_dw_taps(w_true)).cuda()
-        md, bd = torch.from_numpy(m).cuda(), torch.from_numpy(b).cuda()
-        for stride in (1, 2):
-            run = dict(k=k, stride=stride, pad_t=pad, pad_b=pad, pad_l=pad, pad_r=pad,
-                       act=-1, s_out=0.05, **q)
-            got = pd.dw_qconv(xd, wd, md, bd, **run)
-            what = (f"dw_qconv yolofastest-320 b{N} {'u8' if u8 else 's8'} {H}x{H}x{C} s{stride} "
-                    f"-> {tuple(got.shape[1:])}")
-            err = max_lsb(torch, got, pd.dw_qconv_plain(xd, wd, md, bd, **run), what)
-            if err:
-                raise AssertionError(f"{what}: kernel disagrees with its plain version")
-            # device time: the kernel is shorter than its wrapper's host time
-            # on a busy host
-            ms = graph_ms(lambda: pd.dw_qconv(xd, wd, md, bd, **run), iters=50)
-            if u8 or stride == 2:
-                log(f"  {what}: kernel {ms:.4f} ms")
-                continue
+    sums = {}  # per net, int8: kernel, cuDNN, bound ms and launches over a forward
+    for net, H, C, stride, u8, count in shapes:
+        (xd, wd, md, bd), w_true, q = _dw_inputs_on_card(torch, rng, N, H, C, k, u8)
+        run = dict(k=k, stride=stride, pad_t=pad, pad_b=pad, pad_l=pad, pad_r=pad, act=-1,
+                   s_out=0.05, **q)
+        got = pd.dw_qconv(xd, wd, md, bd, **run)
+        OH = got.shape[1]
+        what = f"dw_qconv {net} b{N} {'u8' if u8 else 's8'} {H}x{H}x{C} s{stride} -> {OH}x{OH}"
+        err = max_lsb(torch, got, pd.dw_qconv_plain(xd, wd, md, bd, **run), what)
+        if err:
+            raise AssertionError(f"{what}: kernel disagrees with its plain version")
+        # device time: the kernel is shorter than its wrapper's host time
+        ms = graph_ms(lambda: pd.dw_qconv(xd, wd, md, bd, **run), iters=50)
+        # library yardstick: one fp16 depthwise conv2d, channels-last, the
+        # conv alone (not exact: the fp16 result rounds; no requant epilogue)
+        xh = xd.permute(0, 3, 1, 2).half().contiguous(memory_format=torch.channels_last)
+        wh = torch.from_numpy(w_true.astype(np.float16)).cuda()
+        library_ms = graph_ms(lambda: F.conv2d(xh, wh, stride=stride, padding=pad, groups=C),
+                              iters=20)
+        moved = xd.numel() + got.numel() + wd.numel() * 2 + 8 * C
+        bound = moved / H100_BYTES_PER_S * 1e3
+        tile = pd.pick_dw_tile(N, OH, OH, C, k, stride)
+        log(f"  {what}: tile {tile}, kernel {ms:.4f} ms, bound {bound:.4f} ms "
+            f"({moved} bytes, {moved / ms / 1e6:.1f} GB/s, {bound / ms:.1%} of HBM), "
+            f"cuDNN fp16 {library_ms:.4f} ms, max|d|={err} LSB"
+            + (f", x{count} a forward" if count > 1 else ""))
+        if not u8:
+            tot = sums.setdefault(net, [0.0, 0.0, 0.0, 0])
+            for i, v in enumerate((ms, library_ms, bound, 1)):
+                tot[i] += count * v
+        if sweep and (H, C, stride) in DW_SWEEP_SHAPES and not u8:
+            times = []
+            for t in _dw_sweep_tiles(pd, N, H, C, k, stride):
+                got_t = pd.dw_qconv(xd, wd, md, bd, tile=t, **run)
+                if not torch.equal(got_t, got):
+                    raise AssertionError(f"{what}: tile {t} disagrees with tile {tile}")
+                times.append((graph_ms(lambda: pd.dw_qconv(xd, wd, md, bd, tile=t, **run),
+                                       iters=20), t))
+            times.sort()
+            log(f"    tiles by time: " + ", ".join(f"{t} {v:.4f}" for v, t in times[:6])
+                + f" ... {len(times)} tiles, the picked {tile} ranks "
+                f"{[t for _, t in times].index(tile) + 1 if tile in [t for _, t in times] else '-'}")
+        if (H, C, stride, u8) == (FASTEST_DW["H"], FASTEST_DW["C"], 1, False):
             plain_ms = cuda_ms(lambda: pd.dw_qconv_plain(xd, wd, md, bd, **run), iters=3, warmup=1)
-            # library yardstick: one fp16 depthwise conv2d, channels-last, the
-            # conv alone (not exact: the fp16 result rounds; no requant epilogue)
-            xh = xd.permute(0, 3, 1, 2).half().contiguous(memory_format=torch.channels_last)
-            wh = torch.from_numpy(w_true.astype(np.float16)).cuda()
-            library_ms = graph_ms(lambda: F.conv2d(xh, wh, stride=stride, padding=pad, groups=C),
-                                  iters=20)
-            moved = xd.numel() + got.numel() + wd.numel() * 2 + 8 * C
             entry = kernel_entry("dw_qconv", pd.SOURCE, pd.REPLACES, err, ms, plain_ms, moved,
                                  2 * got.numel() * k * k, library_ms)
+    for net, (ms, lib, bound, n) in sums.items():
+        log(f"  dw_qconv {net} b{N} int8, {n} launches a forward: kernel {ms:.4f} ms, bound "
+            f"{bound:.4f} ms, cuDNN fp16 {lib:.4f} ms")
     return entry
 
 
@@ -934,7 +1047,7 @@ def main(argv) -> int:
     check_igemm_grid(torch)
     check_tensor_core_sass(build)
     entries.update(check_igemm_main(torch, sweep="--tiles" in argv))
-    entries["dw_qconv"] = check_dw_kernel(torch)
+    entries["dw_qconv"] = check_dw_kernel(torch, sweep="--tiles" in argv)
     entries["qblock_chain"] = check_qblock_kernel(torch, sweep="--tiles" in argv)
     counters = {"stem_qconv": stem_qconv, "qconv_direct": qconv_direct, "qconv1x1": qconv1x1,
                 "qgemm_requant": qgemm_requant, "dw_qconv": dw_qconv, "qblock_chain": qblock_chain}

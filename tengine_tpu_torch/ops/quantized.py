@@ -561,7 +561,7 @@ def lower_conv_quant_pallas_stem(ctx: LowerCtx, x: TArr, *rest: TArr):
     lo, hi = qmath.qrange(t_out.dtype, t_out.quant)
     out = stem_qconv(
         as_nchw(x).contiguous(), wmat, m_e, b_e,
-        k=p["kernel_h"], pad=p.get("pad_h0", 0),
+        k=p["kernel_h"], pad=p.get("pad_h0", 0), w_corr=128 - zp_w if zp_w else 0,
         act=p.get("activation", -1), s_out=s_out,
         zp_in=zp_in, zp_out=zp_out, lo=float(lo), hi=float(hi),
     )

@@ -33,17 +33,18 @@ STEM_CASES = [
 ]
 
 
-def stem_inputs(k, mode, zp_w, B, H, seed, C=3, Cout=32):
+def stem_inputs(k, mode, zp_w, B, H, seed, C=3, Cout=32, W=None):
     """Seeded numpy stem inputs: raw x, float weights holding stored
     integers, requant multiplier and bias, and the quant scalars."""
     rng = np.random.default_rng(seed)
+    W = H if W is None else W
     if mode == "s8":
-        x = rng.integers(-127, 128, (B, C, H, H)).astype(np.int8)
+        x = rng.integers(-127, 128, (B, C, H, W)).astype(np.int8)
         zp_in = zp_out = 0
         lo, hi = -127, 127
         w = rng.integers(-127, 128, (Cout, C, k, k)).astype(np.float32)
     else:
-        x = rng.integers(0, 256, (B, C, H, H)).astype(np.uint8)
+        x = rng.integers(0, 256, (B, C, H, W)).astype(np.uint8)
         zp_in, zp_out, lo, hi = 117, 121, 0, 255
         w = rng.integers(0 if zp_w else -127, 128 + (128 if zp_w else 0),
                          (Cout, C, k, k)).astype(np.float32)
@@ -53,11 +54,36 @@ def stem_inputs(k, mode, zp_w, B, H, seed, C=3, Cout=32):
 
 
 def stem_port_args(x, w, mult, bias, q, k, zp_w):
-    """The wrapper's tensors: raw x and pack_stem_weights' output."""
-    wm, m, b = pack_stem_weights(
+    """The wrapper's tensors (raw x and pack_stem_weights' matrix, M and B)
+    and pack_stem_weights' w_corr."""
+    wm, m, b, w_corr = pack_stem_weights(
         w, mult, bias, k=k, zp_in=q["zp_in"], zp_w=zp_w, signed_in=x.dtype == np.int8
     )
-    return torch.from_numpy(x), torch.from_numpy(wm), torch.from_numpy(m), torch.from_numpy(b)
+    return [torch.from_numpy(a) for a in (x, wm, m, b)], w_corr
+
+
+# the stem kernel's edges: Cout 16/24/48/64 (partial n-tiles, two channel
+# chunks, stores narrower than 16 bytes), C_in 1, 2 and 4, uint8 weights with
+# zp_w 1, 128 (a ones column with w_corr 0) and 255, k 3/5/6/7, OH odd (no
+# multiple of the 2-row tile), OW above 320 (two column tiles), W % 4 == 2
+# (the band's byte path)
+#   k, pad, act, mode, zp_w, B, H, W, C, Cout
+STEM_EDGE_CASES = [
+    (3, 1, 0, "u8", 1, 2, 34, 34, 1, 16),
+    (6, 2, 100, "s8", 0, 1, 30, 30, 2, 24),
+    (7, 3, 6, "u8", 128, 1, 32, 32, 4, 48),
+    (6, 2, -1, "u8", 255, 2, 20, 24, 3, 64),
+    (3, 1, 1, "s8", 0, 1, 16, 660, 3, 32),
+    (5, 2, 0, "u8", 0, 2, 18, 22, 3, 32),
+    (7, 3, 100, "u8", 200, 1, 14, 18, 4, 16),
+]
+
+
+def stem_edge_inputs(case, seed):
+    """stem_inputs of one STEM_EDGE_CASES case and its wrapper keywords."""
+    k, pad, act, mode, zp_w, B, H, W, C, Cout = case
+    x, w, mult, bias, q = stem_inputs(k, mode, zp_w, B, H, seed, C=C, Cout=Cout, W=W)
+    return x, w, mult, bias, q, dict(k=k, pad=pad, act=act, **q)
 
 
 # the grid of tests/test_qconv_pallas.py:102-114:
@@ -414,11 +440,33 @@ DW_EXTRA_CASES = [
 ]
 
 
-def dw_inputs(case, seed):
+# the redesigned dw kernel's edges, each with the tile pick_dw_tile chooses
+# (None) and forced tiles (cgw, ncs, nrs, rpt): partial tiles in rows and
+# columns, several channel groups (and tiles of several groups in one
+# persistent block), both row walks, C = 1024 at 7x7, C = 24 (4-byte copies),
+# 30 and 1 (byte copies), N = 1, odd H at stride 2 with the bottom pad
+# consumed, uint8 taps at +-255, every activation code (-1, 0, 1, 6), k = 5.
+#   (case as DW_CASES, tiles)
+DW_EDGE_CASES = [
+    ((1, 7, 1024, 3, 1, (1, 1, 1, 1), 0, 0, 0, False), [None, (8, 2, 1, 8), (16, 2, 2, 2)]),
+    ((2, 17, 64, 3, 1, (1, 1, 1, 1), 3, -2, -1, False), [None, (4, 2, 1, 8), (16, 4, 2, 2)]),
+    ((1, 33, 32, 3, 2, (1, 1, 1, 1), -5, 4, 6, False), [None, (4, 4, 2, 8), (8, 1, 1, 2)]),
+    ((2, 13, 48, 3, 2, (0, 1, 0, 1), 0, 0, -1, False), [None, (12, 2, 1, 8), (4, 4, 2, 2)]),
+    ((2, 15, 24, 3, 1, (1, 1, 1, 1), 119, 131, 1, True), [None, (3, 4, 2, 2)]),
+    ((1, 11, 30, 5, 1, (2, 2, 2, 2), 77, 90, 6, True), [None, (2, 2, 2, 4)]),
+    ((3, 12, 32, 5, 2, (2, 2, 2, 2), 0, 0, 0, False), [None, (8, 1, 1, 4)]),
+    ((2, 9, 1, 3, 1, (1, 1, 1, 1), -9, 7, -1, False), [None]),
+    ((4, 20, 96, 3, 1, (1, 1, 1, 1), 128, 120, 6, True), [None, (8, 8, 2, 8), (4, 2, 1, 2)]),
+]
+
+
+def dw_inputs(case, seed, extremes=False):
     """Seeded numpy inputs of one dw_qconv case, as
     tests/test_dw_conv_pallas.py makes them: raw x NHWC, true tap values
     [C, 1, k, k] (beyond int8 on a uint8 case, as w_q - zp_w is), M, the
-    folded B = (bias - zp_in·colsum)·M without zp_out, and the keywords."""
+    folded B = (bias - zp_in·colsum)·M without zp_out, and the keywords.
+    With extremes, the first channel's first two taps are set to the widest
+    values (+-255 on a uint8 case, +-100 on an int8 one)."""
     N, H, C, k, s, pads, zp_in, zp_out, act, u8 = case
     rng = np.random.default_rng(seed)
     if u8:
@@ -427,6 +475,8 @@ def dw_inputs(case, seed):
     else:
         x = rng.integers(-128, 128, (N, H, H, C)).astype(np.int8)
         w = rng.integers(-100, 101, (C, 1, k, k)).astype(np.int32)
+    if extremes:
+        w[0, 0, 0, :2] = (255, -255) if u8 else (100, -100)
     M = rng.uniform(0.001, 0.01, C).astype(np.float32)
     if u8:
         M = M * np.float32(0.25)
@@ -440,16 +490,18 @@ def dw_inputs(case, seed):
     return dict(x=x, w=w, M=M, B=B, kw_args=kw_args)
 
 
-def port_dw(inp, device, kernel=True):
+def port_dw(inp, device, kernel=True, tile=None):
     """Run one dw_qconv case through the port on `device`: the kernel's
-    wrapper (kernel=True) or the plain version. Returns a numpy NHWC result."""
+    wrapper (kernel=True; `tile` forces its block tile) or the plain version.
+    Returns a numpy NHWC result."""
     from tengine_tpu_torch.ops.cuda import dw_conv as pd
 
     x = torch.from_numpy(inp["x"]).to(device)
     w = torch.from_numpy(pd.pack_dw_taps(inp["w"])).to(device)
     M, B = (torch.from_numpy(inp[k]).to(device) for k in ("M", "B"))
-    fn = pd.dw_qconv if kernel else pd.dw_qconv_plain
-    return fn(x, w, M, B, **inp["kw_args"]).cpu().numpy()
+    if kernel:
+        return pd.dw_qconv(x, w, M, B, tile=tile, **inp["kw_args"]).cpu().numpy()
+    return pd.dw_qconv_plain(x, w, M, B, **inp["kw_args"]).cpu().numpy()
 
 
 def dw_oracle(inp):
@@ -759,12 +811,53 @@ def test_stem_kernel_matches_plain_on_card(k, pad, act, mode, zp_w, B, H, out_f3
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the stem kernel has no CPU mode")
     x, w, mult, bias, q = stem_inputs(k, mode, zp_w, B, H, seed=k * 100 + H + zp_w)
-    args = [t.cuda() for t in stem_port_args(x, w, mult, bias, q, k, zp_w)]
+    tensors, w_corr = stem_port_args(x, w, mult, bias, q, k, zp_w)
+    args = [t.cuda() for t in tensors]
     before = stem_qconv.launches
-    got = stem_qconv(*args, k=k, pad=pad, act=act, out_f32=out_f32, **q)
+    got = stem_qconv(*args, k=k, pad=pad, act=act, w_corr=w_corr, out_f32=out_f32, **q)
     torch.cuda.synchronize()
     assert stem_qconv.launches == before + 1
-    want = stem_qconv_plain(*args, k=k, pad=pad, act=act, out_f32=out_f32, **q)
+    want = stem_qconv_plain(*args, k=k, pad=pad, act=act, w_corr=w_corr, out_f32=out_f32, **q)
     assert got.dtype == want.dtype and got.shape == want.shape == (B, H // 2, H // 2, 32)
     diff = (got.float() - want.float()).abs().max().item()
     assert diff <= (1 if act == 100 else 0), diff
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_f32", [False, True])
+@pytest.mark.parametrize("case", STEM_EDGE_CASES, ids=str)
+def test_stem_kernel_edge_cases_on_card(case, out_f32):
+    """The stem kernel at its design's edges (STEM_EDGE_CASES), bit-equal to
+    its plain version (SiLU within one step)."""
+    _need_card()
+    x, w, mult, bias, q, run = stem_edge_inputs(case, seed=sum(case[5:]))
+    tensors, w_corr = stem_port_args(x, w, mult, bias, q, case[0], case[4])
+    args = [t.cuda() for t in tensors]
+    before = stem_qconv.launches
+    got = stem_qconv(*args, w_corr=w_corr, out_f32=out_f32, **run)
+    torch.cuda.synchronize()
+    assert stem_qconv.launches == before + 1
+    want = stem_qconv_plain(*args, w_corr=w_corr, out_f32=out_f32, **run)
+    B, H, W, Cout = case[5], case[6], case[7], case[9]
+    assert got.dtype == want.dtype and got.shape == want.shape == (B, H // 2, W // 2, Cout)
+    diff = (got.float() - want.float()).abs().max().item()
+    assert diff <= (1 if case[2] == 100 else 0), diff
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,tile", [(c, t) for c, tiles in DW_EDGE_CASES for t in tiles],
+                         ids=str)
+def test_dw_kernel_edge_cases_on_card(case, tile):
+    """dw_qconv at the redesigned kernel's edges (DW_EDGE_CASES), under the
+    tile it picks and under forced tiles, bit-equal to its plain version."""
+    _need_card()
+    from tengine_tpu_torch.ops.cuda.dw_conv import dw_qconv
+
+    inp = dw_inputs(case, seed=sum(case[:5]), extremes=True)
+    before = dw_qconv.launches
+    got = port_dw(inp, "cuda", kernel=True, tile=tile)
+    torch.cuda.synchronize()
+    assert dw_qconv.launches == before + 1
+    want = port_dw(inp, "cuda", kernel=False)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
