@@ -5,8 +5,9 @@ hand-written kernels against their plain PyTorch versions.
     python3 chip_smoke.py            # the check, on one card
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one
                                      # yolov5s batch, one yolov3 batch (A), one
-                                     # YOLO-Fastest batch (D, int8) and one
-                                     # ResNet-50 batch each under F and H
+                                     # YOLO-Fastest batch (D, int8), one
+                                     # ResNet-50 batch each under F and H, and
+                                     # one batch of each of tiers I-L
     python3 chip_smoke.py --tiles    # also the implicit-GEMM kernel's time
                                      # under every tile and route at each
                                      # timed shape, and the chain kernel's
@@ -43,7 +44,10 @@ Phases, in order; any failure raises and the exit code is not 0:
                counts printed; then YOLO-Fastest-320 b32's 13 depthwise
                launches (the two 160x160x32 ones int8 and uint8) and
                mobilenet-v1-224 b32's 13, 0 LSB, each timed by graph replay
-               beside cuDNN's fp16 depthwise conv, with each net's sum.
+               beside cuDNN's fp16 depthwise conv, with each net's sum;
+               then mobilenet-v1-224's 13 at batch 128 on the native-int8
+               plan's grid (int8 input, zp_in -101, the full range
+               [-128, 127], ReLU), 0 LSB, timed the same way.
   3. main path yolov5s 640x640 INT8 (MinMax), seed-0 weights: quantize_graph
                on the card with one seeded calibration image, compile_graph
                at batch 8, one untimed forward, 3 timed batches. Then
@@ -81,6 +85,19 @@ Phases, in order; any failure raises and the exit code is not 0:
                     3x3 convs with C_in % 128 == 0), 36 qconv1x1 (the fused
                     residual among them), the FC on qgemm_requant; the stem
                     and stage 1's 3x3 convs stay on the fast lowering.
+               Then bench.py's own configs under default Options,
+               Options(quant_mode="fast", batch_size=128), at 224 and batch
+               128 (seed-0 weights, calibrated from one seeded image):
+                 I  ResNet-50 INT8, KL calibration: the native-int8 plan
+                    (a no-op on a symmetric INT8 graph); no chains, every
+                    conv on the fast lowering, no kernel launched
+                 J  ResNet-50 UINT8, MinMax: the plan's UINT8 -> INT8
+                    shift; no kernel launched
+                 K  mobilenet-v1 UINT8, MinMax (build_mobilenet_v1_graph
+                    below), TT_DW_PALLAS unset: the default route (no plan
+                    on a depthwise net), every conv on the fast lowering
+                 L  K with quant_native="on" and TT_DW_PALLAS=1: the plan,
+                    the 13 depthwise convs on dw_qconv on shifted INT8.
                Every kernel's launch count is set to 0 just before each
                timed run and read just after; the counts must be exact.
   4. check     every head's dequantized cosine against the port's fp32 engine
@@ -109,7 +126,12 @@ Phases, in order; any failure raises and the exit code is not 0:
                the relaxed tier's own bounds (tests/test_relaxed_tier.py: at
                most 6 LSB, under 10% beyond 1 LSB, under 1% beyond 3; 16
                blocks on, at the logits, each skipped rounding has spread and
-               those bounds no longer describe it).
+               those bounds no longer describe it). Tiers I-L: the
+               logits' dequantized cosine against the fp32 engine > 0.99,
+               top-1 agreement printed; each within 1 LSB of the port's CPU
+               run (same Options and TT_DW_PALLAS, same routes) on the first
+               image; I against R on the first 32 images and L against K by
+               cosine > 0.99.
 
 The last lines are the kernels JSON, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Nothing here imports JAX or
@@ -199,6 +221,19 @@ RESNET_CHAINS = {
 QBLOCK_ENTRY_CHAIN = "stage3"
 RESNET50_WIDTHS = (64, 128, 256, 512)  # c_mid per stage; c_out = 4 * c_mid
 RESNET50_DEPTHS = (3, 4, 6, 3)
+# phase 3e: bench.py's own configs under default Options at its batch, 128
+# (bench.py:381, resnet50 int8 with KL calibration; bench.py:342-368, the
+# mobilenet-v1 uint8 headline). Per tier: the net, the scheme, the
+# calibration, the Options beyond Options(quant_mode="fast",
+# batch_size=DEFAULT_BATCH), TT_DW_PALLAS while compile_graph runs (None:
+# unset), whether the native-int8 plan is taken, and the launches per forward
+DEFAULT_BATCH = 128
+DEFAULT_TIERS = {
+    "I": ("resnet50", "int8", "kl", {}, None, True, {}),
+    "J": ("resnet50", "uint8", "minmax", {}, None, True, {}),
+    "K": ("mobilenet-v1", "uint8", "minmax", {}, None, False, {}),
+    "L": ("mobilenet-v1", "uint8", "minmax", dict(quant_native="on"), "1", True, {"dw_qconv": 13}),
+}
 
 
 def build_resnet50_graph(ir, img=224, classes=1000, seed=0, widths=RESNET50_WIDTHS,
@@ -270,6 +305,73 @@ def build_resnet50_graph(ir, img=224, classes=1000, seed=0, widths=RESNET50_WIDT
                       data=(rng.standard_normal(classes) * 0.05).astype(np.float32))
     out = g.add_tensor("fc.out", DType.FP32, [n, classes, 1, 1], TensorType.VAR)
     fc = g.add_node("FullyConnected", "fc", [gap.idx, wt.idx, bt.idx], [out.idx],
+                    dict(num_output=classes))
+    g.outputs = [fc.idx]
+    return g
+
+
+# mobilenet-v1-224 at width 1.0 (Howard et al. 2017, Table 1): the stem's
+# width, then the 13 pointwise convs' widths, and the 13 depthwise convs'
+# strides
+MOBILENET_WIDTHS = (32, 64, 128, 128, 256, 256, 512, 512, 512, 512, 512, 512, 1024, 1024)
+MOBILENET_STRIDES = (1, 2, 1, 2, 1, 2, 1, 1, 1, 1, 1, 2, 1)
+
+
+def build_mobilenet_v1_graph(ir, img=224, classes=1000, seed=0, widths=MOBILENET_WIDTHS,
+                             strides=MOBILENET_STRIDES, head=True):
+    """MobileNet-v1 (Caffe style, as Tengine's benchmark tmfile has it) as a
+    float IR graph with seeded weights, built with the IR module `ir` it is
+    given: conv 3x3 s2 p1 (relu) to widths[0] -> for each of the
+    len(strides) blocks a depthwise 3x3 p1 conv at that stride (relu) and a
+    pointwise 1x1 conv (relu) to the next width -> global average pool ->
+    FullyConnected. With head=False the graph ends at the last pointwise
+    conv. Weights are He-normal with batch norm folded away. The graph ends
+    at the FC's logits: the Softmax of the published net is not ported yet,
+    so it is left out in both packages."""
+    DType, Graph, TensorType = ir.DType, ir.Graph, ir.TensorType
+    if len(widths) != len(strides) + 1:
+        raise ValueError(f"{len(strides)} blocks need {len(strides) + 1} widths, got {len(widths)}")
+    rng = np.random.default_rng(seed)
+    g = Graph(name=f"mobilenet-v1-{img}")
+
+    def conv(name, x, c_out, k, stride=1, pad=0, group=1):
+        n, c_in, h, w = x.shape
+        fan_in = c_in // group * k * k
+        wt = g.add_tensor(f"{name}.w", DType.FP32, [c_out, c_in // group, k, k], TensorType.CONST,
+                          data=(rng.standard_normal((c_out, c_in // group, k, k))
+                                * np.sqrt(2.0 / fan_in)).astype(np.float32))
+        bt = g.add_tensor(f"{name}.b", DType.FP32, [c_out], TensorType.CONST,
+                          data=(rng.standard_normal(c_out) * 0.05).astype(np.float32))
+        oh, ow = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+        y = g.add_tensor(f"{name}.out", DType.FP32, [n, c_out, oh, ow], TensorType.VAR)
+        node = g.add_node("Convolution", name, [x.idx, wt.idx, bt.idx], [y.idx], dict(
+            kernel_h=k, kernel_w=k, stride_h=stride, stride_w=stride, dilation_h=1,
+            dilation_w=1, input_channel=c_in, output_channel=c_out, group=group, activation=0,
+            pad_h0=pad, pad_w0=pad, pad_h1=pad, pad_w1=pad))
+        return y, node
+
+    x = g.add_tensor("data", DType.FP32, [1, 3, img, img], TensorType.INPUT)
+    inp = g.add_node("InputOp", "input", [], [x.idx])
+    g.inputs = [inp.idx]
+    t, last = conv("conv1", x, widths[0], 3, stride=2, pad=1)
+    for i, stride in enumerate(strides):
+        c = widths[i]
+        t, _ = conv(f"conv{i + 2}_dw", t, c, 3, stride=stride, pad=1, group=c)
+        t, last = conv(f"conv{i + 2}_pw", t, widths[i + 1], 1)
+    if not head:
+        g.outputs = [last.idx]
+        return g
+    n, c, h, w = t.shape
+    gap = g.add_tensor("pool6.out", DType.FP32, [n, c, 1, 1], TensorType.VAR)
+    g.add_node("Pooling", "pool6", [t.idx], [gap.idx], dict(
+        alg=1, kernel_h=h, kernel_w=w, stride_h=1, stride_w=1, global_pool=1, caffe_flavor=0,
+        pad_h0=0, pad_w0=0, pad_h1=0, pad_w1=0))
+    wt = g.add_tensor("fc7.w", DType.FP32, [classes, c], TensorType.CONST,
+                      data=(rng.standard_normal((classes, c)) * np.sqrt(1.0 / c)).astype(np.float32))
+    bt = g.add_tensor("fc7.b", DType.FP32, [classes], TensorType.CONST,
+                      data=(rng.standard_normal(classes) * 0.05).astype(np.float32))
+    out = g.add_tensor("fc7.out", DType.FP32, [n, classes, 1, 1], TensorType.VAR)
+    fc = g.add_node("FullyConnected", "fc7", [gap.idx, wt.idx, bt.idx], [out.idx],
                     dict(num_output=classes))
     g.outputs = [fc.idx]
     return g
@@ -625,12 +727,18 @@ def check_igemm_main(torch, sweep=False):
     return entries
 
 
-def _dw_inputs_on_card(torch, rng, N, H, C, k, u8):
+def _dw_inputs_on_card(torch, rng, N, H, C, k, u8, shifted=False):
     """Seeded dw_qconv operands on the card: raw NHWC x, packed taps, M, the
-    folded B, the true taps and the quant keywords."""
+    folded B, the true taps and the quant keywords. shifted: the native-int8
+    plan's grid, a UINT8 grid moved to INT8 (full range [-128, 127], zp_in
+    and zp_out near -128, so the pad bytes carry a negative zp_in)."""
     from tengine_tpu_torch.ops.cuda import dw_conv as pd
 
-    if u8:
+    if shifted:
+        x = rng.integers(-128, 128, (N, H, H, C), dtype=np.int8)
+        w_true = rng.integers(-127, 128, (C, 1, k, k))
+        q = dict(zp_in=-101, zp_out=-120, lo=-128.0, hi=127.0, out_u8=False)
+    elif u8:
         x = rng.integers(0, 256, (N, H, H, C), dtype=np.uint8)
         w_true = rng.integers(-255, 256, (C, 1, k, k))
         q = dict(zp_in=119, zp_out=131, lo=0.0, hi=255.0, out_u8=True)
@@ -666,10 +774,13 @@ def check_dw_kernel(torch, sweep=False):
     grid and the redesign's edge cases under forced tiles
     (tests/test_torch_cuda.py); then at YOLO-Fastest-320 batch 32's 13
     depthwise launches (its two 160x160x32 shapes int8 and uint8, the rest
-    int8) and mobilenet-v1-224 batch 32's 13 (Caffe pads 1, int8), each at 0
-    LSB and timed by graph replay beside cuDNN's fp16 depthwise conv, with
-    each net's sum over its 13 launches. With sweep, every tile's time at six of the
-    shapes. Returns the kernels-line entry (160x160x32 s1 int8)."""
+    int8) and mobilenet-v1-224's 13 (Caffe pads 1) at batch 32 int8 and at
+    DEFAULT_BATCH on the native-int8 plan's grid (tier L: int8 input with a
+    negative zp_in, the full range [-128, 127], ReLU), each at 0 LSB and
+    timed by graph replay beside cuDNN's fp16 depthwise conv, with each
+    net's sum over its 13 launches. With sweep, every tile's time at six of
+    the batch-32 int8 shapes. Returns the kernels-line entry (160x160x32 s1
+    int8)."""
     import torch.nn.functional as F
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
@@ -700,20 +811,26 @@ def check_dw_kernel(torch, sweep=False):
         raise AssertionError(f"dw_qconv disagrees with its plain version on the grid: {worst} LSB")
 
     k, pad, N = 3, 1, FASTEST_BATCH
-    shapes = [("yolofastest-320", FASTEST_DW["H"], FASTEST_DW["C"], s, u8, 1)
-              for u8 in (False, True) for s in (1, 2)]
-    shapes += [("yolofastest-320", H, C, s, False, n) for H, C, s, n in FASTEST_DW_MORE]
-    shapes += [("mobilenet-v1-224", H, C, s, False, n) for H, C, s, n in MOBILENET_DW]
+    # (net, batch, H, C, stride, mode, launches a forward); mode s8, u8 or
+    # shifted (the native-int8 plan's grid)
+    shapes = [("yolofastest-320", N, FASTEST_DW["H"], FASTEST_DW["C"], s, m, 1)
+              for m in ("s8", "u8") for s in (1, 2)]
+    shapes += [("yolofastest-320", N, H, C, s, "s8", n) for H, C, s, n in FASTEST_DW_MORE]
+    shapes += [("mobilenet-v1-224", N, H, C, s, "s8", n) for H, C, s, n in MOBILENET_DW]
+    shapes += [("mobilenet-v1-224", DEFAULT_BATCH, H, C, s, "shifted", n)
+               for H, C, s, n in MOBILENET_DW]
     rng = np.random.default_rng(320)
     entry = None
-    sums = {}  # per net, int8: kernel, cuDNN, bound ms and launches over a forward
-    for net, H, C, stride, u8, count in shapes:
-        (xd, wd, md, bd), w_true, q = _dw_inputs_on_card(torch, rng, N, H, C, k, u8)
-        run = dict(k=k, stride=stride, pad_t=pad, pad_b=pad, pad_l=pad, pad_r=pad, act=-1,
-                   s_out=0.05, **q)
+    sums = {}  # per net, batch and s8/shifted: kernel, cuDNN, bound ms, launches a forward
+    for net, N, H, C, stride, mode, count in shapes:
+        u8 = mode == "u8"
+        (xd, wd, md, bd), w_true, q = _dw_inputs_on_card(torch, rng, N, H, C, k, u8,
+                                                         shifted=mode == "shifted")
+        run = dict(k=k, stride=stride, pad_t=pad, pad_b=pad, pad_l=pad, pad_r=pad,
+                   act=0 if mode == "shifted" else -1, s_out=0.05, **q)
         got = pd.dw_qconv(xd, wd, md, bd, **run)
         OH = got.shape[1]
-        what = f"dw_qconv {net} b{N} {'u8' if u8 else 's8'} {H}x{H}x{C} s{stride} -> {OH}x{OH}"
+        what = f"dw_qconv {net} b{N} {mode} {H}x{H}x{C} s{stride} -> {OH}x{OH}"
         err = max_lsb(torch, got, pd.dw_qconv_plain(xd, wd, md, bd, **run), what)
         if err:
             raise AssertionError(f"{what}: kernel disagrees with its plain version")
@@ -733,10 +850,10 @@ def check_dw_kernel(torch, sweep=False):
             f"cuDNN fp16 {library_ms:.4f} ms, max|d|={err} LSB"
             + (f", x{count} a forward" if count > 1 else ""))
         if not u8:
-            tot = sums.setdefault(net, [0.0, 0.0, 0.0, 0])
+            tot = sums.setdefault(f"{net} b{N} {mode}", [0.0, 0.0, 0.0, 0])
             for i, v in enumerate((ms, library_ms, bound, 1)):
                 tot[i] += count * v
-        if sweep and (H, C, stride) in DW_SWEEP_SHAPES and not u8:
+        if sweep and (H, C, stride) in DW_SWEEP_SHAPES and mode == "s8" and N == FASTEST_BATCH:
             times = []
             for t in _dw_sweep_tiles(pd, N, H, C, k, stride):
                 got_t = pd.dw_qconv(xd, wd, md, bd, tile=t, **run)
@@ -748,12 +865,12 @@ def check_dw_kernel(torch, sweep=False):
             log(f"    tiles by time: " + ", ".join(f"{t} {v:.4f}" for v, t in times[:6])
                 + f" ... {len(times)} tiles, the picked {tile} ranks "
                 f"{[t for _, t in times].index(tile) + 1 if tile in [t for _, t in times] else '-'}")
-        if (H, C, stride, u8) == (FASTEST_DW["H"], FASTEST_DW["C"], 1, False):
+        if (H, C, stride, mode) == (FASTEST_DW["H"], FASTEST_DW["C"], 1, "s8"):
             plain_ms = cuda_ms(lambda: pd.dw_qconv_plain(xd, wd, md, bd, **run), iters=3, warmup=1)
             entry = kernel_entry("dw_qconv", pd.SOURCE, pd.REPLACES, err, ms, plain_ms, moved,
                                  2 * got.numel() * k * k, library_ms)
     for net, (ms, lib, bound, n) in sums.items():
-        log(f"  dw_qconv {net} b{N} int8, {n} launches a forward: kernel {ms:.4f} ms, bound "
+        log(f"  dw_qconv {net}, {n} launches a forward: kernel {ms:.4f} ms, bound "
             f"{bound:.4f} ms, cuDNN fp16 {lib:.4f} ms")
     return entry
 
@@ -848,16 +965,19 @@ def check_qblock_kernel(torch, sweep=False):
 
 
 @contextlib.contextmanager
-def dw_gate(value: str):
-    """TT_DW_PALLAS set to `value` while a graph compiles (kernel selection
-    reads it), then restored."""
+def dw_gate(value):
+    """TT_DW_PALLAS set to `value` (None: unset) while a graph compiles
+    (kernel selection reads it), then restored."""
     before = os.environ.get("TT_DW_PALLAS")
-    os.environ["TT_DW_PALLAS"] = value
+    if value is None:
+        os.environ.pop("TT_DW_PALLAS", None)
+    else:
+        os.environ["TT_DW_PALLAS"] = value
     try:
         yield
     finally:
         if before is None:
-            del os.environ["TT_DW_PALLAS"]
+            os.environ.pop("TT_DW_PALLAS", None)
         else:
             os.environ["TT_DW_PALLAS"] = before
 
@@ -909,17 +1029,19 @@ def check_within_lsb(what, outs_a, outs_b, heads):
             raise AssertionError(f"{what} head {t.name}: {d.max()} LSB apart")
 
 
-def check_tiers_agree(torch, what, outs, outs_a, heads, gate=0.99):
-    """Tiers A, B and C at 416: the direct route and the fast lowering fold
-    the requant bias on the host in different precisions (float64 then f32,
-    against f32 throughout, as the JAX package's two lowerings do), so a
-    few near-tie elements per layer round apart and the difference
-    propagates to the heads (the JAX package's tiers part the same way at
-    416). Logged, and held to the dequantized cosine gate that each tier
-    meets against the fp32 engine."""
-    for t, q, a in zip(heads, outs, outs_a):
+def check_tiers_agree(torch, what, outs, outs_a, heads, gate=0.99, heads_a=None):
+    """Two runs' heads, each dequantized on its own grid (heads_a: outs_a's
+    tensors, where they differ from heads), held to the dequantized cosine
+    gate that each run meets against the fp32 engine, the LSB difference
+    logged. Tiers A, B and C at 416: the direct route and the fast lowering
+    fold the requant bias on the host in different precisions (float64 then
+    f32, against f32 throughout, as the JAX package's two lowerings do), so
+    a few near-tie elements per layer round apart and the difference
+    propagates to the heads (the JAX package's tiers part the same way, from
+    img 160)."""
+    for t, q, a, t_a in zip(heads, outs, outs_a, heads_a or heads):
         d = (q.int() - a.int()).abs()
-        x, y = dequant(torch, q, t).double().ravel(), dequant(torch, a, t).double().ravel()
+        x, y = dequant(torch, q, t).double().ravel(), dequant(torch, a, t_a).double().ravel()
         cos = float(x @ y / (x.norm() * y.norm() + 1e-12))
         log(f"  {what} head {t.name}: max|d|={int(d.max())} LSB, equal fraction "
             f"{float((d == 0).double().mean()):.6f}, cosine {cos:.6f}")
@@ -1011,6 +1133,94 @@ def check_resnet_small(torch, tt, ir, qmath):
         f"{over1:.4f} beyond 1 LSB, {over3:.6f} beyond 3")
     if worst > 6 or over1 >= 0.10 or over3 >= 0.01:
         raise AssertionError("resnet50 stage-1 chain: R leaves the relaxed tier's bounds against F")
+
+
+def run_default_tiers(torch, tt, qmath, counters, graphs, images):
+    """Phase 3e: tiers I-L at 224 and DEFAULT_BATCH under default Options on
+    the float graphs `graphs` ({"resnet50": ..., "mobilenet-v1": ...}), each
+    calibrated on the card from images[:1], one untimed and 3 timed
+    batches, its routes and storage plan checked from the compiled graph and
+    its launch counts exact. Returns {tier: (CompiledGraph, outputs, opts,
+    TT_DW_PALLAS, quantized graph, quantized input)}."""
+    qgs, out = {}, {}
+    for tier, (net, scheme, algorithm, extra, gate, plan, per_forward) in DEFAULT_TIERS.items():
+        t1 = time.time()
+        if (net, scheme, algorithm) not in qgs:
+            qg = tt.quantize_graph(graphs[net], [images[:1]], scheme=scheme, algorithm=algorithm)
+            t_in = qg.tensors[qg.input_tensors[0]]
+            xq = qmath.quantize_np(images, t_in.quant, t_in.dtype)
+            qgs[net, scheme, algorithm] = (qg, xq, torch.from_numpy(xq).cuda())
+            log(f"  {net} {scheme} {algorithm} set-up (build graph, calibrate): "
+                f"{time.time() - t1:.1f} s")
+        qg, xq, x_dev = qgs[net, scheme, algorithm]
+        opts = dict(quant_mode="fast", batch_size=DEFAULT_BATCH, **extra)
+        with dw_gate(gate):
+            cg = tt.compile_graph(qg, tt.Options(**opts))
+        g = cg.graph
+        routes = [cg.kernels[n.name] for n in g.nodes if n.op == "Convolution"]
+        n_dw = per_forward.get("dw_qconv", 0)
+        want_routes = (n_dw, len(routes) - n_dw)
+        got_routes = (routes.count("lower_conv_quant_pallas_dw"), routes.count("lower_conv_quant_fast"))
+        shifted = [t for t in g.tensors if t.quant is not None and t.quant.full_range]
+        took_plan = getattr(g, "_bf16_tids", None) == set()
+        if (got_routes != want_routes or len(routes) != (53 if net == "resnet50" else 27)
+                or any(n.op == "FusedResBlockChain" for n in g.nodes) or took_plan != plan
+                or bool(shifted) != (plan and scheme == "uint8")):
+            raise AssertionError(f"{net} {scheme} {tier}: convs by route {got_routes}, expected "
+                                 f"{want_routes}; native-int8 plan {took_plan}, {len(shifted)} "
+                                 f"shifted tensors")
+        outs, batch_ms, launches = drive(torch, cg, x_dev, counters)
+        want = dict.fromkeys(counters, 0) | {name: 3 * n for name, n in per_forward.items()}
+        if launches != want:
+            raise AssertionError(f"{net} {scheme} {tier}: launches {launches}, expected {want}")
+        out[tier] = (cg, outs, opts, gate, qg, xq)
+        med = float(np.median(batch_ms))
+        log(f"phase 3 main path: {net}-224 {scheme} ({algorithm}) batch {DEFAULT_BATCH} tier "
+            f"{tier} Options({opts}) TT_DW_PALLAS={gate}: native-int8 plan {took_plan} "
+            f"({len(shifted)} tensors shifted to full-range int8), ms/batch {batch_ms} (median "
+            f"{med:.3f}), {DEFAULT_BATCH * 1e3 / med:.1f} img/s, launches {launches} "
+            f"[{time.time() - t1:.1f} s]")
+    return out
+
+
+def check_default_tiers(torch, tt, default, fp32, resnet_r):
+    """Phase 4 for tiers I-L: the logits' dequantized cosine against the fp32
+    engine > 0.99 with top-1 agreement printed; each tier's card run within
+    1 LSB of the port's CPU run (same Options and TT_DW_PALLAS, the same
+    routes) on the first image; I against R (same net, MinMax and the
+    relaxed chains, batch RESNET_BATCH: the first RESNET_BATCH images) and
+    L against K by cosine > 0.99."""
+    def logits(cg):
+        return [cg.graph.tensors[t] for t in cg.output_ids]
+
+    for tier, (cg, outs, opts, gate, qg, xq) in default.items():
+        net, scheme = DEFAULT_TIERS[tier][:2]
+        heads = logits(cg)
+        out_dtype = torch.uint8 if scheme == "uint8" else torch.int8
+        check_heads(torch, f"{net} {scheme} {tier}", heads, outs, fp32[net], 0.99, out_dtype)
+        if outs[0].shape != (DEFAULT_BATCH, 1000, 1, 1):
+            raise AssertionError(f"{net} {tier}: logits of shape {tuple(outs[0].shape)}")
+        top1 = (outs[0].reshape(DEFAULT_BATCH, -1).argmax(1)
+                == fp32[net][0].reshape(DEFAULT_BATCH, -1).argmax(1)).double().mean()
+        log(f"  {net} {scheme} {tier}: top-1 agreement with the fp32 engine {float(top1):.4f} "
+            f"over {DEFAULT_BATCH} images")
+        t1 = time.time()
+        with dw_gate(gate):  # the same Options: the dw gate reads batch_size
+            cg_cpu = tt.compile_graph(qg, tt.Options(**opts), device="cpu")
+        if cg_cpu.kernels != cg.kernels:
+            raise AssertionError(f"{net} {scheme} {tier}: the CPU compile took other routes")
+        couts = cg_cpu.run(xq[:1])
+        log(f"  {net}-224 {scheme} {tier} on the CPU, image 0: {time.time() - t1:.1f} s")
+        check_within_lsb(f"{net} {scheme} {tier} card vs CPU (image 0)", [o[:1] for o in outs],
+                         couts, heads)
+
+    (cg_i, outs_i), (cg_r, outs_r) = default["I"][:2], resnet_r[:2]
+    check_tiers_agree(torch, f"resnet50-224 I (KL, default Options) vs R (MinMax, relaxed "
+                      f"chains), first {RESNET_BATCH} images", [outs_i[0][:RESNET_BATCH]],
+                      outs_r, logits(cg_i), heads_a=logits(cg_r))
+    (cg_l, outs_l), (cg_k, outs_k) = default["L"][:2], default["K"][:2]
+    check_tiers_agree(torch, "mobilenet-v1-224 L (plan, dw_qconv) vs K (default route)", outs_l,
+                      outs_k, logits(cg_l), heads_a=logits(cg_k))
 
 
 def main(argv) -> int:
@@ -1188,6 +1398,18 @@ def main(argv) -> int:
     entries["qblock_chain"]["launches"] = 3 * RESNET_TIERS["F"][1]["qblock_chain"]
     log(f"  resnet50 in all: {time.time() - t0:.1f} s")
 
+    # 3e. main path: bench.py's configs under default Options at batch 128,
+    # ResNet-50-224 INT8 (KL) and UINT8 on the native-int8 plan (I, J), the
+    # mobilenet-v1-224 UINT8 headline on the default route (K) and on the
+    # plan with its depthwise convs on dw_qconv (L)
+    t0 = time.time()
+    graphs = {"resnet50": gr, "mobilenet-v1": build_mobilenet_v1_graph(ir, img=imgr)}
+    images_d = np.random.default_rng(0).standard_normal(
+        (DEFAULT_BATCH, 3, imgr, imgr)).astype(np.float32)
+    default = run_default_tiers(torch, tt, qmath, counters, graphs, images_d)
+    entries["dw_qconv"]["launches"] += 3 * DEFAULT_TIERS["L"][-1]["dw_qconv"]
+    log(f"  default-Options tiers in all: {time.time() - t0:.1f} s")
+
 
     # 4. correctness: fp32 engine on the card, and the port's CPU run
     t0 = time.time()
@@ -1252,6 +1474,10 @@ def main(argv) -> int:
         check_within_lsb(f"resnet50 {tier} card vs CPU (image 0)",
                          [o[:1] for o in resnet[tier][1]], coutsr, logits)
     check_resnet_small(torch, tt, ir, qmath)
+    images_dev = torch.from_numpy(images_d).cuda()
+    fp32 = {net: tt.compile_graph(g, tt.Options(precision="fp32", batch_size=DEFAULT_BATCH))(
+        images_dev) for net, g in graphs.items()}
+    check_default_tiers(torch, tt, default, fp32, resnet["R"])
     log(f"phase 4 check: {time.time() - t0:.1f} s")
 
     if "--profile" in argv:
@@ -1260,6 +1486,9 @@ def main(argv) -> int:
         profile_batch(torch, fastest["int8", "D"][0], fastest["int8", "D"][4])
         profile_batch(torch, resnet["F"][0], xr)
         profile_batch(torch, resnet["H"][0], xr)
+        for tier, (cg, _, _, _, _, xq) in default.items():
+            log(f"profile of tier {tier}:")
+            profile_batch(torch, cg, torch.from_numpy(xq).cuda())
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "tengine_tpu"))
     if leaked:
@@ -1299,9 +1528,21 @@ def profile_batch(torch, cg, x_dev) -> None:
         f"device idle {100 * (1 - total / wall_ms):.1f}% of the wall time, "
         f"{sum(c for _, _, c in dev)} kernel launches")
     ranked = sorted(dev, key=lambda r: -r[1])
-    own = [r for r in ranked[15:] if ("qconv" in r[0] or "qblock" in r[0]) and "at::" not in r[0]]
+
+    def is_own(key):  # the port's hand-written kernels
+        return any(k in key for k in ("qconv", "qblock")) and "at::" not in key
+
+    own = [r for r in ranked[15:] if is_own(r[0])]
     for key, ms, count in ranked[:15] + own:  # the top 15, then the port's own kernels below them
         log(f"  {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  x{count:<4d} {key[:90]}")
+    # the library's convolution and GEMM kernels: on a quantized net, the fast
+    # lowering's exact float64 convs and the FC's float64 product
+    lib = [(ms, c) for k, ms, c in dev
+           if not is_own(k) and any(w in k.lower() for w in ("conv", "dgemm", "gemm"))]
+    lib_ms = sum(ms for ms, _ in lib)
+    log(f"  library conv/GEMM kernels (float64 on a quantized net): {lib_ms:.3f} ms, "
+        f"{100 * lib_ms / max(total, 1e-9):.1f}% of the kernel time, {sum(c for _, c in lib)} "
+        f"launches")
 
 
 if __name__ == "__main__":

@@ -23,7 +23,9 @@ import numpy as np
 import torch
 
 from ..graph.ir import Graph, Tensor
-from ..graph.passes import fold_shuffle_gathers, fuse_conv_add, fuse_resnet_blocks
+from ..graph.passes import (
+    fold_shuffle_gathers, fuse_conv_add, fuse_resnet_blocks, to_native_int8,
+)
 from ..ops import fused as _fused  # noqa: F401 — populate registry
 from ..ops import lowering as _lowering  # noqa: F401
 from ..ops import qmath
@@ -266,8 +268,7 @@ def build_forward(graph: Graph, options: Options, store: ParamStore, return_all:
 
 def _native_profitable(graph: Graph) -> bool:
     """Per-graph gate of the JAX engine's native-int8 plan, ported as-is so
-    the port makes the same decision (it does not run the plan: compile_graph
-    raises where the gate says yes). The statistic is the fraction of conv
+    the port makes the same decision. The statistic is the fraction of conv
     output elements produced by small-channel convs (min(c_in, c_out) < 64,
     stems with c_in <= 4 excluded); depthwise graphs never qualify. Needs
     shapes: returns False (never wrongly native) when shape inference is
@@ -336,17 +337,14 @@ def compile_graph(
         and os.environ.get("TT_NATIVE_INT", "1") not in ("0", "off")
         and (options.quant_native == "on" or _native_profitable(graph))
     )
-    if native_int8:
-        raise NotImplementedError(
-            "native-int8 plan (tengine_tpu/graph/passes.py:to_native_int8) not ported yet"
-        )
     if fast_quant and (
         options.fuse_resblock or (options.quant_relaxed and not native_int8)
     ):
         # whole bottleneck-block chains -> the qblock_chain kernel (runs
         # before fuse_conv_add, which would otherwise absorb the residual
         # Eltwise into the conv epilogue). quant_relaxed also enables the
-        # pass, from chain_min_cmid up; fuse_resblock forces it at any width.
+        # pass, from chain_min_cmid up, off the native-int8 plan;
+        # fuse_resblock forces it at any width, under the plan too.
         graph = graph.clone()
         fuse_resnet_blocks(
             graph, min_cmid=0 if options.fuse_resblock else options.chain_min_cmid
@@ -360,6 +358,14 @@ def compile_graph(
             options.pallas_qconv and not options.quant_bf16_storage
         ) else "any"
         fuse_conv_add(graph, geometry=geometry, relaxed_relu=options.quant_relaxed)
+    if native_int8:
+        # native-int8 plan: every activation stored as its 1-byte dtype, UINT8
+        # graphs shift-rewritten (after fuse_conv_add, so fused_add_mid
+        # tensors shift too); an empty _bf16_tids marks the plan for the
+        # storage predicate ops/quantized.py:_int_stored
+        graph = graph.clone()
+        to_native_int8(graph)
+        graph._bf16_tids = set()
 
     store = ParamStore()
     forward, input_ids, output_ids = build_forward(graph, options, store)

@@ -1,14 +1,16 @@
 """Graph-level optimization passes (PyTorch port of the subset of
 tengine_tpu/graph/passes.py that the yolov5s and ResNet paths and the
-default compile pipeline run).
+default compile pipeline run, the native-int8 plan's to_native_int8 among
+them).
 
 The reference runs these at convert time (tools/convert_tool/utils/
 graph_optimizer/graph_opt.cpp:624-947: conv+bn fold, conv+relu fuse,
 bn+scale fold, ...). Here they run on the IR before compilation. The passes
 are numpy-only and copied unchanged, so both packages build the same IR.
-The default-pipeline pass not ported yet (fold_shuffle_gathers) is a guard:
-it raises NotImplementedError exactly where the JAX pass would change the
-graph.
+The default-pipeline pass not ported yet (fold_shuffle_gathers) is a guard,
+wider than the JAX pass: it raises NotImplementedError on any ShuffleChannel
+node, while the JAX pass changes the graph only where a caffe-style axis-1
+Slice on one shared grid follows the shuffle.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Dict, List, Optional, Set
 
 import numpy as np
 
-from .ir import DType, Graph, Node, TensorType
+from .ir import DType, Graph, Node, QuantParam, TensorType
 
 
 def _replace_uses(g: Graph, old_tid: int, new_tid: int):
@@ -906,3 +908,104 @@ def fold_shuffle_gathers(g: Graph) -> int:
                 f"fold_shuffle_gathers on ShuffleChannel {n.name!r} is not ported yet"
             )
     return 0
+
+
+def to_native_int8(g: Graph) -> int:
+    """Rewrite a UINT8-asymmetric quantized graph for the native-int8
+    storage/compute plan (Options.quant_native; a compile-time clone only,
+    never serialized):
+
+      * internal UINT8 activations shift to INT8: q' = q - 128,
+        zp' = zp - 128, an exact relabeling of the same grid
+        (QuantParam.full_range marks the [-128, 127] clip span). Graph
+        inputs and outputs keep their dtype, so the buffer contract is
+        unchanged; the first conv reads UINT8 and the last layer writes it.
+      * conv/FC weights stored UINT8-asymmetric requantize to symmetric
+        per-channel INT8 (s_c = max|w_f|/127, np.round: half to even). This
+        re-rounds each weight once (<= s_c/2), the relaxed tier's contract;
+        the exact uint8 engine stays behind quant_relaxed=False or
+        quant_mode="ref". A weight shared with a non-conv consumer, or whose
+        quant arrays are neither per-tensor nor per-out-channel, is left as
+        it is.
+      * raw int32 biases (scale s_in*s_w) are rescaled to the new weight
+        scales as float32 data in the tensor still declared INT32: the
+        dequantized bias values are identical, and every lowering the plan
+        reaches reads a bias with astype(np.float32/np.float64).
+
+    INT8-symmetric graphs are already in native form (zp = 0): the pass is a
+    no-op there and the engine only flips the storage plan. Returns the
+    number of tensors rewritten. Copied from the JAX pass unchanged."""
+    boundary = set(g.input_tensors) | set(g.output_tensors)
+    changed = 0
+    for t in g.tensors:
+        if (
+            t.is_const
+            or t.idx in boundary
+            or t.dtype != DType.UINT8
+            or t.quant is None
+            or t.quant.per_channel
+        ):
+            continue
+        t.dtype = DType.INT8
+        t.quant.zero_points = np.asarray(
+            int(np.asarray(t.quant.zero_points).reshape(-1)[0]) - 128, np.int32
+        )
+        t.quant.full_range = True
+        changed += 1
+
+    done: Set[int] = set()
+    for n in g.nodes:
+        if n.op not in ("Convolution", "FullyConnected") or len(n.inputs) < 2:
+            continue
+        if g.tensors[n.inputs[0]].dtype != DType.INT8:
+            continue  # the consumer still reads UINT8 (a graph input)
+        tw = g.tensors[n.inputs[1]]
+        if (
+            tw.idx in done
+            or not tw.is_const
+            or tw.data is None
+            or tw.dtype != DType.UINT8
+            or tw.quant is None
+        ):
+            continue
+        if any(
+            g.nodes[c].op not in ("Convolution", "FullyConnected")
+            for c in tw.consumers
+            if c < len(g.nodes) and tw.idx in g.nodes[c].inputs
+        ):
+            continue  # shared with a non-conv consumer: left as it is
+        done.add(tw.idx)
+        out_c = tw.shape[0]
+        # per-tensor or per-channel uint8 weights: the old scales and zero
+        # points broadcast along the out-channel axis 0 before dequantizing
+        s_w_old = np.asarray(tw.quant.scales, np.float64).reshape(-1)
+        zp_w_old = np.asarray(tw.quant.zero_points, np.float64).reshape(-1)
+        if s_w_old.size not in (1, out_c) or zp_w_old.size not in (1, out_c):
+            continue  # an unexpected quant-axis layout: left as it is
+        if s_w_old.size == 1:
+            s_w_old = np.full(out_c, s_w_old[0])
+        if zp_w_old.size == 1:
+            zp_w_old = np.full(out_c, zp_w_old[0])
+        flat_q = tw.data.astype(np.float64).reshape(out_c, -1)
+        flat = (flat_q - zp_w_old[:, None]) * s_w_old[:, None]
+        s_new = np.maximum(np.abs(flat).max(axis=1) / 127.0, 1e-10)
+        q = np.clip(np.round(flat / s_new[:, None]), -127, 127)
+        tw.data = q.astype(np.int8).reshape(tw.data.shape)
+        tw.dtype = DType.INT8
+        tw.quant = QuantParam(
+            scales=s_new.astype(np.float32),
+            zero_points=np.zeros(out_c, np.int32),
+            width=8,
+        )
+        changed += 1
+        if len(n.inputs) > 2:
+            tb = g.tensors[n.inputs[2]]
+            if tb.data is not None and not np.issubdtype(
+                np.asarray(tb.data).dtype, np.floating
+            ):
+                # raw bias at s_in*s_w_old -> float raw at s_in*s_new: the
+                # dequantized value is unchanged
+                tb.data = (
+                    tb.data.astype(np.float64) * (s_w_old / s_new)
+                ).astype(np.float32)
+    return changed

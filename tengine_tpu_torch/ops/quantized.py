@@ -1,9 +1,10 @@
 """Quantized execution kernels (INT8 per-channel, UINT8 per-tensor) — PyTorch
 port of the subset of tengine_tpu/ops/quantized.py that the yolov5s INT8
 path, the yolov3 integer-storage path (quant_bf16_storage=False), the
-YOLO-Fastest depthwise path (INT8 and UINT8) and the ResNet-50 INT8 path
+YOLO-Fastest depthwise path (INT8 and UINT8), the ResNet-50 INT8 path
 (FullyConnected, global average pool, ReLu; the bottleneck chains lower in
-ops/fused.py) run.
+ops/fused.py) and the native-int8 plan (UINT8 grids shifted to full-range
+INT8, executor/engine.py) run.
 
 Two tiers, mirroring the reference's ref-vs-optimized kernel split:
 
@@ -370,15 +371,19 @@ def _pallas_conv1x1_ok(ctx: LowerCtx) -> bool:
     )
 
 
-def _int_stored(ctx: LowerCtx) -> bool:
-    """The JAX gate's _int_stored(ctx, t): the tensor stores its raw 1-byte
+def _int_stored(ctx: LowerCtx, t) -> bool:
+    """The JAX gate's _int_stored(ctx, t): tensor t stores its raw 1-byte
     dtype under the JAX engine's storage plan. The port stores every
-    activation as its integer dtype, but routes as the JAX engine does:
-    there, with quant_bf16_storage=True and no native-int8 plan (which the
-    port raises for), the bf16 plan is None for any graph with a depthwise
-    conv, so no tensor counts as int-stored; with quant_bf16_storage=False
-    every tensor does."""
-    return not ctx.options.quant_bf16_storage
+    activation as its integer dtype, but routes as the JAX engine does: with
+    quant_bf16_storage=False every tensor counts; under the native-int8 plan
+    (executor/engine.py sets graph._bf16_tids to an empty set) every tensor
+    not in _bf16_tids does. Otherwise the port builds no storage plan:
+    _bf16_tids is unset, as the JAX engine's plan is on any graph with a
+    depthwise conv, the only graphs this predicate routes."""
+    if not ctx.options.quant_bf16_storage:
+        return True
+    plan = getattr(ctx.graph, "_bf16_tids", None)
+    return plan is not None and t.idx not in plan
 
 
 def _pallas_dw_ok(ctx: LowerCtx) -> bool:
@@ -424,7 +429,8 @@ def _pallas_dw_ok(ctx: LowerCtx) -> bool:
         and p["dilation_w"] == 1
         and p["stride_h"] == p["stride_w"]
         and s_ in (1, 2)
-        and _int_stored(ctx)
+        and _int_stored(ctx, t_in)
+        and _int_stored(ctx, t_out)
         and ctx.const_data(1) is not None
     )
 

@@ -82,8 +82,10 @@ class Options:
     # at the block-output scale (single rounding). quant_mode="ref" and
     # quant_relaxed=False give the exact engines.
     quant_relaxed: bool = True
-    # Native-int8 storage/compute plan ("auto" | "on" | "off"); the plan
-    # itself (graph/passes.py:to_native_int8) is not ported yet.
+    # Native-int8 storage/compute plan ("auto" | "on" | "off"): every
+    # activation stored as its 1-byte dtype, UINT8 graphs shifted to INT8
+    # (graph/passes.py:to_native_int8). "auto" takes it with quant_relaxed
+    # where executor/engine.py:_native_profitable says so.
     quant_native: str = "auto"
     # Minimum bottleneck width (c_mid) from which quant_relaxed alone fuses
     # int8 bottleneck chains into FusedResBlockChain nodes

@@ -460,6 +460,24 @@ DW_EDGE_CASES = [
 ]
 
 
+# mobilenet-v1-224's nine depthwise shapes on the native-int8 plan's grids:
+# a UINT8 grid shifted to INT8 (zp - 128, full range [-128, 127]), so the
+# pad bytes carry a negative zp_in down to -128 (0x80), the ReLU clamps at
+# 0 and zp_out sits near -128.
+#   case as DW_CASES
+DW_SHIFTED_CASES = [
+    (1, 112, 32, 3, 1, (1, 1, 1, 1), -128, -128, 0, False),
+    (1, 112, 64, 3, 2, (1, 1, 1, 1), -97, -120, 0, False),
+    (1, 56, 128, 3, 1, (1, 1, 1, 1), -110, -128, 0, False),
+    (1, 56, 128, 3, 2, (1, 1, 1, 1), -75, -101, 0, False),
+    (1, 28, 256, 3, 1, (1, 1, 1, 1), -128, -90, 0, False),
+    (1, 28, 256, 3, 2, (1, 1, 1, 1), -64, -127, 0, False),
+    (2, 14, 512, 3, 1, (1, 1, 1, 1), -119, -128, 0, False),
+    (2, 14, 512, 3, 2, (1, 1, 1, 1), 3, -128, -1, False),
+    (2, 7, 1024, 3, 1, (1, 1, 1, 1), -128, -77, 0, False),
+]
+
+
 def dw_inputs(case, seed, extremes=False):
     """Seeded numpy inputs of one dw_qconv case, as
     tests/test_dw_conv_pallas.py makes them: raw x NHWC, true tap values
@@ -860,4 +878,23 @@ def test_dw_kernel_edge_cases_on_card(case, tile):
     assert dw_qconv.launches == before + 1
     want = port_dw(inp, "cuda", kernel=False)
     assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DW_SHIFTED_CASES, ids=str)
+def test_dw_kernel_shifted_int8_on_card(case):
+    """dw_qconv on the native-int8 plan's shifted INT8 grids (a negative
+    zp_in in the pad bytes, the full [-128, 127] range) at mobilenet-v1's
+    depthwise shapes: the kernel equals its plain version bit for bit."""
+    _need_card()
+    from tengine_tpu_torch.ops.cuda.dw_conv import dw_qconv
+
+    inp = dw_inputs(case, seed=sum(case[:5]) + 9)
+    before = dw_qconv.launches
+    got = port_dw(inp, "cuda", kernel=True)
+    torch.cuda.synchronize()
+    assert dw_qconv.launches == before + 1
+    want = port_dw(inp, "cuda", kernel=False)
+    assert got.dtype == want.dtype == np.int8 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)

@@ -40,6 +40,7 @@ from test_torch_cuda import (  # noqa: E402
     DW_CASES,
     DW_EDGE_CASES,
     DW_EXTRA_CASES,
+    DW_SHIFTED_CASES,
     dw_inputs,
     dw_oracle,
     port_dw,
@@ -111,6 +112,18 @@ def test_dw_plain_matches_pallas_mobilenet_widths(case):
     np.testing.assert_array_equal(got, dw_oracle(inp))
 
 
+@pytest.mark.parametrize("case", [c for c in DW_SHIFTED_CASES if c[1] <= 28], ids=str)
+def test_dw_plain_matches_pallas_on_shifted_int8(case):
+    """The native-int8 plan's shifted INT8 grids (negative zp_in in the pad,
+    full range) at mobilenet-v1's shapes from 28x28 down: dw_qconv_plain
+    against the Pallas kernel in interpret mode (within the FMA LSB) and the
+    numpy oracle (bit for bit)."""
+    inp = dw_inputs(case, seed=sum(case[:5]) + 9)
+    got = port_dw(inp, "cpu", kernel=False)
+    assert_within_one_fma_lsb(got, jax_dw(inp))
+    np.testing.assert_array_equal(got, dw_oracle(inp))
+
+
 def emulate_dw_kernel(inp):
     """csrc/dw_conv.cu's arithmetic in numpy: per output column o = ox % TW
     of its thread, the tap pairs (2j - ph, 2j + 1 - ph) of each row (ph the
@@ -171,13 +184,14 @@ def emulate_dw_kernel(inp):
     return r.astype(np.uint8 if a["out_u8"] else np.int8)
 
 
-DW_EMULATED = ([(c, False) for c in DW_CASES + DW_EXTRA_CASES]
-               + [(c, True) for c, _ in DW_EDGE_CASES])
+DW_EMULATED = ([(c, False, 0) for c in DW_CASES + DW_EXTRA_CASES]
+               + [(c, True, 0) for c, _ in DW_EDGE_CASES]
+               + [(c, False, 9) for c in DW_SHIFTED_CASES])
 
 
-@pytest.mark.parametrize("case,extremes", DW_EMULATED, ids=str)
-def test_dw_kernel_arithmetic_emulation_equals_plain(case, extremes):
-    inp = dw_inputs(case, seed=sum(case[:5]), extremes=extremes)
+@pytest.mark.parametrize("case,extremes,reseed", DW_EMULATED, ids=str)
+def test_dw_kernel_arithmetic_emulation_equals_plain(case, extremes, reseed):
+    inp = dw_inputs(case, seed=sum(case[:5]) + reseed, extremes=extremes)
     np.testing.assert_array_equal(emulate_dw_kernel(inp), port_dw(inp, "cpu", kernel=False))
 
 

@@ -193,12 +193,11 @@ def test_unported_settings_raise(monkeypatch):
     monkeypatch.setenv("TT_DW_PALLAS", "1")
     calib = [np.random.default_rng(0).standard_normal((1, 3, 8, 8)).astype(np.float32)]
     qg = tt.quantize_graph(_tiny_float_graph(), calib, scheme="int8", device="cpu")
-    for graph, opts, what in (
-        (qg, tt.Options(quant_mode="fast", stem_s2d=True), "stem_s2d"),
-        (qg, tt.Options(quant_mode="fast", quant_native="on"), "native-int8"),
-    ):
-        with pytest.raises(NotImplementedError, match=what):
-            tt.compile_graph(graph, opts, device="cpu")
+    with pytest.raises(NotImplementedError, match="stem_s2d"):
+        tt.compile_graph(qg, tt.Options(quant_mode="fast", stem_s2d=True), device="cpu")
+    # the native-int8 plan: ported, so it compiles and marks the storage plan
+    cg = tt.compile_graph(qg, tt.Options(quant_mode="fast", quant_native="on"), device="cpu")
+    assert cg.graph._bf16_tids == set()
     # TT_DW_PALLAS at batch >= 32 on the integer-storage tier routes a
     # depthwise conv to the dw kernel: ported, so it compiles and names it
     calib_dw = [np.random.default_rng(0).standard_normal((1, 32, 8, 8)).astype(np.float32)]

@@ -301,17 +301,27 @@ def test_whole_net_matches_jax_node_by_node(tier, monkeypatch):
     assert d.max() <= 2 and (d == 0).mean() >= 0.95
 
 
-def test_default_options_still_raise_for_the_native_plan():
-    """quant_relaxed=True with quant_native="auto" takes the native-int8 plan
-    in the JAX engine on a net whose convs are 64 channels wide and more
-    (_native_profitable); the port names the plan and raises. One bottleneck
-    per stage at ResNet-50's widths, img 32."""
-    g = build_resnet50_graph(pir, img=32, classes=16, depths=(1, 1, 1, 1))
+def test_default_options_still_raise_for_the_native_plan(monkeypatch):
+    """The name is older than the plan's port: default Options (quant_relaxed
+    with quant_native="auto") take the native-int8 plan on a net whose convs
+    are 64 channels wide and more (_native_profitable), and since the plan
+    is ported they compile instead of raising. One bottleneck per stage at
+    ResNet-50's widths, img 32: the plan builds no chain, every conv stays on
+    the fast lowering, the routes are the JAX engine's and the logits equal
+    its; with quant_native="off" quant_relaxed alone fuses from
+    chain_min_cmid = 256 up: stages 3 and 4."""
+    g = build_resnet50_graph(jir, img=32, classes=16, depths=(1, 1, 1, 1))
     x = np.random.default_rng(1).standard_normal((1, 3, 32, 32)).astype(np.float32)
-    qg = pt.quantize_graph(g, [x], scheme="int8", algorithm="minmax", device="cpu")
-    with pytest.raises(NotImplementedError, match="native-int8"):
-        pt.compile_graph(qg, pt.Options(batch_size=1), device="cpu")
-    cg = pt.compile_graph(qg, pt.Options(batch_size=1, quant_native="off"), device="cpu")
+    qg = jax_quantize(g, [x], scheme="int8", algorithm="minmax")
+    xq = _quantized_input(qg, x)
+    want, jax_routes, got, cg = both_engines(qg, dict(batch_size=1), xq, monkeypatch)
+    assert cg.graph._bf16_tids == set()
+    assert not any(n.op == "FusedResBlockChain" for n in cg.graph.nodes)
+    assert cg.kernels == {k: v for k, v in jax_routes.items() if k in cg.kernels}
+    assert {cg.kernels[n.name] for n in cg.graph.nodes if n.op == "Convolution"} == {
+        "lower_conv_quant_fast"}
+    np.testing.assert_array_equal(got[0], want[0])
+    pg = pt.load_tm_bytes(graph_to_tm_bytes(qg))
+    cg = pt.compile_graph(pg, pt.Options(batch_size=1, quant_native="off"), device="cpu")
     chains = [n for n in cg.graph.nodes if n.op == "FusedResBlockChain"]
-    # quant_relaxed alone fuses from chain_min_cmid = 256 up: stages 3 and 4
     assert [n.params["blocks"][0]["c_mid"] for n in chains] == [256, 512]
