@@ -4,10 +4,9 @@ hand-written kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # the check, on one card
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of one
-                                     # yolov5s batch, one yolov3 batch (A), one
-                                     # YOLO-Fastest batch (D, int8), one
-                                     # ResNet-50 batch each under F and H, and
-                                     # one batch of each of tiers I-L
+                                     # captured batch of every tier (YOLO-Fastest
+                                     # int8 only): kernels, launches, the card's
+                                     # idle share
     python3 chip_smoke.py --tiles    # also the implicit-GEMM kernel's time
                                      # under every tile and route at each
                                      # timed shape, and the chain kernel's
@@ -48,12 +47,20 @@ Phases, in order; any failure raises and the exit code is not 0:
                then mobilenet-v1-224's 13 at batch 128 on the native-int8
                plan's grid (int8 input, zp_in -101, the full range
                [-128, 127], ReLU), 0 LSB, timed the same way.
-  3. main path yolov5s 640x640 INT8 (MinMax), seed-0 weights: quantize_graph
-               on the card with one seeded calibration image, compile_graph
-               at batch 8, one untimed forward, 3 timed batches. Then
+  3. main path every tier below runs through the compiled forward
+               (CompiledGraph.__call__: a CUDA graph captured at the first
+               call, replayed after) and then eagerly (forward_fn) on the same
+               batch (drive): the first call untimed (a warm-up forward, the
+               capture, a replay), 3 captured batches timed with CUDA events
+               around the call, then one untimed and 3 timed eager batches;
+               captured = eager at 0 LSB required; the device launches a
+               forward from cost_analysis(). Each tier's CompiledGraph, and
+               with it its CUDA graph's memory pool, is dropped before the
+               next tier. yolov5s 640x640 INT8 (MinMax), seed-0 weights:
+               quantize_graph on the card with one seeded calibration image,
+               compile_graph at batch 8. Then
                yolov3 416x416 INT8 (MinMax, seed-0 weights) on the
-               integer-storage tier, one untimed and 3 timed batches of 8
-               under each of
+               integer-storage tier, batch 8, under each of
                  A  Options(quant_mode="fast", quant_bf16_storage=False):
                     qconv_direct and qconv1x1
                  B  A + pallas_qconv=False, pallas_qgemm=True: qgemm_requant
@@ -61,15 +68,14 @@ Phases, in order; any failure raises and the exit code is not 0:
                     lowering (timed only: the port's own "before").
                Then YOLO-Fastest 320x320 (seed-0 weights, MinMax from one
                seeded image) at batch 32 on the same integer-storage tier,
-               INT8 and then UINT8, one untimed and 3 timed batches under
+               INT8 and then UINT8, under
                  D  TT_DW_PALLAS=1: the 13 depthwise convs on dw_qconv, the
                     29 1x1 convs on qconv1x1, the stem on the fast lowering
                  E  TT_DW_PALLAS=0: the 13 on the fast lowering too (the
                     port's own "before").
                Then ResNet-50 224x224 INT8 (build_resnet50_graph below:
                the published widths and depths, seed-0 weights, MinMax from
-               one seeded image) at batch 32, one untimed and 3 timed batches
-               under each of
+               one seeded image) at batch 32, under each of
                  F  Options(quant_mode="fast", fuse_resblock=True,
                     quant_relaxed=False): the 16 bottlenecks as 4
                     FusedResBlockChain nodes (3, 4, 6, 3 blocks) on
@@ -97,9 +103,15 @@ Phases, in order; any failure raises and the exit code is not 0:
                     below), TT_DW_PALLAS unset: the default route (no plan
                     on a depthwise net), every conv on the fast lowering
                  L  K with quant_native="on" and TT_DW_PALLAS=1: the plan,
-                    the 13 depthwise convs on dw_qconv on shifted INT8.
+                    the 13 depthwise convs on dw_qconv on shifted INT8
+                 M  K at batch 1 (bench.py:221-238, bench_model_quant_b1:
+                    the headline's batch-1 latency).
                Every kernel's launch count is set to 0 just before each
-               timed run and read just after; the counts must be exact.
+               tier's captured run and read just after it; the counts must be
+               exact: a wrapper launches its kernel in the warm-up forward
+               and in the capture, which records the launch into the graph
+               (WRAPPER_RUNS = 2 forwards); the replays launch the recorded
+               kernels without a wrapper call.
   4. check     every head's dequantized cosine against the port's fp32 engine
                (yolov5s > 0.95, the gate of tests/test_yolov5.py; yolov3
                and YOLO-Fastest > 0.99); each net's card run (each yolov3
@@ -131,7 +143,11 @@ Phases, in order; any failure raises and the exit code is not 0:
                top-1 agreement printed; each within 1 LSB of the port's CPU
                run (same Options and TT_DW_PALLAS, same routes) on the first
                image; I against R on the first 32 images and L against K by
-               cosine > 0.99.
+               cosine > 0.99; M against K's first image within 1 LSB. The
+               debug tools on yolov3-64 tier A: profile_graph (every node in
+               topological order, the top nodes printed) and
+               dump_graph_tensors into a temporary directory, each file the
+               CPU run's in header and line count, values within 1 LSB.
 
 The last lines are the kernels JSON, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Nothing here imports JAX or
@@ -146,7 +162,9 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -223,17 +241,25 @@ RESNET50_WIDTHS = (64, 128, 256, 512)  # c_mid per stage; c_out = 4 * c_mid
 RESNET50_DEPTHS = (3, 4, 6, 3)
 # phase 3e: bench.py's own configs under default Options at its batch, 128
 # (bench.py:381, resnet50 int8 with KL calibration; bench.py:342-368, the
-# mobilenet-v1 uint8 headline). Per tier: the net, the scheme, the
-# calibration, the Options beyond Options(quant_mode="fast",
-# batch_size=DEFAULT_BATCH), TT_DW_PALLAS while compile_graph runs (None:
-# unset), whether the native-int8 plan is taken, and the launches per forward
+# mobilenet-v1 uint8 headline), and the headline at batch 1. Per tier: the
+# net, the scheme, the calibration, the Options beyond
+# Options(quant_mode="fast", batch_size=batch), TT_DW_PALLAS while
+# compile_graph runs (None: unset), whether the native-int8 plan is taken,
+# the launches per forward, and the batch
 DEFAULT_BATCH = 128
 DEFAULT_TIERS = {
-    "I": ("resnet50", "int8", "kl", {}, None, True, {}),
-    "J": ("resnet50", "uint8", "minmax", {}, None, True, {}),
-    "K": ("mobilenet-v1", "uint8", "minmax", {}, None, False, {}),
-    "L": ("mobilenet-v1", "uint8", "minmax", dict(quant_native="on"), "1", True, {"dw_qconv": 13}),
+    "I": ("resnet50", "int8", "kl", {}, None, True, {}, DEFAULT_BATCH),
+    "J": ("resnet50", "uint8", "minmax", {}, None, True, {}, DEFAULT_BATCH),
+    "K": ("mobilenet-v1", "uint8", "minmax", {}, None, False, {}, DEFAULT_BATCH),
+    "L": ("mobilenet-v1", "uint8", "minmax", dict(quant_native="on"), "1", True,
+          {"dw_qconv": 13}, DEFAULT_BATCH),
+    # bench.py:221-238's batch-1 latency config (bench_model_quant_b1) on
+    # the headline net: K's graph and Options at batch 1
+    "M": ("mobilenet-v1", "uint8", "minmax", {}, None, False, {}, 1),
 }
+# the forwards of a tier's main-path run that call the kernels' wrappers: the
+# captured forward's warm-up and its capture (drive)
+WRAPPER_RUNS = 2
 
 
 def build_resnet50_graph(ir, img=224, classes=1000, seed=0, widths=RESNET50_WIDTHS,
@@ -986,24 +1012,82 @@ def dequant(torch, out, t):
     return (out.float() - float(np.asarray(t.quant.zero_points))) * float(np.asarray(t.quant.scales))
 
 
-def drive(torch, cg, x_dev, counters, n_batches=3):
-    """The main path's run: one untimed forward first (it pays cuDNN's
-    algorithm choice and the allocator's growth), then every launch count
-    set to 0, n_batches forwards timed with CUDA events, the counts read.
-    Returns (last outputs, ms per batch, launches by kernel)."""
-    cg(x_dev)
+def timed_ms(torch, fn) -> float:
+    """One call of fn() between two CUDA events, in ms."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def drive(torch, cg, x_dev, counters, what, profile=False, n_batches=3):
+    """One tier's main-path run through the captured forward, then its eager
+    forward on the same batch.
+
+    Every launch count is set to 0; CompiledGraph.__call__'s first call
+    runs one forward to warm up (the kernels' build, cuDNN's set-up, the
+    allocator's growth) and captures the next into a CUDA graph, which it
+    replays; n_batches more calls are timed with CUDA events around the
+    call; the counts are read. A wrapper counts where it launches its
+    kernel: in the warm-up forward, and in the capture, which records the
+    launch into the graph (WRAPPER_RUNS forwards); a replay relaunches the
+    recorded kernels and calls no wrapper. Then cost_analysis() counts the
+    device operations of one forward (torch.profiler over one eager forward,
+    which also warms the eager path up), and n_batches eager forwards
+    (forward_fn) on the same batch are timed, the first one's outputs held
+    equal to the captured ones at 0 LSB. The seconds each part took are
+    printed. With profile, a torch.profiler breakdown of one captured
+    batch. Returns (captured outputs, captured ms per batch, launches by
+    kernel)."""
     for c in counters.values():
         c.launches = 0
-    batch_ms = []
-    for _ in range(n_batches):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        outs = cg(x_dev)
-        end.record()
-        torch.cuda.synchronize()
-        batch_ms.append(start.elapsed_time(end))
-    return outs, batch_ms, {name: c.launches for name, c in counters.items()}
+    t0 = time.perf_counter()
+    outs = cg(x_dev)  # the warm-up forward, the capture and a replay
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    batch_ms = [timed_ms(torch, lambda: cg(x_dev)) for _ in range(n_batches)]
+    launches = {name: c.launches for name, c in counters.items()}
+    t2 = time.perf_counter()
+    per_forward = cg.cost_analysis()["launches"]
+    t3 = time.perf_counter()
+    eager, eager_ms = None, []
+    with torch.inference_mode():
+        for _ in range(n_batches):
+            res = []
+            eager_ms.append(timed_ms(torch, lambda: res.append(cg.forward_fn(cg.params, x_dev))))
+            eager = eager or res[0]
+    t4 = time.perf_counter()
+    for o, e in zip(outs, eager):
+        if o.shape != e.shape or o.dtype != e.dtype or not torch.equal(o, e):
+            d = int((o.int() - e.int()).abs().max()) if o.shape == e.shape else -1
+            raise AssertionError(f"{what}: captured and eager forwards differ by {d} LSB")
+    batch = x_dev.shape[0]
+    cap, eag = float(np.median(batch_ms)), float(np.median(eager_ms))
+    log(f"  {what}: captured ms/batch {batch_ms} (median {cap:.3f}, {batch * 1e3 / cap:.1f} "
+        f"img/s), eager ms/batch {eager_ms} (median {eag:.3f}), captured = eager at 0 LSB, "
+        f"{per_forward} device launches a forward (cost_analysis), wrapper launches {launches}; "
+        f"seconds: warm-up + capture + replay {t1 - t0:.2f}, timed replays {t2 - t1:.2f}, "
+        f"cost_analysis {t3 - t2:.2f}, eager {t4 - t3:.2f}")
+    if profile:
+        profile_batch(torch, cg, x_dev)
+    return outs, batch_ms, launches
+
+
+def eager(torch, cg, x):
+    """The eager forward's outputs (forward_fn): the fp32 references, which
+    phase 4 runs once each, need no capture."""
+    with torch.inference_mode():
+        return cg.forward_fn(cg.params, x)
+
+
+def keep(cg):
+    """What phase 4 reads of a tier's CompiledGraph, so that the tier's CUDA
+    graph and the memory pool it holds go with the CompiledGraph before the
+    next tier runs."""
+    return types.SimpleNamespace(graph=cg.graph, output_ids=cg.output_ids,
+                                 kernels=dict(cg.kernels))
 
 
 def check_heads(torch, what, heads, outs, fouts, gate, out_dtype):
@@ -1053,7 +1137,8 @@ def check_tiers_exact_small(torch, tt, build_yolov3_graph, qmath, img=64, batch=
     """Tiers A, B and C within 1 LSB at img=64 batch 2, where the JAX
     package measures them equal bit for bit. Calibrated on the CPU, as the
     tests calibrate, so the graph is the one tests/test_torch_yolov3.py
-    runs; the tiers then run on the card."""
+    runs; the tiers then run on the card. Returns the quantized graph and
+    its input (numpy)."""
     g = build_yolov3_graph(img=img)
     images = np.random.default_rng(1).standard_normal((batch, 3, img, img)).astype(np.float32)
     qg = tt.quantize_graph(g, [images[:1]], scheme="int8", algorithm="minmax", device="cpu")
@@ -1067,6 +1152,49 @@ def check_tiers_exact_small(torch, tt, build_yolov3_graph, qmath, img=64, batch=
     heads = [cg.graph.tensors[t] for t in cg.output_ids]
     for tier in ("B", "C"):
         check_within_lsb(f"yolov3-{img} b{batch} {tier} vs A", outs[tier], outs["A"], heads)
+    return qg, qmath.quantize_np(images, t_in.quant, t_in.dtype)
+
+
+def check_debug_tools(tt, qg, xq):
+    """executor/debug.py on the card, on yolov3-64 (check_tiers_exact_small's
+    graph and input) under tier A's Options: profile_graph times every node
+    eagerly with CUDA events, in topological order (the top nodes printed);
+    dump_graph_tensors writes every tensor of the forward but the consts into
+    a temporary directory, file for file and line for line what the port's
+    CPU run writes, every value within 1 LSB of it, on the first image (the
+    text files cost more time than the forward). The seconds each tool took
+    are printed."""
+    from tengine_tpu_torch.executor.debug import dump_graph_tensors, profile_graph
+
+    t0 = time.perf_counter()
+    opts = tt.Options(quant_mode="fast", quant_bf16_storage=False, batch_size=len(xq))
+    prof = profile_graph(qg, [xq], opts)
+    if [t.node for t in prof.timings] != [n.name for n in qg.toposorted()]:
+        raise AssertionError("profile_graph: the nodes are not the graph's, in topological order")
+    log(f"  profile_graph yolov3-64 b{len(xq)} tier A on the card: {len(prof.timings)} nodes, "
+        f"{prof.total_ms:.3f} ms node by node; the top 8:")
+    for t in sorted(prof.timings, key=lambda t: -t.ms)[:8]:
+        log(f"    {t.ms:8.3f} ms {t.gflops_rate:9.1f} GFLOP/s  {t.op:16} {t.node}")
+    t1 = time.perf_counter()
+    opts = tt.Options(quant_mode="fast", quant_bf16_storage=False, batch_size=1)
+    with tempfile.TemporaryDirectory() as card, tempfile.TemporaryDirectory() as cpu:
+        files = dump_graph_tensors(qg, [xq[:1]], card, opts)
+        want = dump_graph_tensors(qg, [xq[:1]], cpu, opts, device="cpu")
+        if sorted(Path(f).name for f in files) != sorted(Path(f).name for f in want):
+            raise AssertionError("dump_graph_tensors: the card and the CPU wrote other files")
+        worst = 0
+        for name in (Path(f).name for f in files):
+            a, b = (Path(d, name).read_text().splitlines() for d in (card, cpu))
+            if a[0] != b[0] or len(a) != len(b):
+                raise AssertionError(f"dump_graph_tensors {name}: {a[0]} vs {b[0]} on the CPU")
+            worst = max(worst, float(np.abs(np.array(a[1:], np.float64)
+                                            - np.array(b[1:], np.float64)).max(initial=0)))
+        log(f"  dump_graph_tensors yolov3-64 b1 tier A: {len(files)} files, each with the CPU "
+            f"run's header and line count, values at most {worst:g} apart; seconds: "
+            f"profile_graph {t1 - t0:.2f}, dump_graph_tensors and compare "
+            f"{time.perf_counter() - t1:.2f}")
+        if worst > 1:
+            raise AssertionError(f"dump_graph_tensors: card and CPU {worst} apart")
 
 
 def check_fastest_small(torch, tt, build_yolofastest_graph, qmath, img=64):
@@ -1135,15 +1263,17 @@ def check_resnet_small(torch, tt, ir, qmath):
         raise AssertionError("resnet50 stage-1 chain: R leaves the relaxed tier's bounds against F")
 
 
-def run_default_tiers(torch, tt, qmath, counters, graphs, images):
-    """Phase 3e: tiers I-L at 224 and DEFAULT_BATCH under default Options on
-    the float graphs `graphs` ({"resnet50": ..., "mobilenet-v1": ...}), each
-    calibrated on the card from images[:1], one untimed and 3 timed
-    batches, its routes and storage plan checked from the compiled graph and
-    its launch counts exact. Returns {tier: (CompiledGraph, outputs, opts,
-    TT_DW_PALLAS, quantized graph, quantized input)}."""
+def run_default_tiers(torch, tt, qmath, counters, graphs, images, profile):
+    """Phase 3e: tiers I-M at 224 under default Options on the float graphs
+    `graphs` ({"resnet50": ..., "mobilenet-v1": ...}), each calibrated on
+    the card from images[:1], at its batch (the first images), driven as
+    drive does, its routes and storage plan checked from the compiled graph
+    and its launch counts exact. Returns {tier: (what phase 4 reads of the
+    CompiledGraph, outputs, opts, TT_DW_PALLAS, quantized graph, quantized
+    input)}."""
     qgs, out = {}, {}
-    for tier, (net, scheme, algorithm, extra, gate, plan, per_forward) in DEFAULT_TIERS.items():
+    for tier, spec in DEFAULT_TIERS.items():
+        net, scheme, algorithm, extra, gate, plan, per_forward, batch = spec
         t1 = time.time()
         if (net, scheme, algorithm) not in qgs:
             qg = tt.quantize_graph(graphs[net], [images[:1]], scheme=scheme, algorithm=algorithm)
@@ -1153,7 +1283,8 @@ def run_default_tiers(torch, tt, qmath, counters, graphs, images):
             log(f"  {net} {scheme} {algorithm} set-up (build graph, calibrate): "
                 f"{time.time() - t1:.1f} s")
         qg, xq, x_dev = qgs[net, scheme, algorithm]
-        opts = dict(quant_mode="fast", batch_size=DEFAULT_BATCH, **extra)
+        xq, x_dev = xq[:batch], x_dev[:batch]
+        opts = dict(quant_mode="fast", batch_size=batch, **extra)
         with dw_gate(gate):
             cg = tt.compile_graph(qg, tt.Options(**opts))
         g = cg.graph
@@ -1169,41 +1300,43 @@ def run_default_tiers(torch, tt, qmath, counters, graphs, images):
             raise AssertionError(f"{net} {scheme} {tier}: convs by route {got_routes}, expected "
                                  f"{want_routes}; native-int8 plan {took_plan}, {len(shifted)} "
                                  f"shifted tensors")
-        outs, batch_ms, launches = drive(torch, cg, x_dev, counters)
-        want = dict.fromkeys(counters, 0) | {name: 3 * n for name, n in per_forward.items()}
+        outs, batch_ms, launches = drive(torch, cg, x_dev, counters,
+                                         f"{net}-224 {scheme} b{batch} tier {tier}", profile)
+        want = dict.fromkeys(counters, 0) | {
+            name: WRAPPER_RUNS * n for name, n in per_forward.items()}
         if launches != want:
             raise AssertionError(f"{net} {scheme} {tier}: launches {launches}, expected {want}")
-        out[tier] = (cg, outs, opts, gate, qg, xq)
-        med = float(np.median(batch_ms))
-        log(f"phase 3 main path: {net}-224 {scheme} ({algorithm}) batch {DEFAULT_BATCH} tier "
+        out[tier] = (keep(cg), outs, opts, gate, qg, xq)
+        del cg
+        log(f"phase 3 main path: {net}-224 {scheme} ({algorithm}) batch {batch} tier "
             f"{tier} Options({opts}) TT_DW_PALLAS={gate}: native-int8 plan {took_plan} "
-            f"({len(shifted)} tensors shifted to full-range int8), ms/batch {batch_ms} (median "
-            f"{med:.3f}), {DEFAULT_BATCH * 1e3 / med:.1f} img/s, launches {launches} "
-            f"[{time.time() - t1:.1f} s]")
+            f"({len(shifted)} tensors shifted to full-range int8) [{time.time() - t1:.1f} s]")
     return out
 
 
 def check_default_tiers(torch, tt, default, fp32, resnet_r):
-    """Phase 4 for tiers I-L: the logits' dequantized cosine against the fp32
+    """Phase 4 for tiers I-M: the logits' dequantized cosine against the fp32
     engine > 0.99 with top-1 agreement printed; each tier's card run within
     1 LSB of the port's CPU run (same Options and TT_DW_PALLAS, the same
     routes) on the first image; I against R (same net, MinMax and the
     relaxed chains, batch RESNET_BATCH: the first RESNET_BATCH images) and
-    L against K by cosine > 0.99."""
+    L against K by cosine > 0.99; M (batch 1) against K's first image within
+    1 LSB (the same graph, Options and routes at another batch)."""
     def logits(cg):
         return [cg.graph.tensors[t] for t in cg.output_ids]
 
     for tier, (cg, outs, opts, gate, qg, xq) in default.items():
-        net, scheme = DEFAULT_TIERS[tier][:2]
+        net, scheme, batch = DEFAULT_TIERS[tier][0], DEFAULT_TIERS[tier][1], DEFAULT_TIERS[tier][7]
         heads = logits(cg)
         out_dtype = torch.uint8 if scheme == "uint8" else torch.int8
-        check_heads(torch, f"{net} {scheme} {tier}", heads, outs, fp32[net], 0.99, out_dtype)
-        if outs[0].shape != (DEFAULT_BATCH, 1000, 1, 1):
+        fouts = [f[:batch] for f in fp32[net]]
+        check_heads(torch, f"{net} {scheme} {tier}", heads, outs, fouts, 0.99, out_dtype)
+        if outs[0].shape != (batch, 1000, 1, 1):
             raise AssertionError(f"{net} {tier}: logits of shape {tuple(outs[0].shape)}")
-        top1 = (outs[0].reshape(DEFAULT_BATCH, -1).argmax(1)
-                == fp32[net][0].reshape(DEFAULT_BATCH, -1).argmax(1)).double().mean()
+        top1 = (outs[0].reshape(batch, -1).argmax(1)
+                == fouts[0].reshape(batch, -1).argmax(1)).double().mean()
         log(f"  {net} {scheme} {tier}: top-1 agreement with the fp32 engine {float(top1):.4f} "
-            f"over {DEFAULT_BATCH} images")
+            f"over {batch} images")
         t1 = time.time()
         with dw_gate(gate):  # the same Options: the dw gate reads batch_size
             cg_cpu = tt.compile_graph(qg, tt.Options(**opts), device="cpu")
@@ -1221,6 +1354,8 @@ def check_default_tiers(torch, tt, default, fp32, resnet_r):
     (cg_l, outs_l), (cg_k, outs_k) = default["L"][:2], default["K"][:2]
     check_tiers_agree(torch, "mobilenet-v1-224 L (plan, dw_qconv) vs K (default route)", outs_l,
                       outs_k, logits(cg_l), heads_a=logits(cg_k))
+    check_within_lsb("mobilenet-v1-224 M (batch 1) vs K's image 0", default["M"][1],
+                     [o[:1] for o in outs_k], logits(cg_k))
 
 
 def main(argv) -> int:
@@ -1243,6 +1378,7 @@ def main(argv) -> int:
     from tengine_tpu_torch.ops.cuda.stem_conv import stem_qconv
 
     t_start = time.time()
+    profile = "--profile" in argv
     gpu = gpu_name_and_power_limit()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)} [{gpu}]")
 
@@ -1278,15 +1414,14 @@ def main(argv) -> int:
     xq5 = qmath.quantize_np(images5, t_in.quant, t_in.dtype)
     x5 = torch.from_numpy(xq5).cuda()
     log(f"  yolov5s set-up (build graph, calibrate, compile): {time.time() - t0:.1f} s")
-    outs5, batch_ms, launches = drive(torch, cg5, x5, counters)
-    want = dict.fromkeys(counters, 0) | {"stem_qconv": 3}
+    outs5, batch_ms, launches = drive(torch, cg5, x5, counters, f"yolov5s-{img} int8 b{batch}",
+                                      profile)
+    want = dict.fromkeys(counters, 0) | {"stem_qconv": WRAPPER_RUNS}
     if launches != want:
         raise AssertionError(f"yolov5s launches {launches}, expected {want}")
     entries["stem_qconv"]["launches"] = launches["stem_qconv"]
-    med = float(np.median(batch_ms))
-    log(f"phase 3 main path: yolov5s-{img} int8 batch {batch}: ms/batch {batch_ms} "
-        f"(median {med:.3f}), {batch * 1e3 / med:.1f} img/s, launches {launches} "
-        f"[{time.time() - t0:.1f} s]")
+    cg5 = keep(cg5)
+    log(f"phase 3 main path: yolov5s-{img} int8 batch {batch} [{time.time() - t0:.1f} s]")
 
     # 3b. main path: yolov3-416 INT8 at batch 8 on the integer-storage tier
     t0 = time.time()
@@ -1303,18 +1438,19 @@ def main(argv) -> int:
         t1 = time.time()
         opts = dict(quant_mode="fast", quant_bf16_storage=False, batch_size=batch, **extra)
         cg3 = tt.compile_graph(qg3, tt.Options(**opts))
-        outs3, batch_ms, launches = drive(torch, cg3, x3, counters)
-        want = dict.fromkeys(counters, 0) | {name: 3 * n for name, n in per_forward.items()}
+        outs3, batch_ms, launches = drive(torch, cg3, x3, counters,
+                                          f"yolov3-{img3} int8 b{batch} tier {tier}", profile)
+        want = dict.fromkeys(counters, 0) | {
+            name: WRAPPER_RUNS * n for name, n in per_forward.items()}
         if launches != want:
             raise AssertionError(f"yolov3 {tier}: launches {launches}, expected {want}")
-        tiers[tier] = (cg3, outs3, opts)
-        med = float(np.median(batch_ms))
-        log(f"phase 3 main path: yolov3-{img3} int8 batch {batch} tier {tier} {extra}: ms/batch "
-            f"{batch_ms} (median {med:.3f}), {batch * 1e3 / med:.1f} img/s, launches {launches} "
+        tiers[tier] = (keep(cg3), outs3, opts)
+        del cg3
+        log(f"phase 3 main path: yolov3-{img3} int8 batch {batch} tier {tier} {extra} "
             f"[{time.time() - t1:.1f} s]")
-    entries["qconv_direct"]["launches"] = 3 * YOLOV3_TIERS["A"][1]["qconv_direct"]
-    entries["qconv1x1"]["launches"] = 3 * YOLOV3_TIERS["A"][1]["qconv1x1"]
-    entries["qgemm_requant"]["launches"] = 3 * YOLOV3_TIERS["B"][1]["qgemm_requant"]
+    entries["qconv_direct"]["launches"] = WRAPPER_RUNS * YOLOV3_TIERS["A"][1]["qconv_direct"]
+    entries["qconv1x1"]["launches"] = WRAPPER_RUNS * YOLOV3_TIERS["A"][1]["qconv1x1"]
+    entries["qgemm_requant"]["launches"] = WRAPPER_RUNS * YOLOV3_TIERS["B"][1]["qgemm_requant"]
 
     # 3c. main path: YOLO-Fastest-320 at batch 32 on the integer-storage tier,
     # the depthwise convs on dw_qconv (D) or on the fast lowering (E)
@@ -1339,16 +1475,18 @@ def main(argv) -> int:
                         routes.count("lower_conv_quant_fast"))
             if by_route != (per_forward["dw_qconv"], per_forward["qconv1x1"], n_fast):
                 raise AssertionError(f"yolofastest {scheme} {tier}: convs by route {by_route}")
-            outsf, batch_ms, launches = drive(torch, cgf, xf, counters)
-            want = dict.fromkeys(counters, 0) | {name: 3 * n for name, n in per_forward.items()}
+            outsf, batch_ms, launches = drive(
+                torch, cgf, xf, counters, f"yolofastest-{imgf} {scheme} b{FASTEST_BATCH} tier "
+                f"{tier}", profile and scheme == "int8")
+            want = dict.fromkeys(counters, 0) | {
+                name: WRAPPER_RUNS * n for name, n in per_forward.items()}
             if launches != want:
                 raise AssertionError(f"yolofastest {scheme} {tier}: launches {launches}, expected {want}")
-            fastest[scheme, tier] = (cgf, outsf, qgf, xqf, xf)
-            med = float(np.median(batch_ms))
+            fastest[scheme, tier] = (keep(cgf), outsf, qgf, xqf, xf)
+            del cgf
             log(f"phase 3 main path: yolofastest-{imgf} {scheme} batch {FASTEST_BATCH} tier {tier} "
-                f"(TT_DW_PALLAS={gate}): ms/batch {batch_ms} (median {med:.3f}), "
-                f"{FASTEST_BATCH * 1e3 / med:.1f} img/s, launches {launches} [{time.time() - t1:.1f} s]")
-    entries["dw_qconv"]["launches"] = 3 * FASTEST_TIERS["D"][1]["dw_qconv"]
+                f"(TT_DW_PALLAS={gate}) [{time.time() - t1:.1f} s]")
+    entries["dw_qconv"]["launches"] = WRAPPER_RUNS * FASTEST_TIERS["D"][1]["dw_qconv"]
     log(f"  yolofastest in all: {time.time() - t0:.1f} s")
 
     # 3d. main path: ResNet-50-224 INT8 at batch 32, the bottlenecks on
@@ -1386,16 +1524,18 @@ def main(argv) -> int:
                                      f"the kernel's lowering, FC on {fc}")
         elif routed:
             raise AssertionError(f"resnet50 {tier}: a conv left the fast lowering")
-        outsr, batch_ms, launches = drive(torch, cgr, xr, counters)
-        want = dict.fromkeys(counters, 0) | {name: 3 * n for name, n in per_forward.items()}
+        outsr, batch_ms, launches = drive(torch, cgr, xr, counters,
+                                          f"resnet50-{imgr} int8 b{RESNET_BATCH} tier {tier}",
+                                          profile)
+        want = dict.fromkeys(counters, 0) | {
+            name: WRAPPER_RUNS * n for name, n in per_forward.items()}
         if launches != want:
             raise AssertionError(f"resnet50 {tier}: launches {launches}, expected {want}")
-        resnet[tier] = (cgr, outsr, opts)
-        med = float(np.median(batch_ms))
-        log(f"phase 3 main path: resnet50-{imgr} int8 batch {RESNET_BATCH} tier {tier} {extra}: "
-            f"ms/batch {batch_ms} (median {med:.3f}), {RESNET_BATCH * 1e3 / med:.1f} img/s, "
-            f"launches {launches} [{time.time() - t1:.1f} s]")
-    entries["qblock_chain"]["launches"] = 3 * RESNET_TIERS["F"][1]["qblock_chain"]
+        resnet[tier] = (keep(cgr), outsr, opts)
+        del cgr
+        log(f"phase 3 main path: resnet50-{imgr} int8 batch {RESNET_BATCH} tier {tier} {extra} "
+            f"[{time.time() - t1:.1f} s]")
+    entries["qblock_chain"]["launches"] = WRAPPER_RUNS * RESNET_TIERS["F"][1]["qblock_chain"]
     log(f"  resnet50 in all: {time.time() - t0:.1f} s")
 
     # 3e. main path: bench.py's configs under default Options at batch 128,
@@ -1406,36 +1546,37 @@ def main(argv) -> int:
     graphs = {"resnet50": gr, "mobilenet-v1": build_mobilenet_v1_graph(ir, img=imgr)}
     images_d = np.random.default_rng(0).standard_normal(
         (DEFAULT_BATCH, 3, imgr, imgr)).astype(np.float32)
-    default = run_default_tiers(torch, tt, qmath, counters, graphs, images_d)
-    entries["dw_qconv"]["launches"] += 3 * DEFAULT_TIERS["L"][-1]["dw_qconv"]
+    default = run_default_tiers(torch, tt, qmath, counters, graphs, images_d, profile)
+    entries["dw_qconv"]["launches"] += WRAPPER_RUNS * DEFAULT_TIERS["L"][6]["dw_qconv"]
     log(f"  default-Options tiers in all: {time.time() - t0:.1f} s")
 
 
     # 4. correctness: fp32 engine on the card, and the port's CPU run
     t0 = time.time()
     heads5 = [cg5.graph.tensors[t] for t in cg5.output_ids]
-    fouts5 = tt.compile_graph(g5, tt.Options(precision="fp32", batch_size=batch))(
-        torch.from_numpy(images5).cuda())
+    fouts5 = eager(torch, tt.compile_graph(g5, tt.Options(precision="fp32", batch_size=batch)),
+                   torch.from_numpy(images5).cuda())
     check_heads(torch, "yolov5s", heads5, outs5, fouts5, 0.95, torch.int8)
     couts5 = tt.compile_graph(qg5, tt.Options(quant_mode="fast", batch_size=1), device="cpu").run(xq5[:1])
     check_within_lsb("yolov5s card vs CPU (image 0)", [o[:1] for o in outs5], couts5, heads5)
 
     cg3a, outs3a, opts_a = tiers["A"]
     heads3 = [cg3a.graph.tensors[t] for t in cg3a.output_ids]
-    fouts3 = tt.compile_graph(g3, tt.Options(precision="fp32", batch_size=batch))(
-        torch.from_numpy(images3).cuda())
+    fouts3 = eager(torch, tt.compile_graph(g3, tt.Options(precision="fp32", batch_size=batch)),
+                   torch.from_numpy(images3).cuda())
     check_heads(torch, "yolov3 A", heads3, outs3a, fouts3, 0.99, torch.int8)
     for tier in ("B", "C"):
         check_tiers_agree(torch, f"yolov3-{img3} {tier} vs A", tiers[tier][1], outs3a, heads3)
-    check_tiers_exact_small(torch, tt, build_yolov3_graph, qmath)
+    check_debug_tools(tt, *check_tiers_exact_small(torch, tt, build_yolov3_graph, qmath))
     for tier, (_, outs3, opts) in tiers.items():
         t1 = time.time()
         couts3 = tt.compile_graph(qg3, tt.Options(**dict(opts, batch_size=1)), device="cpu").run(xq3[:1])
         log(f"  yolov3-{img3} {tier} on the CPU, image 0: {time.time() - t1:.1f} s")
         check_within_lsb(f"yolov3 {tier} card vs CPU (image 0)", [o[:1] for o in outs3], couts3, heads3)
 
-    foutsf = tt.compile_graph(gf, tt.Options(precision="fp32", batch_size=FASTEST_BATCH))(
-        torch.from_numpy(imagesf).cuda())
+    foutsf = eager(torch, tt.compile_graph(gf, tt.Options(precision="fp32",
+                                                          batch_size=FASTEST_BATCH)),
+                   torch.from_numpy(imagesf).cuda())
     for scheme in ("int8", "uint8"):
         cgd, outsd, qgf, xqf, _ = fastest[scheme, "D"]
         headsf = [cgd.graph.tensors[t] for t in cgd.output_ids]
@@ -1453,8 +1594,9 @@ def main(argv) -> int:
 
     cg_f, outs_f, opts_f = resnet["F"]
     logits = [cg_f.graph.tensors[t] for t in cg_f.output_ids]
-    foutsr = tt.compile_graph(gr, tt.Options(precision="fp32", batch_size=RESNET_BATCH))(
-        torch.from_numpy(imagesr).cuda())
+    foutsr = eager(torch, tt.compile_graph(gr, tt.Options(precision="fp32",
+                                                          batch_size=RESNET_BATCH)),
+                   torch.from_numpy(imagesr).cuda())
     for tier, (_, outsr, _) in resnet.items():
         check_heads(torch, f"resnet50 {tier}", logits, outsr, foutsr, 0.99, torch.int8)
         if outsr[0].shape != (RESNET_BATCH, 1000, 1, 1):
@@ -1475,20 +1617,11 @@ def main(argv) -> int:
                          [o[:1] for o in resnet[tier][1]], coutsr, logits)
     check_resnet_small(torch, tt, ir, qmath)
     images_dev = torch.from_numpy(images_d).cuda()
-    fp32 = {net: tt.compile_graph(g, tt.Options(precision="fp32", batch_size=DEFAULT_BATCH))(
-        images_dev) for net, g in graphs.items()}
+    fp32 = {net: eager(torch, tt.compile_graph(g, tt.Options(precision="fp32",
+                                                             batch_size=DEFAULT_BATCH)),
+                       images_dev) for net, g in graphs.items()}
     check_default_tiers(torch, tt, default, fp32, resnet["R"])
     log(f"phase 4 check: {time.time() - t0:.1f} s")
-
-    if "--profile" in argv:
-        profile_batch(torch, cg5, x5)
-        profile_batch(torch, cg3a, x3)
-        profile_batch(torch, fastest["int8", "D"][0], fastest["int8", "D"][4])
-        profile_batch(torch, resnet["F"][0], xr)
-        profile_batch(torch, resnet["H"][0], xr)
-        for tier, (cg, _, _, _, _, xq) in default.items():
-            log(f"profile of tier {tier}:")
-            profile_batch(torch, cg, torch.from_numpy(xq).cuda())
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "tengine_tpu"))
     if leaked:
@@ -1504,29 +1637,39 @@ def main(argv) -> int:
 
 
 def profile_batch(torch, cg, x_dev) -> None:
-    """Device time by kernel over one batch, and the device's busy share of
-    the batch's wall time."""
+    """Device time by kernel over one batch of the captured forward, and the
+    card's idle share inside the replay, both from one torch.profiler
+    trace: the span is the first device operation's start to the last
+    one's end, the busy time the union of the device operations' intervals
+    (kernels, copies, fills), the idle share 1 - busy / span. The call's
+    time by CUDA events, unprofiled, is printed beside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cg(x_dev)
-    torch.cuda.synchronize()
+    plain_ms = timed_ms(torch, lambda: cg(x_dev))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         cg(x_dev)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
 
     def self_device_us(r):  # the attribute's name changed across torch versions
         return getattr(r, "self_device_time_total", None) or getattr(r, "self_cuda_time_total", 0)
 
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -float("inf")
+    for lo, hi in spans:  # the union of the intervals
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    span_us = spans[-1][1] - spans[0][0] if spans else 0.0
     # device-side rows only: the aten:: rows repeat the time of their kernels
     dev = [(r.key, self_device_us(r) / 1e3, r.count) for r in prof.key_averages()
            if r.device_type == DeviceType.CUDA and self_device_us(r) > 0]
     total = sum(ms for _, ms, _ in dev)
-    log(f"profile: one batch, wall {wall_ms:.3f} ms, kernels {total:.3f} ms, "
-        f"device idle {100 * (1 - total / wall_ms):.1f}% of the wall time, "
-        f"{sum(c for _, _, c in dev)} kernel launches")
+    log(f"profile: one captured batch, {len(spans)} device operations, kernels "
+        f"{total:.3f} ms; on the card (one trace) busy {busy / 1e3:.3f} ms of a span of "
+        f"{span_us / 1e3:.3f} ms, device idle {100 * (1 - busy / max(span_us, 1e-9)):.1f}%; "
+        f"the call unprofiled (CUDA events) {plain_ms:.3f} ms")
     ranked = sorted(dev, key=lambda r: -r[1])
 
     def is_own(key):  # the port's hand-written kernels

@@ -9,6 +9,13 @@ of tengine_tpu/executor/engine.py).
     (infer_ir_graph_shape analog, graph/graph.c:213).
   * run — the same forward on the engine's device, with the params as
     device tensors. Kernels are selected once per node at build time.
+  * compiled forward — on a CUDA device, CompiledGraph.__call__ captures the
+    forward into a CUDA graph at the first call of each input signature and
+    replays it after (the counterpart of the JAX engine's jax.jit): one
+    launch of the whole graph a call instead of one Python call and launch
+    per torch op. The forward therefore does only device work: every host
+    value it needs (weights, folded scales, index and divisor tables) is a
+    compile-time param uploaded once.
 
 The engine runs on the card unless the caller asks for the CPU: with
 device=None it takes torch.device("cuda") and raises if there is none.
@@ -17,7 +24,7 @@ device=None it takes torch.device("cuda") and raises if there is none.
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +56,8 @@ def resolve_device(device=None) -> torch.device:
         device = "cuda"
     device = torch.device(device)
     if device.type == "cuda":
+        if device.index is None:  # "cuda" names the current card: tensors say cuda:N
+            device = torch.device("cuda", torch.cuda.current_device())
         # calibration and the ref tier are fp32 end to end (the JAX engine
         # runs Precision.HIGHEST); cuDNN convs default to TF32 otherwise
         torch.backends.cudnn.allow_tf32 = False
@@ -118,8 +127,33 @@ class DequantConstIn(ConstIn):
         )
 
 
+class _Captured(NamedTuple):
+    """One input signature's CUDA graph: the static input buffers it reads,
+    the graph, and the static outputs each replay writes."""
+
+    inputs: List[torch.Tensor]
+    graph: Any  # torch.cuda.CUDAGraph
+    outputs: Tuple[torch.Tensor, ...]
+
+
+def _capture_failure(e: BaseException) -> str:
+    """A failed capture's message: the node the forward was at (the note
+    build_forward adds) and that node's own error. When an operation that
+    capture forbids (a host sync, an upload from pageable memory) fails,
+    the end of the capture fails too, with the first error as its
+    context."""
+    cause = e
+    while cause is not None and not getattr(cause, "__notes__", None):
+        cause = cause.__context__
+    if cause is None:
+        return f"capturing the forward into a CUDA graph failed: {e}"
+    return (f"capturing the forward into a CUDA graph failed {cause.__notes__[-1]}: "
+            f"{type(cause).__name__}: {cause}")
+
+
 class CompiledGraph:
-    """The runnable artifact: the forward, its device params, its device."""
+    """The runnable artifact: the forward, its device params, its device,
+    and on a CUDA device one captured CUDA graph per input signature."""
 
     def __init__(
         self,
@@ -138,21 +172,75 @@ class CompiledGraph:
         self.input_ids = input_ids
         self.output_ids = output_ids
         self.device = device
+        self._in_shapes = [shape for _, shape, _ in _input_spec(graph, options)]
+        self._graphs: Dict[tuple, _Captured] = {}
+        self._cost: Optional[Dict[str, Any]] = None
 
     def __call__(self, *inputs) -> Tuple[torch.Tensor, ...]:
-        """Run on device tensors (numpy arrays are copied over first); the
-        outputs stay on the device."""
-        xs = [
-            x.to(self.device) if isinstance(x, torch.Tensor)
-            else torch.as_tensor(np.ascontiguousarray(x)).to(self.device)
-            for x in inputs
-        ]
-        with torch.inference_mode():
-            return self._fn(self.params, *xs)
+        """Run on the engine's device (numpy arrays and tensors elsewhere
+        are copied over); the outputs stay on the device.
+
+        On a CUDA device the forward runs as a CUDA graph: captured at the
+        first call of each input signature (shapes and dtypes; a new batch
+        size captures another graph, as jax.jit retraces), then replayed
+        with the inputs copied into the graph's static buffers. The outputs
+        are fresh tensors that no later call overwrites. A forward that
+        cannot be captured raises, naming its node; nothing falls back to
+        eager. On the CPU, and with Options.debug_nans (a host check after
+        every node), the forward runs eagerly, as forward_fn does.
+
+        Only the batch dimension may differ from the compiled input shapes:
+        the prepare pass computed the compile-time params (a pooling
+        divisor, resize indices, a zero-point correction) for the compiled
+        sizes, so another size raises ValueError; compile again for it."""
+        xs = [x if isinstance(x, torch.Tensor) else torch.as_tensor(np.ascontiguousarray(x))
+              for x in inputs]
+        for i, (x, shape) in enumerate(zip(xs, self._in_shapes)):
+            if tuple(x.shape[1:]) != shape[1:]:
+                raise ValueError(
+                    f"input {i} has shape {tuple(x.shape)}; the graph was compiled for "
+                    f"{shape} and only the batch dimension may change: compile again "
+                    f"for another size")
+        if self.device.type != "cuda" or self.options.debug_nans:
+            with torch.inference_mode():
+                return self._fn(self.params, *(x.to(self.device) for x in xs))
+        sig = tuple((tuple(x.shape), x.dtype) for x in xs)
+        cap = self._graphs.get(sig)
+        if cap is None:
+            cap = self._graphs[sig] = self._capture(xs)
+        else:
+            for buf, x in zip(cap.inputs, xs):
+                if buf is not x:  # a donated buffer passed again needs no copy
+                    buf.copy_(x)
+        cap.graph.replay()
+        return tuple(o.clone() for o in cap.outputs)
+
+    def _capture(self, xs: List[torch.Tensor]) -> _Captured:
+        """Warm the forward up once on a side stream (the kernels' build,
+        cuDNN's set-up and the allocator's first allocations stay outside
+        the graph), then capture it. The static inputs are copies, or with
+        Options.donate_input the caller's own device tensors."""
+        dev = self.device
+        donate = self.options.donate_input
+        static = [x if donate and x.device == dev else x.to(dev, copy=True) for x in xs]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), torch.inference_mode():
+            self._fn(self.params, *static)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.inference_mode(), torch.cuda.graph(graph):
+                outs = self._fn(self.params, *static)
+        except Exception as e:
+            raise RuntimeError(_capture_failure(e)) from e
+        return _Captured(static, graph, outs)
 
     @property
     def forward_fn(self) -> Callable:
-        """fn(params, *inputs) -> outputs."""
+        """The eager forward fn(params, *inputs) -> outputs: the function
+        the CUDA graphs capture, run op by op (the JAX engine's forward_fn
+        is likewise the un-jitted function)."""
         return self._fn
 
     @property
@@ -162,6 +250,104 @@ class CompiledGraph:
 
     def run(self, *inputs) -> List[np.ndarray]:
         return [o.cpu().numpy() for o in self(*inputs)]
+
+    def cost_analysis(self) -> Dict[str, Any]:
+        """The forward's cost at the compiled input shapes, computed once
+        (the JAX engine returns XLA's cost model; the keys "flops" and
+        "bytes accessed" are its):
+
+          flops           2 per multiply-add of the convolutions (fused
+                          chains' included) and fully connected layers,
+                          over the taps that fall inside the input, plus
+                          one per output element of a bias: what XLA
+                          counts for them. Other elementwise work is not
+                          counted.
+          bytes accessed  every node's activation inputs read once and its
+                          outputs written once, at the dtypes the forward
+                          stores them, plus every compile-time param once.
+          launches        device operations (kernels, copies, fills) of
+                          one forward, counted by torch.profiler over one
+                          eager forward on zeros (after a warm-up forward
+                          unless a capture has run one); None on the CPU.
+        """
+        if self._cost is None:
+            env, param_bytes = _meta_env(self.graph, self.options, self._fn.store)
+            flops = moved = 0
+            for node in self.graph.nodes:
+                if not node.outputs or node.outputs[0] not in env:
+                    continue
+                flops += _node_flops(self.graph, node, env)
+                moved += sum(env[t].numel() * env[t].element_size()
+                             for t in list(node.inputs) + list(node.outputs) if t in env)
+            self._cost = {
+                "flops": float(flops),
+                "bytes accessed": float(moved + param_bytes),
+                "launches": self._count_launches() if self.device.type == "cuda" else None,
+            }
+        return dict(self._cost)
+
+    def _count_launches(self) -> int:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        xs = [torch.zeros(s, dtype=dt, device=self.device)
+              for _, s, dt in _input_spec(self.graph, self.options)]
+        with torch.inference_mode():
+            if not self._graphs:  # else a capture's warm-up has built and set up
+                self._fn(self.params, *xs)  # builds and set-up outside the count
+            torch.cuda.synchronize(self.device)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                self._fn(self.params, *xs)
+                torch.cuda.synchronize(self.device)
+        return sum(r.count for r in prof.key_averages() if r.device_type == DeviceType.CUDA)
+
+
+def _taps(size: int, out: int, k: int, stride: int, pad: int, dil: int) -> int:
+    """Kernel taps that fall inside an input of `size`, summed over the
+    `out` output positions of one axis."""
+    return sum(
+        sum(0 <= o * stride - pad + i * dil < size for i in range(k)) for o in range(out)
+    )
+
+
+def _node_flops(graph: Graph, node, env: Dict[int, torch.Tensor]) -> int:
+    """flops of one node as cost_analysis counts them (env: semantic
+    shapes by tensor id from _meta_env)."""
+    p = node.params
+    out = env[node.outputs[0]]
+    if node.op == "Convolution" and node.inputs[0] in env:
+        n, c_out, oh, ow = out.shape
+        _, _, h, w = env[node.inputs[0]].shape
+        kh, kw = p["kernel_h"], p["kernel_w"]
+        c_in = int(graph.tensors[node.inputs[1]].shape[1])  # per group
+        taps = (_taps(h, oh, kh, p["stride_h"], p["pad_h0"], p.get("dilation_h", 1))
+                * _taps(w, ow, kw, p["stride_w"], p["pad_w0"], p.get("dilation_w", 1)))
+        return 2 * n * c_out * c_in * taps + (out.numel() if len(node.inputs) > 2 else 0)
+    if node.op == "FullyConnected":
+        k = int(np.prod(graph.tensors[node.inputs[1]].shape[1:]))
+        return 2 * out.numel() * k + (out.numel() if len(node.inputs) > 2 else 0)
+    if node.op == "FusedResBlockChain":
+        n, _, h, w = out.shape
+        total = 0
+        for b in p["blocks"]:  # the convs run at the chain's output size
+            ci, cm, co = b["c_in"], b["c_mid"], b["c_out"]
+            macs = h * w * (ci * cm + cm * co + (ci * co if b["proj"] else 0))
+            macs += _taps(h, h, 3, 1, 1, 1) * _taps(w, w, 3, 1, 1, 1) * cm * cm
+            biases = sum(c for key, c in (("b1_pos", cm), ("b2_pos", cm), ("b3_pos", co),
+                                          ("b4_pos", co)) if key in b)
+            total += 2 * n * macs + n * h * w * biases
+        return total
+    return 0
+
+
+def _meta_env(graph: Graph, options: Options, store: "ParamStore"):
+    """Every tensor of the forward at the compiled input shapes, as meta
+    tensors in semantic layout and the dtypes the forward stores, and the
+    bytes of the compile-time params: one meta pass over the compiled
+    graph, the params read from `store` (none is computed again)."""
+    meta = ParamStore()
+    meta.values = store.values
+    return meta_pass(graph, options, meta), sum(v.nbytes for v in store.values.values())
 
 
 def _input_spec(graph: Graph, options: Options) -> List[Tuple[int, Tuple[int, ...], torch.dtype]]:
@@ -184,72 +370,99 @@ def _meta_inputs(graph: Graph, options: Options) -> List[torch.Tensor]:
     return [torch.empty(s, dtype=dt, device=META) for _, s, dt in _input_spec(graph, options)]
 
 
+class _Step(NamedTuple):
+    """One node of the forward: its lowering context, the kernel selected
+    for it once at build time, and whether the engine wraps the kernel in
+    dequantize / requantize (a float kernel on a quantized graph)."""
+
+    node: Any
+    ctx: LowerCtx
+    kernel: Any
+    wrap_quant: bool
+
+    def args(self, env: Dict[int, TArr]) -> list:
+        """The lowering's arguments: activations from env (dequantized for a
+        wrapped kernel), consts as lazy params."""
+        graph, store = self.ctx.graph, self.ctx.store
+        args = []
+        for tid in self.node.inputs:
+            t = graph.tensors[tid]
+            quant = self.wrap_quant and qmath.is_quantized_tensor(t)
+            if tid in env:
+                a = env[tid]
+                args.append(TArr(qmath.dequantize(a.x, t.quant), a.layout) if quant else a)
+            elif t.is_const:
+                args.append(DequantConstIn(t, store) if quant else ConstIn(t, store))
+            else:
+                raise RuntimeError(
+                    f"tensor {t.name!r} consumed by {self.node.name!r} before production")
+        return args
+
+    def apply(self, args: list) -> Tuple[TArr, ...]:
+        """The lowering on `args`: one output per node output."""
+        out = self.kernel.fn(self.ctx, *args)
+        outs = out if isinstance(out, tuple) else (out,)
+        if not self.wrap_quant:
+            return outs
+        # re-quantize float results into the node's quantized output tensors
+        # — the reference stores every activation quantized, so per-node
+        # requantization is part of its numerics. The scale's reciprocal
+        # multiplies, as in the JAX engine's compiled forward
+        # (qmath.requantize)
+        tensors = self.ctx.graph.tensors
+        return tuple(
+            TArr(qmath.requantize(o.x, tensors[tid].quant, tensors[tid].dtype, reciprocal=True),
+                 o.layout)
+            if qmath.is_quantized_tensor(tensors[tid]) and o.x.is_floating_point() else o
+            for tid, o in zip(self.node.outputs, outs)
+        )
+
+
+def plan_nodes(graph: Graph, options: Options, store: ParamStore) -> List[_Step]:
+    """The forward's nodes in topological order, each with its kernel
+    (selected once, here)."""
+    quantized = _graph_quantized(graph)
+    steps = []
+    for node in graph.toposorted():
+        ctx = LowerCtx(graph=graph, node=node, options=options, store=store)
+        kernel = select_kernel(node.op, ctx)
+        steps.append(_Step(node, ctx, kernel, quantized and not kernel.quant_aware))
+    return steps
+
+
+def bind_inputs(graph: Graph, options: Options, inputs) -> Dict[int, TArr]:
+    """The graph's input tensors by id, in the layout the caller gives."""
+    return {tid: nhwc(a) if options.input_layout == "NHWC" and a.ndim == 4 else nchw(a)
+            for tid, a in zip(graph.input_tensors, inputs)}
+
+
 def build_forward(graph: Graph, options: Options, store: ParamStore, return_all: bool = False):
     """The whole-graph forward fn(params, *inputs). Runs on meta tensors in
     the prepare pass and on device tensors after it. return_all=True returns
     every tensor (for shape inference / calibration)."""
-    topo = graph.toposorted()
     input_ids = graph.input_tensors
     output_ids = graph.output_tensors
-    quantized = _graph_quantized(graph)
-    plan = []
-    for node in topo:
-        ctx = LowerCtx(graph=graph, node=node, options=options, store=store)
-        kernel = select_kernel(node.op, ctx)
-        plan.append((node, ctx, kernel, quantized and not kernel.quant_aware))
+    plan = plan_nodes(graph, options, store)
 
     def forward(params, *inputs):
-        env: Dict[int, TArr] = {}
-        for tid, arr in zip(input_ids, inputs):
-            if options.input_layout == "NHWC" and arr.ndim == 4:
-                env[tid] = nhwc(arr)
-            else:
-                env[tid] = nchw(arr)
-
-        for node, ctx, kernel, wrap_quant in plan:
-            args = []
-            for tid in node.inputs:
-                t = graph.tensors[tid]
-                if tid in env:
-                    a = env[tid]
-                    if wrap_quant and qmath.is_quantized_tensor(t):
-                        a = TArr(qmath.dequantize(a.x, t.quant), a.layout)
-                    args.append(a)
-                elif t.is_const:
-                    if wrap_quant and qmath.is_quantized_tensor(t):
-                        args.append(DequantConstIn(t, store))
-                    else:
-                        args.append(ConstIn(t, store))
-                else:
-                    raise RuntimeError(
-                        f"tensor {t.name!r} consumed by {node.name!r} before production"
-                    )
-            out = kernel.fn(ctx, *args)
-            outs = out if isinstance(out, tuple) else (out,)
-            if wrap_quant:
-                # re-quantize float results into the node's quantized output
-                # tensors — the reference stores every activation quantized,
-                # so per-node requantization is part of its numerics. The
-                # scale's reciprocal multiplies, as in the JAX engine's
-                # compiled forward (qmath.requantize)
-                outs = tuple(
-                    TArr(
-                        qmath.requantize(
-                            o.x, graph.tensors[tid].quant, graph.tensors[tid].dtype,
-                            reciprocal=True,
-                        ),
-                        o.layout,
-                    )
-                    if qmath.is_quantized_tensor(graph.tensors[tid]) and o.x.is_floating_point()
-                    else o
-                    for tid, o in zip(node.outputs, outs)
-                )
-            if options.debug_nans:
-                for o in outs:
-                    if o.x.is_floating_point() and o.x.device != META and not torch.isfinite(o.x).all():
-                        raise FloatingPointError(f"non-finite value produced by node {node.name!r}")
-            for tid, o in zip(node.outputs, outs):
-                env[tid] = o
+        env = bind_inputs(graph, options, inputs)
+        step = None
+        try:
+            for step in plan:
+                outs = step.apply(step.args(env))
+                if options.debug_nans:
+                    for o in outs:
+                        if (o.x.is_floating_point() and o.x.device != META
+                                and not torch.isfinite(o.x).all()):
+                            raise FloatingPointError(
+                                f"non-finite value produced by node {step.node.name!r}")
+                for tid, o in zip(step.node.outputs, outs):
+                    env[tid] = o
+        except Exception as e:
+            if step is not None:  # which node failed, e.g. under capture
+                e.add_note(f"at node {step.node.name!r} (op {step.node.op}, "
+                           f"lowering {step.kernel.name})")
+            raise
 
         def finalize(tid):
             # quantized activations are stored in their integer dtype all
@@ -262,8 +475,23 @@ def build_forward(graph: Graph, options: Options, store: ParamStore, return_all:
         return tuple(finalize(tid) for tid in output_ids)
 
     # which lowering each node took (kernel selection happens once, above)
-    forward.kernels = {node.name: kernel.name for node, _, kernel, _ in plan}
+    forward.kernels = {step.node.name: step.kernel.name for step in plan}
+    forward.store = store
     return forward, input_ids, output_ids
+
+
+def meta_pass(graph: Graph, options: Options, store: ParamStore,
+              inputs=None) -> Dict[int, torch.Tensor]:
+    """The prepare pass: the forward on meta tensors (shapes only) at the
+    compiled input shapes, or at those of `inputs`. It computes into `store`
+    (in its prepare phase) every compile-time param the store lacks, and
+    returns every tensor of the forward by id, in semantic layout, at the
+    dtype the forward stores it."""
+    forward_all, _, _ = build_forward(graph, options, store, return_all=True)
+    metas = (_meta_inputs(graph, options) if inputs is None
+             else [torch.empty(x.shape, dtype=x.dtype, device=META) for x in inputs])
+    with torch.inference_mode():
+        return forward_all({}, *metas)
 
 
 def _native_profitable(graph: Graph) -> bool:
@@ -371,10 +599,9 @@ def compile_graph(
     forward, input_ids, output_ids = build_forward(graph, options, store)
 
     # --- prepare pass: collect params, infer shapes ---
-    with torch.inference_mode():
-        outs = forward({}, *_meta_inputs(graph, options))
-    for tid, o in zip(output_ids, outs):
-        graph.tensors[tid].shape = list(o.shape)
+    env = meta_pass(graph, options, store)
+    for tid in output_ids:
+        graph.tensors[tid].shape = list(env[tid].shape)
 
     params = store.upload(device)
     return CompiledGraph(graph, options, forward, params, input_ids, output_ids, device)
@@ -384,10 +611,6 @@ def infer_shapes(graph: Graph, options: Optional[Options] = None) -> Graph:
     """Standalone shape inference via a meta pass — records every tensor's
     shape into the IR (infer_ir_graph_shape analog)."""
     options = options or Options.from_env()
-    store = ParamStore()
-    forward_all, _, _ = build_forward(graph, options, store, return_all=True)
-    with torch.inference_mode():
-        shapes = forward_all({}, *_meta_inputs(graph, options))
-    for tid, arr in shapes.items():
+    for tid, arr in meta_pass(graph, options, ParamStore()).items():
         graph.tensors[tid].shape = list(arr.shape)
     return graph

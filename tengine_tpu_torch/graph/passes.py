@@ -6,7 +6,8 @@ them).
 The reference runs these at convert time (tools/convert_tool/utils/
 graph_optimizer/graph_opt.cpp:624-947: conv+bn fold, conv+relu fuse,
 bn+scale fold, ...). Here they run on the IR before compilation. The passes
-are numpy-only and copied unchanged, so both packages build the same IR.
+are numpy-only and copied unchanged, so both packages build the same IR
+(compact, which the TM2 writer runs, too).
 The default-pipeline pass not ported yet (fold_shuffle_gathers) is a guard,
 wider than the JAX pass: it raises NotImplementedError on any ShuffleChannel
 node, while the JAX pass changes the graph only where a caffe-style axis-1
@@ -211,6 +212,49 @@ def dce(g: Graph) -> int:
                 changed = True
     # physically drop dead Noop shells is unnecessary: toposorted() skips them
     return removed
+
+
+def compact(g: Graph) -> Graph:
+    """Rebuild the graph without the Noop shells fusion passes leave behind
+    (and without the tensors nothing references any more), remapping node
+    and tensor indices densely. Serialization needs this: the reference
+    loader rejects nodes with no output ('node N has no output',
+    tm2_serializer.c)."""
+    ng = Graph(
+        layout=g.layout,
+        model_layout=g.model_layout,
+        name=g.name,
+        source_format=g.source_format,
+    )
+    keep = [n for n in g.nodes if not (n.op == "Noop" and not n.outputs)]
+    live_tensors: Set[int] = set()
+    for n in keep:
+        live_tensors.update(n.inputs)
+        live_tensors.update(n.outputs)
+
+    t_map: Dict[int, int] = {}
+    for t in g.tensors:
+        if t.idx not in live_tensors:
+            continue
+        nt = ng.add_tensor(
+            t.name, t.dtype, list(t.shape), t.tensor_type, data=t.data, quant=t.quant
+        )
+        nt.layout = t.layout
+        t_map[t.idx] = nt.idx
+
+    n_map: Dict[int, int] = {}
+    for n in keep:
+        nn = ng.add_node(
+            n.op,
+            n.name,
+            [t_map[i] for i in n.inputs],
+            [t_map[i] for i in n.outputs],
+            params=dict(n.params),
+        )
+        n_map[n.idx] = nn.idx
+    ng.inputs = [n_map[i] for i in g.inputs if i in n_map]
+    ng.outputs = [n_map[i] for i in g.outputs if i in n_map]
+    return ng
 
 def fuse_focus(g: Graph) -> int:
     """Fold a YOLOv5 Focus stem — four stride-2 StridedSlices + channel

@@ -212,23 +212,26 @@ def lower_pooling(ctx: LowerCtx, x: TArr):
     xf = F.pad(xc.to(torch.float32), (pw0, pw1, ph0, ph1))
     sums = F.avg_pool2d(xf, (kh, kw), (sh, sw), divisor_override=1)[:, :, :out_h, :out_w]
 
-    # divisor per output position (pooling_kernel_ref_fp32.c:119-141)
-    oh = np.arange(out_h)[:, None]
-    ow = np.arange(out_w)[None, :]
-    h_start = oh * sh - ph0
-    w_start = ow * sw - pw0
-    h_end = np.minimum(h_start + kh, in_h + ph0)
-    w_end = np.minimum(w_start + kw, in_w + pw0)
-    if caffe_all:
-        count = (h_end - h_start) * (w_end - w_start)
-    else:
-        hs = np.maximum(h_start, 0)
-        ws = np.maximum(w_start, 0)
-        he = np.minimum(h_end, in_h)
-        we = np.minimum(w_end, in_w)
-        count = (he - hs) * (we - ws)
-    count_t = torch.as_tensor(count.astype(np.float32), device=xf.device)
-    out = sums / count_t
+    def divisor():
+        # divisor per output position (pooling_kernel_ref_fp32.c:119-141)
+        oh = np.arange(out_h)[:, None]
+        ow = np.arange(out_w)[None, :]
+        h_start = oh * sh - ph0
+        w_start = ow * sw - pw0
+        h_end = np.minimum(h_start + kh, in_h + ph0)
+        w_end = np.minimum(w_start + kw, in_w + pw0)
+        if caffe_all:
+            count = (h_end - h_start) * (w_end - w_start)
+        else:
+            hs = np.maximum(h_start, 0)
+            ws = np.maximum(w_start, 0)
+            he = np.minimum(h_end, in_h)
+            we = np.minimum(w_end, in_w)
+            count = (he - hs) * (we - ws)
+        return count.astype(np.float32)
+
+    # a compile-time param at the compiled size: the forward makes no host upload
+    out = sums / ctx.get_param("avg_count", divisor)
     return nhwc(out.permute(0, 2, 3, 1).to(xn.dtype))
 
 
@@ -385,17 +388,20 @@ def lower_concat(ctx: LowerCtx, *xs: TArr):
 # ---------------------------------------------------------------------------
 
 
-def _nearest_nhwc(xn: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+def _nearest_nhwc(ctx: LowerCtx, xn: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Nearest resize with the reference's scale-floor indexing
     (upsample_ref.c: in_idx = floor(out_idx / scale)), in f32 like the JAX
-    lowering computes it."""
+    lowering computes it. The indices are compile-time params, at the
+    compiled size."""
     n, h, w, c = xn.shape
-    scale_h, scale_w = np.float32(out_h / h), np.float32(out_w / w)
-    rows = np.floor(np.arange(out_h, dtype=np.float32) / scale_h).astype(np.int64)
-    cols = np.floor(np.arange(out_w, dtype=np.float32) / scale_w).astype(np.int64)
-    rows_t = torch.as_tensor(rows, device=xn.device)
-    cols_t = torch.as_tensor(cols, device=xn.device)
-    return xn.index_select(1, rows_t).index_select(2, cols_t)
+
+    def index(out, size):
+        scale = np.float32(out / size)
+        return lambda: np.floor(np.arange(out, dtype=np.float32) / scale).astype(np.int64)
+
+    rows = ctx.get_param("nearest_rows", index(out_h, h))
+    cols = ctx.get_param("nearest_cols", index(out_w, w))
+    return xn.index_select(1, rows).index_select(2, cols)
 
 
 @register_op("Upsample")
@@ -404,4 +410,4 @@ def lower_upsample(ctx: LowerCtx, x: TArr, *rest: TArr):
     scale = ctx.params.get("scale", 2.0)
     xn = as_nhwc(x)
     n, h, w, c = xn.shape
-    return nhwc(_nearest_nhwc(xn, int(h * scale), int(w * scale)))
+    return nhwc(_nearest_nhwc(ctx, xn, int(h * scale), int(w * scale)))

@@ -5,9 +5,10 @@ PyTorch port of tengine_tpu/utils/config.py: the same fields and the same
 TT_* environment variables, so one Options value means the same thing to
 both engines. Fields that select a kernel or pass the port does not have
 yet make compile_graph raise NotImplementedError naming it
-(executor/engine.py). Three fields are accepted and ignored until the port
-has their host layer: profile and dump_dir (ROADMAP queue 1, item 12) and
-donate_input (item 3, the compiled forward).
+(executor/engine.py). profile and dump_dir are read by neither engine, as in
+the JAX package: their tools are called directly (executor/debug.py:
+profile_graph, dump_graph_tensors). donate_input hands the caller's input
+tensor to the captured forward on a CUDA device (see the field).
 """
 
 from __future__ import annotations
@@ -41,11 +42,16 @@ class Options:
     force_ref_kernels: pick the lowest-score kernel for every op
         (TG_DEBUG_REF analog, cpu_module.c:157-166).
     profile: record per-op timing (TG_DEBUG_TIME analog, cpu_device.c:79-156);
-        accepted and ignored by the port for now.
+        executor/debug.py:profile_graph does it when called.
     dump_dir: dump every node's output tensors (TG_DEBUG_DATA analog);
-        accepted and ignored by the port for now.
-    donate_input: allow the engine to reuse input buffers; accepted and
-        ignored by the port for now.
+        executor/debug.py:dump_graph_tensors does it when called.
+    donate_input: the caller gives its input tensor up (jax.jit's
+        donate_argnums in the JAX engine). On a CUDA device the captured
+        forward then takes a device input as its CUDA graph's static input
+        buffer instead of a copy of it: the first call of a signature keeps
+        the tensor, later calls copy their inputs into it (none when the
+        same tensor is passed again). Without it every call copies and the
+        caller's tensor is never written. On the CPU it changes nothing.
     """
 
     precision: str = "fp32"
@@ -55,7 +61,9 @@ class Options:
     dump_dir: Optional[str] = None
     donate_input: bool = False
     batch_size: Optional[int] = None  # override model batch dim
-    # numeric sanitizer (TE_ENABLE_MEMORY_CHECK analog). Env: TT_DEBUG_NANS.
+    # numeric sanitizer (TE_ENABLE_MEMORY_CHECK analog): a host check after
+    # every node, so the forward stays eager on the card (no CUDA graph).
+    # Env: TT_DEBUG_NANS.
     debug_nans: bool = False
     internal_layout: str = "NHWC"  # lowering layout for conv stacks: NHWC | NCHW
     # Physical layout of 4-D graph inputs at the engine boundary. The IR is

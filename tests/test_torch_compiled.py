@@ -1,0 +1,312 @@
+"""The compiled forward of the PyTorch port: a CUDA graph captured per input
+signature on the card (executor/engine.py:CompiledGraph.__call__, the
+counterpart of the JAX engine's jax.jit).
+
+On the CPU: the proof that the forward can be captured. With torch's host
+upload and sync entry points patched to raise after compile_graph, the eager
+forward (CompiledGraph.forward_fn) runs yolov5s, yolov3 tiers A and B,
+YOLO-Fastest tier D, the narrow ResNet-50 under tier F and under the
+native-int8 plan and mobilenet-v1 under tiers K and L, each through the
+routes that reach the hand-written kernels' wrappers (on the CPU their plain
+versions), and the four nets in fp32. A capture
+fails on an upload from pageable host memory or a sync with the host, so a
+forward that makes neither is one the card can capture. A call may change
+the batch; another image size raises ValueError.
+
+On the card (the cuda marker; they skip here): the captured forward equals
+the eager one at 0 LSB on the same nets at the same small sizes; a second
+call does not overwrite the first call's outputs; a new batch size captures
+a second graph; a lowering that syncs with the host or uploads host data
+makes the call raise, naming its node, with no fallback; a donated input becomes the graph's input buffer, an input
+that is not donated is never written. This file imports neither JAX nor the
+JAX package:
+
+    python -m pytest --noconftest -q tests/test_torch_compiled.py
+"""
+
+import dataclasses
+import functools
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import tengine_tpu_torch as pt  # noqa: E402
+from tengine_tpu_torch.graph import ir as pir  # noqa: E402
+from tengine_tpu_torch.ops import qmath  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import build_mobilenet_v1_graph, build_resnet50_graph  # noqa: E402
+
+RESNET_SMALL = dict(img=32, classes=16, widths=(8, 16, 32, 64), depths=(2, 2, 2, 2))
+MOBILENET_SMALL = dict(img=32, classes=16,
+                       widths=(32, 32, 64, 64, 64, 64, 96, 96, 96, 96, 96, 96, 128, 128))
+
+# net and tier: (net, scheme, batch, Options beyond quant_mode="fast", the
+# environment while compile_graph runs, the lowerings that must be taken)
+CASES = {
+    "yolov5s": ("yolov5s", "int8", 2, {}, {"TT_STEM_ALL": "1"},
+                {"lower_conv_quant_pallas_stem"}),
+    "yolov3-A": ("yolov3", "int8", 2, dict(quant_bf16_storage=False), {},
+                 {"lower_conv_quant_pallas_direct"}),
+    "yolov3-B": ("yolov3", "int8", 2,
+                 dict(quant_bf16_storage=False, pallas_qconv=False, pallas_qgemm=True), {},
+                 {"lower_conv1x1_quant_pallas"}),
+    "yolofastest-D": ("yolofastest", "int8", 32, dict(quant_bf16_storage=False),
+                      {"TT_DW_PALLAS": "1"}, {"lower_conv_quant_pallas_dw"}),
+    "resnet50-F": ("resnet50", "int8", 2, dict(fuse_resblock=True, quant_relaxed=False), {},
+                   {"lower_resblock_chain"}),
+    "resnet50-plan": ("resnet50", "uint8", 2, dict(quant_native="on"), {},
+                      {"lower_conv_quant_fast"}),
+    "mobilenet-K": ("mobilenet", "uint8", 32, {}, {"TT_DW_PALLAS": "0"},
+                    {"lower_conv_quant_fast"}),
+    "mobilenet-L": ("mobilenet", "uint8", 32, dict(quant_native="on"), {"TT_DW_PALLAS": "1"},
+                    {"lower_conv_quant_pallas_dw"}),
+    # the fp32 engine, which chip_smoke.py holds the quantized heads against
+    "yolov5s-fp32": ("yolov5s", "fp32", 2, {}, {}, {"lower_conv"}),
+    "yolov3-fp32": ("yolov3", "fp32", 2, {}, {}, {"lower_upsample"}),
+    "resnet50-fp32": ("resnet50", "fp32", 2, {}, {}, {"lower_pooling", "lower_fc"}),
+    "mobilenet-fp32": ("mobilenet", "fp32", 2, {}, {}, {"lower_pooling"}),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def quantized(net, scheme):
+    """(quantized graph, float images) for a net at its small size, calibrated
+    on the CPU from the first image (scheme "fp32": the float graph)."""
+    from tengine_tpu_torch.models.darknet_zoo import build_yolofastest_graph, build_yolov3_graph
+    from tengine_tpu_torch.models.yolov5 import build_yolov5s_graph
+
+    if net == "yolov5s":
+        g, img = build_yolov5s_graph(num_classes=80, img=64)[1], 64
+    elif net == "yolov3":
+        g, img = build_yolov3_graph(img=64), 64
+    elif net == "yolofastest":
+        g, img = build_yolofastest_graph(img=64), 64
+    elif net == "resnet50":
+        g, img = build_resnet50_graph(pir, **RESNET_SMALL), RESNET_SMALL["img"]
+    else:
+        g, img = build_mobilenet_v1_graph(pir, **MOBILENET_SMALL), MOBILENET_SMALL["img"]
+    x = np.random.default_rng(1).standard_normal((32, 3, img, img)).astype(np.float32)
+    if scheme == "fp32":
+        return g, x
+    return pt.quantize_graph(g, [x[:1]], scheme=scheme, algorithm="minmax", device="cpu"), x
+
+
+def compiled(case, monkeypatch, device, batch=None):
+    """The case's CompiledGraph on `device` and its quantized input (numpy)."""
+    net, scheme, case_batch, extra, env, routes = CASES[case]
+    batch = batch or case_batch
+    qg, x = quantized(net, scheme)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cg = pt.compile_graph(qg, pt.Options(quant_mode="fast", batch_size=batch, **extra),
+                          device=device)
+    for k in env:
+        monkeypatch.delenv(k)
+    assert routes <= set(cg.kernels.values()), (case, sorted(set(cg.kernels.values())))
+    t_in = qg.tensors[qg.input_tensors[0]]
+    if t_in.quant is None:
+        return cg, x[:batch]
+    return cg, qmath.quantize_np(x[:batch], t_in.quant, t_in.dtype)
+
+
+def _refuse(what):
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"the forward called {what}")
+
+    return refuse
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_makes_no_host_transfer(case, monkeypatch):
+    cg, xq = compiled(case, monkeypatch, "cpu")
+    x = torch.from_numpy(xq)
+    want = cg.run(xq)
+    for name in ("as_tensor", "from_numpy", "tensor"):
+        monkeypatch.setattr(torch, name, _refuse(f"torch.{name}"))
+    for name in ("item", "tolist", "numpy", "__bool__"):
+        monkeypatch.setattr(torch.Tensor, name, _refuse(f"Tensor.{name}"))
+    with torch.inference_mode():
+        got = cg.forward_fn(cg.params, x)
+    monkeypatch.undo()
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b)
+
+
+def test_only_the_batch_dimension_may_change(monkeypatch):
+    """The compile-time params (here yolov3's resize indices) are computed
+    at the compiled sizes: a call at another batch runs, and one at another
+    image size raises a ValueError that says so, on the CPU as on the card."""
+    cg, xq = compiled("yolov3-fp32", monkeypatch, "cpu")
+    want = compiled("yolov3-fp32", monkeypatch, "cpu", batch=1)[0].run(xq[:1])
+    got = cg.run(xq[:1])
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="only the batch dimension may change"):
+        cg(xq[:, :, :32, :32])
+
+
+def test_a_failing_node_is_named():
+    """An error in the forward carries the node it came from, as a note on
+    the exception (its type unchanged); a failed capture reports the note
+    and the first error, which the end of the capture chains as context."""
+    from tengine_tpu_torch.executor.engine import _capture_failure
+
+    def lower_broken(ctx, x):
+        raise ValueError("broken lowering")
+
+    g = pir.Graph(name="broken")
+    t = g.add_tensor("x", pir.DType.FP32, [1, 4], pir.TensorType.INPUT)
+    inp = g.add_node("InputOp", "input", [], [t.idx])
+    y = g.add_tensor("y", pir.DType.FP32, [1, 4])
+    g.add_node("BrokenOp", "the_broken_node", [t.idx], [y.idx])
+    g.inputs, g.outputs = [inp.idx], [g.nodes[-1].idx]
+    unregister = pt.register_custom_op("BrokenOp", lower_broken)
+    try:
+        with pytest.raises(ValueError, match="broken lowering") as err:
+            pt.compile_graph(g, pt.Options(), device="cpu")  # the prepare pass runs it
+    finally:
+        unregister()
+    (note,) = err.value.__notes__
+    assert "'the_broken_node'" in note and "BrokenOp" in note and "lower_broken" in note
+    try:
+        try:
+            raise err.value
+        except ValueError:
+            raise RuntimeError("operation failed due to a previous error during capture")
+    except RuntimeError as e:
+        msg = _capture_failure(e)
+    assert "'the_broken_node'" in msg and "ValueError: broken lowering" in msg
+
+
+# --- on the card ----------------------------------------------------------
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the forward is captured into a CUDA graph there only")
+
+
+def _equal(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b), int((a.int() - b.int()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["yolov3-A", "yolov3-B", "yolofastest-D", "resnet50-F",
+                                  "mobilenet-K", "mobilenet-L"])
+def test_captured_forward_equals_eager_on_card(case, monkeypatch):
+    _need_card()
+    cg, xq = compiled(case, monkeypatch, "cuda")
+    x = torch.from_numpy(xq).cuda()
+    with torch.inference_mode():
+        eager = cg.forward_fn(cg.params, x)
+    captured = cg(x)
+    assert len(cg._graphs) == 1
+    _equal(captured, eager)
+    _equal(cg(x), eager)  # a replay
+
+
+@pytest.mark.cuda
+def test_outputs_are_not_overwritten_and_a_new_batch_captures_again(monkeypatch):
+    _need_card()
+    cg, xq = compiled("yolov3-A", monkeypatch, "cuda")
+    x1 = torch.from_numpy(xq).cuda()
+    x2 = torch.from_numpy(np.ascontiguousarray(xq[::-1])).cuda()
+    first = cg(x1)
+    kept = [o.clone() for o in first]
+    second = cg(x2)
+    _equal(first, kept)
+    with torch.inference_mode():
+        _equal(second, cg.forward_fn(cg.params, x2))
+    one = cg(x1[:1])
+    assert len(cg._graphs) == 2
+    with torch.inference_mode():
+        _equal(one, cg.forward_fn(cg.params, x1[:1]))
+    _equal(cg(x1), kept)
+
+
+def _syncing(ctx, x):
+    """A lowering that syncs with the host on the run's device (.item(); the
+    prepare pass runs on meta tensors, which have no value to read)."""
+    from tengine_tpu_torch.ops.layout import like
+
+    if x.x.device.type == "meta":
+        return like(x, x.x * 1.0)
+    return like(x, x.x * float(x.x.abs().max().item() > -1))
+
+
+def _uploading(ctx, x):
+    """A lowering that uploads host data at run time (torch.as_tensor of a
+    numpy array on the device), as the pool divisor and the resize indices
+    did before they became compile-time params."""
+    from tengine_tpu_torch.ops.layout import like
+
+    return like(x, x.x * torch.as_tensor(np.ones(4, np.float32), device=x.x.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lower", [_syncing, _uploading], ids=["item", "upload"])
+def test_a_lowering_that_syncs_or_uploads_makes_the_call_raise(lower):
+    _need_card()
+    g = pir.Graph(name="sync")
+    t = g.add_tensor("x", pir.DType.FP32, [2, 4], pir.TensorType.INPUT)
+    inp = g.add_node("InputOp", "input", [], [t.idx])
+    y = g.add_tensor("y", pir.DType.FP32, [2, 4])
+    g.add_node("SyncingOp", "the_syncing_node", [t.idx], [y.idx])
+    g.inputs, g.outputs = [inp.idx], [g.nodes[-1].idx]
+    unregister = pt.register_custom_op("SyncingOp", lower)
+    try:
+        cg = pt.compile_graph(g, pt.Options(), device="cuda")
+        x = torch.ones(2, 4, device="cuda")
+        with torch.inference_mode():
+            assert torch.equal(cg.forward_fn(cg.params, x)[0], x)  # eager: fine
+        with pytest.raises(RuntimeError, match="the_syncing_node") as err:
+            cg(x)
+        print(err.value)
+        assert not cg._graphs
+        torch.cuda.synchronize()  # the card is usable after the failed capture
+        with torch.inference_mode():
+            assert torch.equal(cg.forward_fn(cg.params, x)[0], x)
+    finally:
+        unregister()
+
+
+@pytest.mark.cuda
+def test_donated_input_is_the_graph_buffer_and_others_are_untouched(monkeypatch):
+    _need_card()
+    qg, _ = quantized(*CASES["yolov3-A"][:2])
+    for donate in (False, True):
+        cg, xq = compiled("yolov3-A", monkeypatch, "cuda")
+        cg = pt.compile_graph(qg, dataclasses.replace(cg.options, donate_input=donate),
+                              device="cuda")
+        x1 = torch.from_numpy(xq).cuda()
+        x2 = torch.from_numpy(np.ascontiguousarray(xq[::-1])).cuda()
+        before = x1.clone()
+        cg(x1)
+        (cap,) = cg._graphs.values()
+        assert (cap.inputs[0] is x1) == donate
+        out2 = cg(x2)
+        with torch.inference_mode():
+            _equal(out2, cg.forward_fn(cg.params, x2))
+        if donate:
+            assert torch.equal(x1, x2)  # the buffer took the second input
+        else:
+            assert torch.equal(x1, before)
+
+
+@pytest.mark.cuda
+def test_cost_analysis_counts_launches_on_card(monkeypatch):
+    _need_card()
+    cg, _ = compiled("yolov3-A", monkeypatch, "cuda")
+    ca = cg.cost_analysis()
+    cpu = compiled("yolov3-A", monkeypatch, "cpu")[0].cost_analysis()
+    assert ca["launches"] > 69 and cpu["launches"] is None
+    assert ca["flops"] == cpu["flops"] > 0
