@@ -106,6 +106,22 @@ Phases, in order; any failure raises and the exit code is not 0:
                     the 13 depthwise convs on dw_qconv on shifted INT8
                  M  K at batch 1 (bench.py:221-238, bench_model_quant_b1:
                     the headline's batch-1 latency).
+               Then mobilenet-SSD-300 UINT8 (build_mobilenet_ssd_graph
+               below: chuanqi305's deploy.prototxt at its widths, 21
+               classes, 1,917 priors, the NMS on the card; seed-0 weights,
+               MinMax from one seeded image; bench.py:388's config) under
+                 SSD-S  Options(quant_mode="fast", batch_size=8): every conv
+                        on the fast lowering
+                 SSD-T  SSD-S + quant_bf16_storage=False: 29 1x1 convs on
+                        qconv1x1, the extras' three 3x3 s2 convs with
+                        C_in % 128 == 0 on qconv_direct
+                 SSD-U  SSD-T at batch 32 with TT_DW_PALLAS=1: the 13
+                        depthwise convs on dw_qconv too;
+               each tier's kernel launches of one more eager forward held
+               against their plain versions on the same inputs (the path's
+               own shapes), each of the first 8 images' detection rows at
+               batch 1 against its rows in the batch (labels and scores
+               equal, boxes within 1e-5), at least 10 valid rows an image.
                Every kernel's launch count is set to 0 just before each
                tier's captured run and read just after it; the counts must be
                exact: a wrapper launches its kernel in the warm-up forward
@@ -144,6 +160,12 @@ Phases, in order; any failure raises and the exit code is not 0:
                run (same Options and TT_DW_PALLAS, same routes) on the first
                image; I against R on the first 32 images and L against K by
                cosine > 0.99; M against K's first image within 1 LSB. The
+               mobilenet-SSD (checked right after each of its tiers, so
+               that the tier's CUDA graph can go before the next): the loc
+               and softmax-ed conf heads' dequantized cosine against the
+               fp32 engine > 0.99, and each tier's card run against the
+               port's CPU run with the same Options on the first image
+               (rows as above, heads within 1 LSB). The
                debug tools on yolov3-64 tier A: profile_graph (every node in
                topological order, the top nodes printed) and
                dump_graph_tensors into a temporary directory, each file the
@@ -256,6 +278,21 @@ DEFAULT_TIERS = {
     # bench.py:221-238's batch-1 latency config (bench_model_quant_b1) on
     # the headline net: K's graph and Options at batch 1
     "M": ("mobilenet-v1", "uint8", "minmax", {}, None, False, {}, 1),
+}
+# phase 3f: mobilenet-SSD-300 UINT8 (bench.py:388, bench_model_quant("mssd",
+# batch=8, scheme="uint8")), MinMax from one seeded image. Per tier: the
+# Options beyond Options(quant_mode="fast", batch_size=batch), TT_DW_PALLAS
+# while compile_graph runs (None: unset), the launches per forward, and the
+# batch. T: the 13 pointwise convs, the extras' four 1x1 and the 12 heads on
+# qconv1x1, the extras' 3x3 s2 convs with C_in % 128 == 0 (256, 128, 128)
+# on qconv_direct; U: T at batch 32, the 13 depthwise convs on dw_qconv
+SSD_BATCH, SSD_U_BATCH = 8, 32
+SSD_T_LAUNCHES = {"qconv1x1": 29, "qconv_direct": 3}
+SSD_TIERS = {
+    "SSD-S": ({}, None, {}, SSD_BATCH),
+    "SSD-T": (dict(quant_bf16_storage=False), None, SSD_T_LAUNCHES, SSD_BATCH),
+    "SSD-U": (dict(quant_bf16_storage=False), "1", dict(SSD_T_LAUNCHES, dw_qconv=13),
+              SSD_U_BATCH),
 }
 # the forwards of a tier's main-path run that call the kernels' wrappers: the
 # captured forward's warm-up and its capture (drive)
@@ -400,6 +437,112 @@ def build_mobilenet_v1_graph(ir, img=224, classes=1000, seed=0, widths=MOBILENET
     fc = g.add_node("FullyConnected", "fc7", [gap.idx, wt.idx, bt.idx], [out.idx],
                     dict(num_output=classes))
     g.outputs = [fc.idx]
+    return g
+
+
+# MobileNet-SSD (chuanqi305/MobileNet-SSD deploy.prototxt, VOC0712, as
+# Tengine's benchmark tmfile has it): the extras as (1x1 width, 3x3 s2
+# width), and per feature map (19, 10, 5, 3, 2, 1 at 300) the PriorBox's
+# min_size, max_size (None: none) and aspect ratios
+SSD_EXTRAS = ((256, 512), (128, 256), (128, 256), (64, 128))
+SSD_PRIORS = ((60, None, (2,)), (105, 150, (2, 3)), (150, 195, (2, 3)), (195, 240, (2, 3)),
+              (240, 285, (2, 3)), (285, 300, (2, 3)))
+SSD_CLASSES = 21
+SSD_NUM_PRIORS = 1917  # at 300: 19²·3 + (10² + 5² + 3² + 2² + 1²)·6
+# the conf head's gain over He-normal: the softmax of logits this wide puts
+# a class of most priors above DetectionOutput's 0.25 threshold, so every
+# image yields valid detections with seeded weights
+SSD_CONF_GAIN = 4.0
+
+
+def build_mobilenet_ssd_graph(ir, img=300, classes=SSD_CLASSES, seed=0, widths=MOBILENET_WIDTHS,
+                              extras=SSD_EXTRAS, conf_gain=SSD_CONF_GAIN):
+    """MobileNet-SSD as Tengine's benchmark tmfile has it (chuanqi305's
+    deploy.prototxt, batch norm merged into the convs) as a float IR graph
+    with seeded weights, built with the IR module `ir` it is given:
+    build_mobilenet_v1_graph's backbone without its head, the outputs of
+    the 11th and 13th pointwise convs (19x19x512 and 10x10x1024 at 300) as
+    the first two feature maps, then for each of `extras` a 1x1 conv (relu)
+    and a 3x3 s2 p1 conv (relu), one more feature map each (5, 3, 2, 1 at
+    300). On each map a 1x1 loc conv and a 1x1 conf conv, each through
+    Permute(0, 2, 3, 1) and Flatten(axis 1), concatenated on axis 1 over
+    the maps; the conf branch then Reshape(0, -1, classes), Softmax(axis
+    2), Flatten. A PriorBox per map (offset 0.5, variances 0.1/0.1/0.2/0.2,
+    clip 0, flip 1; SSD_PRIORS), concatenated on axis 2. DetectionOutput:
+    nms_threshold 0.45, nms_top_k 100, keep_top_k 100, confidence_threshold
+    0.25. Outputs: the detections [N, 100, 6], the concatenated loc head
+    and the softmax-ed conf head (flattened)."""
+    DType, TensorType = ir.DType, ir.TensorType
+    g = build_mobilenet_v1_graph(ir, img=img, seed=seed, widths=widths, head=False)
+    g.name = f"mobilenet-ssd-{img}"
+    rng = np.random.default_rng(seed + 1)
+    data = g.tensors[g.input_tensors[0]]
+    by_name = {t.name: t for t in g.tensors}
+    maps = [by_name["conv12_pw.out"], by_name[f"conv{len(widths)}_pw.out"]]
+
+    def var(name, shape):
+        return g.add_tensor(name, DType.FP32, list(shape), TensorType.VAR)
+
+    def node(op, name, inputs, shape, params):
+        y = var(f"{name}.out", shape)
+        return y, g.add_node(op, name, [t.idx for t in inputs], [y.idx], params)
+
+    def conv(name, x, c_out, k, stride=1, pad=0, act=0, gain=1.0):
+        n, c_in, h, w = x.shape
+        wt = g.add_tensor(f"{name}.w", DType.FP32, [c_out, c_in, k, k], TensorType.CONST,
+                          data=(rng.standard_normal((c_out, c_in, k, k))
+                                * (gain * np.sqrt(2.0 / (c_in * k * k)))).astype(np.float32))
+        bt = g.add_tensor(f"{name}.b", DType.FP32, [c_out], TensorType.CONST,
+                          data=(rng.standard_normal(c_out) * 0.05).astype(np.float32))
+        oh, ow = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+        y, _ = node("Convolution", name, [x, wt, bt], [n, c_out, oh, ow], dict(
+            kernel_h=k, kernel_w=k, stride_h=stride, stride_w=stride, dilation_h=1,
+            dilation_w=1, input_channel=c_in, output_channel=c_out, group=1, activation=act,
+            pad_h0=pad, pad_w0=pad, pad_h1=pad, pad_w1=pad))
+        return y
+
+    t = maps[-1]
+    for j, (c1, c2) in enumerate(extras):
+        t = conv(f"conv{len(widths) + j + 1}_1", t, c1, 1)
+        t = conv(f"conv{len(widths) + j + 1}_2", t, c2, 3, stride=2, pad=1)
+        maps.append(t)
+    if len(maps) != len(SSD_PRIORS):
+        raise ValueError(f"{len(maps)} feature maps, SSD_PRIORS has {len(SSD_PRIORS)}")
+
+    n = data.shape[0]
+    locs, confs, priors = [], [], []
+    for fm, (min_size, max_size, ratios) in zip(maps, SSD_PRIORS):
+        _, _, h, w = fm.shape
+        per = (2 if max_size else 1) + 2 * len(ratios)  # flip: each ratio and 1/ratio
+        src = fm.name[:-len(".out")]
+        for head, width, gain, out in (("loc", 4, 0.5, locs), ("conf", classes, conf_gain, confs)):
+            y = conv(f"{src}_mbox_{head}", fm, per * width, 1, act=-1, gain=gain)
+            y, _ = node("Permute", f"{src}_mbox_{head}_perm", [y], [n, h, w, per * width],
+                        dict(flag=0, order0=0, order1=2, order2=3, order3=1))
+            y, _ = node("Flatten", f"{src}_mbox_{head}_flat", [y], [n, h * w * per * width],
+                        dict(axis=1, end_axis=3))
+            out.append(y)
+        y, _ = node("PriorBox", f"{src}_mbox_priorbox", [fm, data], [n, 2, h * w * per * 4, 1],
+                    dict(min_sizes=[float(min_size)],
+                         max_sizes=[float(max_size)] if max_size else [],
+                         variances=[0.1, 0.1, 0.2, 0.2],
+                         aspect_ratios=[float(r) for r in ratios], flip=1, clip=0, img_size=0,
+                         img_h=0, img_w=0, step_w=0.0, step_h=0.0, offset=0.5,
+                         num_priors=per, out_dim=h * w * per * 4))
+        priors.append(y)
+    num_priors = sum(p.shape[2] for p in priors) // 4
+    loc, loc_node = node("Concat", "mbox_loc", locs, [n, num_priors * 4], dict(axis=1))
+    conf, _ = node("Concat", "mbox_conf", confs, [n, num_priors * classes], dict(axis=1))
+    prior, _ = node("Concat", "mbox_priorbox", priors, [n, 2, num_priors * 4, 1], dict(axis=2))
+    conf, _ = node("Reshape", "mbox_conf_reshape", [conf], [n, num_priors, classes],
+                   dict(is_mxnet=0, reverse=0, shape=[0, -1, classes], is_onnx=0))
+    conf, _ = node("Softmax", "mbox_conf_softmax", [conf], [n, num_priors, classes], dict(axis=2))
+    conf, conf_node = node("Flatten", "mbox_conf_flatten", [conf], [n, num_priors * classes],
+                           dict(axis=1, end_axis=-1))
+    _, det_node = node("DetectionOutput", "detection_out", [loc, conf, prior], [n, 100, 6],
+                       dict(num_classes=classes, keep_top_k=100, nms_top_k=100,
+                            confidence_threshold=0.25, nms_threshold=0.45))
+    g.outputs = [det_node.idx, loc_node.idx, conf_node.idx]
     return g
 
 
@@ -1358,6 +1501,123 @@ def check_default_tiers(torch, tt, default, fp32, resnet_r):
                      [o[:1] for o in outs_k], logits(cg_k))
 
 
+def check_rows(what, got, want, min_valid=10):
+    """Detection rows [N, keep_top_k, 6] (label, score, box): labels and
+    scores equal, boxes within 1e-5; at least min_valid valid rows (label
+    >= 0) an image. Returns the largest box difference."""
+    got, want = (np.asarray(a.cpu() if hasattr(a, "cpu") else a) for a in (got, want))
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: rows {got.shape} against {want.shape}, or not finite")
+    valid = (got[..., 0] >= 0).sum(axis=1)
+    box = float(np.abs(got[..., 2:] - want[..., 2:]).max(initial=0.0))
+    if (not np.array_equal(got[..., :2], want[..., :2]) or box > 1e-5
+            or valid.min() < min_valid):
+        raise AssertionError(f"{what}: labels/scores equal {np.array_equal(got[..., :2], want[..., :2])}, "
+                             f"boxes {box:g} apart, valid rows an image {valid.tolist()}")
+    return box
+
+
+def check_path_kernels(torch, cg, x, what):
+    """Every launch of qconv1x1, qconv_direct and dw_qconv in one eager
+    forward of cg (the main path's shapes and data) held against its plain
+    version on the same inputs: at most 1 LSB (0 expected). These launches
+    come after drive has read the counts, so they count for no tier."""
+    import tengine_tpu_torch.ops.quantized as quantized
+    from tengine_tpu_torch.ops.cuda import dw_conv, qconv
+
+    pairs = {"qconv1x1": qconv.qconv1x1_plain, "qconv_direct": qconv.qconv_direct_plain,
+             "dw_qconv": dw_conv.dw_qconv_plain}
+    seen = {name: [0, 0] for name in pairs}
+
+    def checked(name, fn, plain):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            kw.pop("tile", None)
+            err = max_lsb(torch, out, plain(*args, **kw), f"{what} {name} {tuple(out.shape)}")
+            seen[name][0] += 1
+            seen[name][1] = max(seen[name][1], err)
+            return out
+        return run
+
+    originals = {name: getattr(quantized, name) for name in pairs}
+    try:
+        for name, plain in pairs.items():
+            setattr(quantized, name, checked(name, originals[name], plain))
+        eager(torch, cg, x)
+    finally:
+        for name, fn in originals.items():
+            setattr(quantized, name, fn)
+    log(f"  {what}: kernel vs plain at the path's shapes, launches checked and max LSB: {seen}")
+    return seen
+
+
+def run_ssd_tiers(torch, tt, qmath, counters, g, fp32_outs, images, profile):
+    """Phase 3f: mobilenet-SSD-300 UINT8 under SSD_TIERS, calibrated on the
+    card from images[:1], each tier driven as drive does (captured = eager
+    at 0 LSB), its routes and launch counts exact; then, on the tier's own
+    CompiledGraph: every kernel launch of one eager forward against its
+    plain version (check_path_kernels); each of the first SSD_BATCH images
+    at batch 1 against its rows at the tier's batch; the loc and softmax-ed
+    conf heads' dequantized cosine against the fp32 engine > 0.99; and the
+    card against the port's CPU run with the same Options on image 0
+    (detection rows, and the integer heads within 1 LSB). Returns the
+    launches by kernel summed over the tiers' main-path runs."""
+    t0 = time.time()
+    qg = tt.quantize_graph(g, [images[:1]], scheme="uint8", algorithm="minmax")
+    t_in = qg.tensors[qg.input_tensors[0]]
+    xq = qmath.quantize_np(images, t_in.quant, t_in.dtype)
+    x_all = torch.from_numpy(xq).cuda()
+    log(f"  mobilenet-ssd set-up (build graph, calibrate): {time.time() - t0:.1f} s")
+    total = dict.fromkeys(counters, 0)
+    for tier, (extra, gate, per_forward, batch) in SSD_TIERS.items():
+        t1 = time.time()
+        opts = dict(quant_mode="fast", batch_size=batch, **extra)
+        with dw_gate(gate):
+            cg = tt.compile_graph(qg, tt.Options(**opts))
+        routes = [cg.kernels[n.name] for n in cg.graph.nodes if n.op == "Convolution"]
+        got = (routes.count("lower_conv_quant_pallas_dw"),
+               routes.count("lower_conv_quant_pallas_direct"))
+        want = (per_forward.get("dw_qconv", 0),
+                per_forward.get("qconv1x1", 0) + per_forward.get("qconv_direct", 0))
+        if got != want or len(routes) != 47:
+            raise AssertionError(f"mobilenet-ssd {tier}: convs on (dw, direct/1x1) {got}, "
+                                 f"expected {want}, of {len(routes)}")
+        x = x_all[:batch]
+        outs, _, launches = drive(torch, cg, x, counters, f"mobilenet-ssd-300 uint8 b{batch} "
+                                  f"tier {tier}", profile)
+        want = dict.fromkeys(counters, 0) | {
+            name: WRAPPER_RUNS * n for name, n in per_forward.items()}
+        if launches != want:
+            raise AssertionError(f"mobilenet-ssd {tier}: launches {launches}, expected {want}")
+        for name, n in launches.items():
+            total[name] += n
+        if per_forward:
+            seen = check_path_kernels(torch, cg, x, f"mobilenet-ssd {tier}")
+            if any(seen[name][0] != n for name, n in per_forward.items()):
+                raise AssertionError(f"mobilenet-ssd {tier}: checked {seen}, expected {per_forward}")
+        det = outs[0]
+        worst = max(check_rows(f"mobilenet-ssd {tier} image {i}: batch 1 vs batch {batch}",
+                               cg(x[i:i + 1])[0], det[i:i + 1]) for i in range(SSD_BATCH))
+        heads = [cg.graph.tensors[t] for t in cg.output_ids[1:]]
+        check_heads(torch, f"mobilenet-ssd {tier}", heads, outs[1:],
+                    [f[:batch] for f in fp32_outs[1:]], 0.99, torch.uint8)
+        with dw_gate(gate):
+            cg_cpu = tt.compile_graph(qg, tt.Options(**opts), device="cpu")
+        if cg_cpu.kernels != cg.kernels:
+            raise AssertionError(f"mobilenet-ssd {tier}: the CPU compile took other routes")
+        couts = cg_cpu.run(xq[:1])
+        box = check_rows(f"mobilenet-ssd {tier} card vs CPU (image 0)", det[:1], couts[0])
+        check_within_lsb(f"mobilenet-ssd {tier} card vs CPU (image 0)",
+                         [o[:1] for o in outs[1:]], couts[1:], heads)
+        valid = (det[..., 0] >= 0).sum(1).tolist()
+        log(f"phase 3 main path: mobilenet-ssd-300 uint8 batch {batch} tier {tier} "
+            f"Options({opts}) TT_DW_PALLAS={gate}: valid rows an image {valid}; rows at batch 1 "
+            f"= at batch {batch} (boxes within {worst:g}), card = CPU (boxes within {box:g}) "
+            f"[{time.time() - t1:.1f} s]")
+        del cg
+    return total
+
+
 def main(argv) -> int:
     import torch
 
@@ -1549,6 +1809,26 @@ def main(argv) -> int:
     default = run_default_tiers(torch, tt, qmath, counters, graphs, images_d, profile)
     entries["dw_qconv"]["launches"] += WRAPPER_RUNS * DEFAULT_TIERS["L"][6]["dw_qconv"]
     log(f"  default-Options tiers in all: {time.time() - t0:.1f} s")
+
+    # 3f. main path: mobilenet-SSD-300 UINT8 with the NMS on the card, at
+    # batch 8 on the fast lowering (SSD-S) and on qconv1x1 / qconv_direct
+    # (SSD-T), at batch 32 with dw_qconv too (SSD-U)
+    t0 = time.time()
+    gs = build_mobilenet_ssd_graph(ir)
+    priors = sum(gs.tensors[n.outputs[0]].shape[2] for n in gs.nodes if n.op == "PriorBox") // 4
+    if priors != SSD_NUM_PRIORS:
+        raise AssertionError(f"mobilenet-ssd-300: {priors} priors, expected {SSD_NUM_PRIORS}")
+    images_s = np.random.default_rng(0).standard_normal(
+        (SSD_U_BATCH, 3, 300, 300)).astype(np.float32)
+    fp32_ssd = eager(torch, tt.compile_graph(gs, tt.Options(precision="fp32",
+                                                            batch_size=SSD_U_BATCH)),
+                     torch.from_numpy(images_s).cuda())
+    check_rows("mobilenet-ssd fp32 (valid rows)", fp32_ssd[0], fp32_ssd[0])  # >= 10 an image
+    ssd_launches = run_ssd_tiers(torch, tt, qmath, counters, gs, fp32_ssd, images_s, profile)
+    for name, n in ssd_launches.items():
+        if n:
+            entries[name]["launches"] += n
+    log(f"  mobilenet-ssd tiers in all: {time.time() - t0:.1f} s")
 
 
     # 4. correctness: fp32 engine on the card, and the port's CPU run

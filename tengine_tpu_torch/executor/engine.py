@@ -14,8 +14,10 @@ of tengine_tpu/executor/engine.py).
     replays it after (the counterpart of the JAX engine's jax.jit): one
     launch of the whole graph a call instead of one Python call and launch
     per torch op. The forward therefore does only device work: every host
-    value it needs (weights, folded scales, index and divisor tables) is a
-    compile-time param uploaded once.
+    value it needs (weights, folded scales, index and divisor tables,
+    priors) is a compile-time param uploaded once. An input of another
+    image size gets its own prepare pass and params (the JAX engine
+    retraces).
 
 The engine runs on the card unless the caller asks for the CPU: with
 device=None it takes torch.device("cuda") and raises if there is none.
@@ -23,6 +25,7 @@ device=None it takes torch.device("cuda") and raises if there is none.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -33,7 +36,8 @@ from ..graph.ir import Graph, Tensor
 from ..graph.passes import (
     fold_shuffle_gathers, fuse_conv_add, fuse_resnet_blocks, to_native_int8,
 )
-from ..ops import fused as _fused  # noqa: F401 — populate registry
+from ..ops import detection as _detection  # noqa: F401 — populate registry
+from ..ops import fused as _fused  # noqa: F401
 from ..ops import lowering as _lowering  # noqa: F401
 from ..ops import qmath
 from ..ops import quantized as _quantized  # noqa: F401
@@ -81,11 +85,21 @@ class ParamStore:
             return torch.as_tensor(self.values[key], device=META)
         return self.tensors[key]
 
-    def upload(self, device: torch.device) -> Dict[str, torch.Tensor]:
+    def upload(self, device: torch.device,
+               share: Optional["ParamStore"] = None) -> Dict[str, torch.Tensor]:
+        """The values as device tensors. A value equal to `share`'s under
+        the same key (a weight, where both stores prepared one graph at two
+        input sizes) takes share's device tensor instead of a second copy."""
+        def same(k, v):
+            o = share.values.get(k) if share is not None else None
+            return (o is not None and o.dtype == v.dtype and o.shape == v.shape
+                    and np.array_equal(o, v))
+
         # consts parsed from tmfile bytes are read-only views; torch wants
         # writable memory to wrap
         self.tensors = {
-            k: torch.from_numpy(v if v.flags.writeable else v.copy()).to(device)
+            k: share.tensors[k] if same(k, v)
+            else torch.from_numpy(v if v.flags.writeable else v.copy()).to(device)
             for k, v in self.values.items()
         }
         self.phase = "run"
@@ -172,7 +186,10 @@ class CompiledGraph:
         self.input_ids = input_ids
         self.output_ids = output_ids
         self.device = device
-        self._in_shapes = [shape for _, shape, _ in _input_spec(graph, options)]
+        # the forward and its params by the inputs' shapes past the batch
+        # dimension: the compiled sizes', and one more per size a call brings
+        self._sized: Dict[tuple, Tuple[Callable, Dict[str, torch.Tensor]]] = {
+            tuple(shape[1:] for _, shape, _ in _input_spec(graph, options)): (fn, params)}
         self._graphs: Dict[tuple, _Captured] = {}
         self._cost: Optional[Dict[str, Any]] = None
 
@@ -189,25 +206,22 @@ class CompiledGraph:
         eager. On the CPU, and with Options.debug_nans (a host check after
         every node), the forward runs eagerly, as forward_fn does.
 
-        Only the batch dimension may differ from the compiled input shapes:
-        the prepare pass computed the compile-time params (a pooling
-        divisor, resize indices, a zero-point correction) for the compiled
-        sizes, so another size raises ValueError; compile again for it."""
+        Inputs of another image size than the compiled one run too, as the
+        JAX engine retraces for them: the compile-time params that depend on
+        the size (a pooling divisor, resize indices, a zero-point
+        correction, priors) are prepared for it at its first call, by the
+        prepare pass into a ParamStore of its own (the weights are shared),
+        with the kernels selected at compile time."""
         xs = [x if isinstance(x, torch.Tensor) else torch.as_tensor(np.ascontiguousarray(x))
               for x in inputs]
-        for i, (x, shape) in enumerate(zip(xs, self._in_shapes)):
-            if tuple(x.shape[1:]) != shape[1:]:
-                raise ValueError(
-                    f"input {i} has shape {tuple(x.shape)}; the graph was compiled for "
-                    f"{shape} and only the batch dimension may change: compile again "
-                    f"for another size")
+        fn, params = self._for_size(xs)
         if self.device.type != "cuda" or self.options.debug_nans:
             with torch.inference_mode():
-                return self._fn(self.params, *(x.to(self.device) for x in xs))
+                return fn(params, *(x.to(self.device) for x in xs))
         sig = tuple((tuple(x.shape), x.dtype) for x in xs)
         cap = self._graphs.get(sig)
         if cap is None:
-            cap = self._graphs[sig] = self._capture(xs)
+            cap = self._graphs[sig] = self._capture(fn, params, xs)
         else:
             for buf, x in zip(cap.inputs, xs):
                 if buf is not x:  # a donated buffer passed again needs no copy
@@ -215,7 +229,19 @@ class CompiledGraph:
         cap.graph.replay()
         return tuple(o.clone() for o in cap.outputs)
 
-    def _capture(self, xs: List[torch.Tensor]) -> _Captured:
+    def _for_size(self, xs: List[torch.Tensor]) -> Tuple[Callable, Dict[str, torch.Tensor]]:
+        """The forward and params for the inputs' sizes past the batch
+        dimension, prepared at the first call of a new size."""
+        size = tuple(tuple(x.shape[1:]) for x in xs)
+        if size not in self._sized:
+            store = ParamStore()
+            meta_pass(self.graph, self.options, store, inputs=xs, plan=self._fn.plan)
+            store.upload(self.device, share=self._fn.store)
+            fn, _, _ = build_forward(self.graph, self.options, store, plan=self._fn.plan)
+            self._sized[size] = (fn, store.tensors)
+        return self._sized[size]
+
+    def _capture(self, fn: Callable, params, xs: List[torch.Tensor]) -> _Captured:
         """Warm the forward up once on a side stream (the kernels' build,
         cuDNN's set-up and the allocator's first allocations stay outside
         the graph), then capture it. The static inputs are copies, or with
@@ -226,12 +252,12 @@ class CompiledGraph:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side), torch.inference_mode():
-            self._fn(self.params, *static)
+            fn(params, *static)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.inference_mode(), torch.cuda.graph(graph):
-                outs = self._fn(self.params, *static)
+                outs = fn(params, *static)
         except Exception as e:
             raise RuntimeError(_capture_failure(e)) from e
         return _Captured(static, graph, outs)
@@ -418,9 +444,13 @@ class _Step(NamedTuple):
         )
 
 
-def plan_nodes(graph: Graph, options: Options, store: ParamStore) -> List[_Step]:
+def plan_nodes(graph: Graph, options: Options, store: ParamStore,
+               plan: Optional[List[_Step]] = None) -> List[_Step]:
     """The forward's nodes in topological order, each with its kernel
-    (selected once, here)."""
+    (selected once, here), reading its params from `store`. Given another
+    store's `plan`, the same nodes and kernels on this store."""
+    if plan is not None:
+        return [s._replace(ctx=dataclasses.replace(s.ctx, store=store)) for s in plan]
     quantized = _graph_quantized(graph)
     steps = []
     for node in graph.toposorted():
@@ -436,13 +466,15 @@ def bind_inputs(graph: Graph, options: Options, inputs) -> Dict[int, TArr]:
             for tid, a in zip(graph.input_tensors, inputs)}
 
 
-def build_forward(graph: Graph, options: Options, store: ParamStore, return_all: bool = False):
+def build_forward(graph: Graph, options: Options, store: ParamStore, return_all: bool = False,
+                  plan: Optional[List[_Step]] = None):
     """The whole-graph forward fn(params, *inputs). Runs on meta tensors in
     the prepare pass and on device tensors after it. return_all=True returns
-    every tensor (for shape inference / calibration)."""
+    every tensor (for shape inference / calibration). `plan`: the kernels
+    another forward selected (plan_nodes)."""
     input_ids = graph.input_tensors
     output_ids = graph.output_tensors
-    plan = plan_nodes(graph, options, store)
+    plan = plan_nodes(graph, options, store, plan)
 
     def forward(params, *inputs):
         env = bind_inputs(graph, options, inputs)
@@ -476,18 +508,19 @@ def build_forward(graph: Graph, options: Options, store: ParamStore, return_all:
 
     # which lowering each node took (kernel selection happens once, above)
     forward.kernels = {step.node.name: step.kernel.name for step in plan}
+    forward.plan = plan
     forward.store = store
     return forward, input_ids, output_ids
 
 
 def meta_pass(graph: Graph, options: Options, store: ParamStore,
-              inputs=None) -> Dict[int, torch.Tensor]:
+              inputs=None, plan: Optional[List[_Step]] = None) -> Dict[int, torch.Tensor]:
     """The prepare pass: the forward on meta tensors (shapes only) at the
     compiled input shapes, or at those of `inputs`. It computes into `store`
     (in its prepare phase) every compile-time param the store lacks, and
     returns every tensor of the forward by id, in semantic layout, at the
-    dtype the forward stores it."""
-    forward_all, _, _ = build_forward(graph, options, store, return_all=True)
+    dtype the forward stores it. `plan`: the kernels to run (plan_nodes)."""
+    forward_all, _, _ = build_forward(graph, options, store, return_all=True, plan=plan)
     metas = (_meta_inputs(graph, options) if inputs is None
              else [torch.empty(x.shape, dtype=x.dtype, device=META) for x in inputs])
     with torch.inference_mode():

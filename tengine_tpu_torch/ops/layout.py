@@ -47,6 +47,14 @@ def wrap(x) -> TArr:
     return x if isinstance(x, TArr) else TArr(x, None)
 
 
+def semantic_shape(t: TArr):
+    """Shape in IR (NCHW) semantic order regardless of physical layout."""
+    if t.layout == "NHWC":
+        n, h, w, c = t.x.shape
+        return (n, c, h, w)
+    return tuple(t.x.shape)
+
+
 def as_nhwc(t: TArr) -> torch.Tensor:
     if t.x.ndim != 4:
         raise ValueError(f"as_nhwc on rank-{t.x.ndim} tensor")
@@ -77,3 +85,10 @@ def nchw(x) -> TArr:
 def like(t: TArr, x) -> TArr:
     """Result of an elementwise op: same layout as its input."""
     return TArr(x, t.layout if x.ndim == t.x.ndim else None)
+
+
+def semantic_axis(t: TArr, axis: int) -> int:
+    """Map an NCHW-semantic axis index to the physical axis of `t`."""
+    if t.layout != "NHWC" or t.x.ndim != 4:
+        return axis
+    return {0: 0, 1: 3, 2: 1, 3: 2}[axis % 4]

@@ -1,8 +1,10 @@
 """Plain-torch op lowerings (the "reference kernel" tier) — PyTorch port of
-the subset of tengine_tpu/ops/lowering.py that the quantized yolov5s and
-yolov3 paths, the ResNet path and their fp32 calibration run: activations,
-Convolution, Pooling, FullyConnected, Eltwise, Concat, Upsample, ReLu (incl.
-leaky), Dropout and Noop.
+the subset of tengine_tpu/ops/lowering.py that the quantized yolov5s,
+yolov3, ResNet, mobilenet and mobilenet-SSD paths and their fp32 calibration
+run: activations, Convolution, Pooling, FullyConnected, Eltwise, Softmax and
+LogSoftmax, ReLu (incl. leaky), Dropout, Noop, and the shape ops Concat,
+Flatten, Reshape, Permute, Transpose, Squeeze, Slice, Split, Crop and
+Upsample.
 
 Each function lowers one IR node to eager torch calls on the engine's
 device. Semantics follow the reference C kernels and shape-inference rules,
@@ -20,7 +22,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .layout import TArr, as_nchw, as_nhwc, as_semantic, like, nhwc, wrap
+from .layout import (
+    TArr, as_nchw, as_nhwc, as_semantic, like, nchw, nhwc, semantic_axis, semantic_shape, wrap,
+)
 from .registry import LowerCtx, register_op
 from .qmath import node_is_float
 from ..serializer.tm2 import format as tmfmt
@@ -368,7 +372,27 @@ def lower_eltwise(ctx: LowerCtx, x0: TArr, *rest: TArr):
 
 
 # ---------------------------------------------------------------------------
-# shape / data-movement ops
+# softmax
+# ---------------------------------------------------------------------------
+
+
+@register_op("Softmax")
+def lower_softmax(ctx: LowerCtx, x: TArr):
+    axis = semantic_axis(x, ctx.params.get("axis", 1))
+    return like(x, torch.softmax(x.x, dim=axis))
+
+
+@register_op("LogSoftmax")
+def lower_logsoftmax(ctx: LowerCtx, x: TArr):
+    axis = semantic_axis(x, ctx.params.get("axis", 1))
+    return like(x, torch.log_softmax(x.x, dim=axis))
+
+
+# ---------------------------------------------------------------------------
+# shape / data-movement ops (layout-sensitive: normalize to NCHW semantics).
+# Each is a view or a copy of its input's values, so on a quantized graph
+# the same function runs on the stored integers (ops/quantized.py's
+# passthroughs).
 # ---------------------------------------------------------------------------
 
 
@@ -381,6 +405,147 @@ def lower_concat(ctx: LowerCtx, *xs: TArr):
         return nhwc(torch.cat(arrs, dim={0: 0, 1: 3, 2: 1, 3: 2}[axis % 4]))
     arrs = [as_semantic(t) for t in xs]
     return wrap(torch.cat(arrs, dim=axis))
+
+
+@register_op("Flatten")
+def lower_flatten(ctx: LowerCtx, x: TArr):
+    """Flatten dims[axis..end_axis] into one (flatten.c infer_shape:
+    output is [n, prod(dims[axis..end_axis])]); end_axis < 0 counts from the
+    end (converters write 3 for NCHW; -1 is the caffe default)."""
+    xs = as_semantic(x)
+    axis = ctx.params.get("axis", 1)
+    end_axis = ctx.params.get("end_axis", -1)
+    if end_axis < 0:
+        end_axis = xs.ndim + end_axis
+    mid = 1
+    for d in xs.shape[axis : end_axis + 1]:
+        mid *= d
+    tail = xs.shape[end_axis + 1 :]
+    return wrap(xs.reshape(*xs.shape[:axis], mid, *tail))
+
+
+@register_op("Reshape")
+def lower_reshape(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """Reshape with caffe/onnx 0/-1 dim semantics (reshape.c infer_shape).
+    A shape given as a second input must be const: it is read at compile
+    time."""
+    xs = as_semantic(x)
+    shape = list(ctx.params.get("shape") or [])
+    if not shape and rest:
+        sh = ctx.const_data(1)
+        if sh is None:
+            raise NotImplementedError("dynamic reshape shape input")
+        shape = [int(v) for v in np.asarray(sh).reshape(-1)]
+    # 0 => copy the input's dim (caffe semantics); -1 => inferred
+    new = [xs.shape[i] if d == 0 else d for i, d in enumerate(shape)]
+    return wrap(xs.reshape(new))
+
+
+@register_op("Permute")
+def lower_permute(ctx: LowerCtx, x: TArr):
+    """Permute with order0..3 (permute.c)."""
+    p = ctx.params
+    xs = as_semantic(x)
+    order = [p["order0"], p["order1"], p["order2"], p["order3"]][: xs.ndim]
+    return wrap(xs.permute(order))
+
+
+@register_op("Transpose")
+def lower_transpose(ctx: LowerCtx, x: TArr):
+    return wrap(as_semantic(x).permute(list(ctx.params["perm"])))
+
+
+@register_op("Squeeze")
+def lower_squeeze(ctx: LowerCtx, x: TArr):
+    """Squeeze flagged dims (squeeze.c): dim_k == 1 marks axis k for removal;
+    all-zero means squeeze all size-1 dims."""
+    p = ctx.params
+    xs = as_semantic(x)
+    flags = [p.get("dim_0", 0), p.get("dim_1", 0), p.get("dim_2", 0), p.get("dim_3", 0)]
+    axes = [i for i, f in enumerate(flags[: xs.ndim]) if f == 1 and xs.shape[i] == 1]
+    if not axes:
+        axes = [i for i, d in enumerate(xs.shape) if d == 1]
+    return wrap(xs.squeeze(tuple(axes)))
+
+
+def _along(xs: torch.Tensor, axis: int, sl: slice) -> torch.Tensor:
+    idx = [slice(None)] * xs.ndim
+    idx[axis] = sl
+    return xs[tuple(idx)]
+
+
+@register_op("Slice")
+def lower_slice(ctx: LowerCtx, x: TArr):
+    """Slice: caffe multi-output split along axis via slice_points, or
+    onnx/mxnet single range slice, or tflite begins/sizes (slice.c
+    infer_shape, slice_ref.c)."""
+    p = ctx.params
+    xs = as_semantic(x)
+    axis = p.get("axis", 0) % xs.ndim
+    if p.get("iscaffe"):
+        points = list(p.get("slice_points") or [])
+        size = xs.shape[axis]
+        n_out = len(ctx.node.outputs)
+        if not points:
+            step = size // n_out
+            points = [step * (i + 1) for i in range(n_out - 1)]
+        return tuple(wrap(_along(xs, axis, slice(s, e)))
+                     for s, e in zip([0] + points, points + [size]))
+    if p.get("isonnx") or p.get("ismxnet"):
+        begins = p.get("begins") or []
+        sizes = p.get("sizes") or []
+        if begins:
+            idx = [slice(None)] * xs.ndim
+            for ax, (b, sz) in enumerate(zip(begins, sizes)):
+                if sz >= 0:
+                    idx[ax] = slice(b, b + sz)
+            return wrap(xs[tuple(idx)])
+        # scalar begin/end/step on one axis; end <= 0 means size + end
+        # (slice_ref.c onnx_run:stop_k = end > 0 ? end : dims[k] + end)
+        b, e, st = p.get("begin", 0), p.get("end", 0), p.get("step", 1) or 1
+        size = xs.shape[axis]
+        e = e if e > 0 else size + e
+        return wrap(_along(xs, axis, slice(b, min(e, size), st)))
+    # tflite-style: begins/sizes vectors
+    begins = p.get("begins") or [0] * xs.ndim
+    sizes = p.get("sizes") or list(xs.shape)
+    idx = tuple(slice(b, (b + sz) if sz >= 0 else None) for b, sz in zip(begins, sizes))
+    return wrap(xs[idx])
+
+
+@register_op("Split")
+def lower_split(ctx: LowerCtx, x: TArr):
+    p = ctx.params
+    xs = as_semantic(x)
+    axis = p.get("axis", 0) % xs.ndim
+    sizes = list(p.get("split_sizes") or [])
+    if sizes:
+        parts = torch.tensor_split(xs, np.cumsum(sizes)[:-1].tolist(), dim=axis)
+    else:
+        parts = torch.tensor_split(xs, len(ctx.node.outputs), dim=axis)
+    return tuple(wrap(a) for a in parts)
+
+
+@register_op("Crop")
+def lower_crop(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """Caffe Crop (crop_ref.c / crop.c infer_shape): crop x to the spatial
+    size of the reference input (or crop_h/crop_w), starting at offsets."""
+    p = ctx.params
+    xs = as_nchw(x)
+    n, c, h, w = xs.shape
+    if p.get("crop_h") and p.get("crop_w"):
+        th, tw = p["crop_h"], p["crop_w"]
+    elif rest:
+        ref_shape = semantic_shape(rest[0])
+        th, tw = ref_shape[2], ref_shape[3]
+    else:
+        th, tw = h, w
+    if p.get("center_crop"):
+        oh, ow = (h - th) // 2, (w - tw) // 2
+    else:
+        oh = p.get("offset_h", 0)
+        ow = p.get("offset_w", 0)
+    return nchw(xs[:, :, oh : oh + th, ow : ow + tw])
 
 
 # ---------------------------------------------------------------------------

@@ -1076,7 +1076,10 @@ def lower_relu_quant(ctx: LowerCtx, x: TArr):
 # Quantized-domain passthrough for value-preserving data-movement ops: when
 # every activation in/out shares one (scale, zp) grid they commute with the
 # quantization map and run on the raw stored values (bit-equal; the
-# quantizer pins these grids equal). Ported so far: Upsample and Concat.
+# quantizer pins these grids equal). The JAX package's list but
+# ShuffleChannel and ChannelGather, which wait for fold_shuffle_gathers
+# (graph/passes.py guards them). The port stores every activation as its
+# 1-byte dtype, so no cast to a storage dtype follows.
 # ---------------------------------------------------------------------------
 
 
@@ -1127,7 +1130,20 @@ def _register_passthrough(op: str, base_fn):
 def _install_passthroughs():
     from . import lowering as L
 
-    for op, fn in (("Concat", L.lower_concat), ("Upsample", L.lower_upsample)):
+    for op, fn in (
+        ("Reshape", L.lower_reshape),
+        ("Flatten", L.lower_flatten),
+        ("Squeeze", L.lower_squeeze),
+        ("Permute", L.lower_permute),
+        ("Transpose", L.lower_transpose),
+        ("Slice", L.lower_slice),
+        ("Concat", L.lower_concat),
+        ("Split", L.lower_split),
+        # nearest-neighbor upsample duplicates values; crop selects them —
+        # both value-preserving (bilinear Interp is NOT and stays wrapped)
+        ("Upsample", L.lower_upsample),
+        ("Crop", L.lower_crop),
+    ):
         _register_passthrough(op, fn)
 
 

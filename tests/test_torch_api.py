@@ -12,6 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 import tengine_tpu as jt  # noqa: E402
 from tengine_tpu.api import Graph as JaxApiGraph  # noqa: E402
 from tengine_tpu.api import Tensor as JaxTensor  # noqa: E402

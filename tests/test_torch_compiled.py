@@ -6,12 +6,13 @@ On the CPU: the proof that the forward can be captured. With torch's host
 upload and sync entry points patched to raise after compile_graph, the eager
 forward (CompiledGraph.forward_fn) runs yolov5s, yolov3 tiers A and B,
 YOLO-Fastest tier D, the narrow ResNet-50 under tier F and under the
-native-int8 plan and mobilenet-v1 under tiers K and L, each through the
+native-int8 plan, mobilenet-v1 under tiers K and L and mobilenet-SSD under
+SSD-U (its NMS on the device), each through the
 routes that reach the hand-written kernels' wrappers (on the CPU their plain
 versions), and the four nets in fp32. A capture
 fails on an upload from pageable host memory or a sync with the host, so a
 forward that makes neither is one the card can capture. A call may change
-the batch; another image size raises ValueError.
+the batch or the image size (a new size is prepared at its first call).
 
 On the card (the cuda marker; they skip here): the captured forward equals
 the eager one at 0 LSB on the same nets at the same small sizes; a second
@@ -34,16 +35,24 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 import tengine_tpu_torch as pt  # noqa: E402
 from tengine_tpu_torch.graph import ir as pir  # noqa: E402
 from tengine_tpu_torch.ops import qmath  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import build_mobilenet_v1_graph, build_resnet50_graph  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    build_mobilenet_ssd_graph, build_mobilenet_v1_graph, build_resnet50_graph,
+)
 
 RESNET_SMALL = dict(img=32, classes=16, widths=(8, 16, 32, 64), depths=(2, 2, 2, 2))
 MOBILENET_SMALL = dict(img=32, classes=16,
                        widths=(32, 32, 64, 64, 64, 64, 96, 96, 96, 96, 96, 96, 128, 128))
+SSD_SMALL = dict(img=64, widths=MOBILENET_SMALL["widths"],
+                 extras=((128, 64), (128, 64), (32, 64), (32, 32)), conf_gain=16.0)
 
 # net and tier: (net, scheme, batch, Options beyond quant_mode="fast", the
 # environment while compile_graph runs, the lowerings that must be taken)
@@ -65,6 +74,11 @@ CASES = {
                     {"lower_conv_quant_fast"}),
     "mobilenet-L": ("mobilenet", "uint8", 32, dict(quant_native="on"), {"TT_DW_PALLAS": "1"},
                     {"lower_conv_quant_pallas_dw"}),
+    # mobilenet-SSD's tier SSD-U: the NMS, the priors and the shape ops
+    # beside qconv1x1, qconv_direct and dw_qconv
+    "ssd-U": ("ssd", "uint8", 32, dict(quant_bf16_storage=False), {"TT_DW_PALLAS": "1"},
+              {"lower_conv_quant_pallas_dw", "lower_conv_quant_pallas_direct",
+               "lower_detection_output", "lower_priorbox"}),
     # the fp32 engine, which chip_smoke.py holds the quantized heads against
     "yolov5s-fp32": ("yolov5s", "fp32", 2, {}, {}, {"lower_conv"}),
     "yolov3-fp32": ("yolov3", "fp32", 2, {}, {}, {"lower_upsample"}),
@@ -88,6 +102,8 @@ def quantized(net, scheme):
         g, img = build_yolofastest_graph(img=64), 64
     elif net == "resnet50":
         g, img = build_resnet50_graph(pir, **RESNET_SMALL), RESNET_SMALL["img"]
+    elif net == "ssd":
+        g, img = build_mobilenet_ssd_graph(pir, **SSD_SMALL), SSD_SMALL["img"]
     else:
         g, img = build_mobilenet_v1_graph(pir, **MOBILENET_SMALL), MOBILENET_SMALL["img"]
     x = np.random.default_rng(1).standard_normal((32, 3, img, img)).astype(np.float32)
@@ -121,34 +137,56 @@ def _refuse(what):
     return refuse
 
 
+def run_without_host_transfer(cg, *xs):
+    """The eager forward cg.forward_fn(cg.params, ...) (what the card
+    captures) on numpy inputs, with torch's upload and sync entry points
+    patched to raise: the CPU's proof that the forward can be captured.
+    Returns numpy outputs."""
+    args = [torch.from_numpy(np.ascontiguousarray(x)) for x in xs]
+    mp = pytest.MonkeyPatch()
+    try:
+        for name in ("as_tensor", "from_numpy", "tensor"):
+            mp.setattr(torch, name, _refuse(f"torch.{name}"))
+        for name in ("item", "tolist", "numpy", "__bool__"):
+            mp.setattr(torch.Tensor, name, _refuse(f"Tensor.{name}"))
+        with torch.inference_mode():
+            outs = cg.forward_fn(cg.params, *args)
+    finally:
+        mp.undo()
+    return [o.numpy() for o in outs]
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_forward_makes_no_host_transfer(case, monkeypatch):
     cg, xq = compiled(case, monkeypatch, "cpu")
-    x = torch.from_numpy(xq)
     want = cg.run(xq)
-    for name in ("as_tensor", "from_numpy", "tensor"):
-        monkeypatch.setattr(torch, name, _refuse(f"torch.{name}"))
-    for name in ("item", "tolist", "numpy", "__bool__"):
-        monkeypatch.setattr(torch.Tensor, name, _refuse(f"Tensor.{name}"))
-    with torch.inference_mode():
-        got = cg.forward_fn(cg.params, x)
-    monkeypatch.undo()
+    got = run_without_host_transfer(cg, xq)
     assert len(got) == len(want)
     for a, b in zip(got, want):
-        np.testing.assert_array_equal(a.numpy(), b)
+        np.testing.assert_array_equal(a, b)
 
 
 def test_only_the_batch_dimension_may_change(monkeypatch):
-    """The compile-time params (here yolov3's resize indices) are computed
-    at the compiled sizes: a call at another batch runs, and one at another
-    image size raises a ValueError that says so, on the CPU as on the card."""
+    """Another batch runs on the compiled params; another image size runs
+    too, on params prepared for it at its first call (here yolov3's resize
+    indices, at 32 where the graph was compiled at 64): its outputs equal
+    those of the graph compiled at that size, and the compiled size still
+    runs after it."""
     cg, xq = compiled("yolov3-fp32", monkeypatch, "cpu")
     want = compiled("yolov3-fp32", monkeypatch, "cpu", batch=1)[0].run(xq[:1])
     got = cg.run(xq[:1])
     for a, b in zip(got, want, strict=True):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(ValueError, match="only the batch dimension may change"):
-        cg(xq[:, :, :32, :32])
+    small = np.ascontiguousarray(xq[:2, :, :32, :32])
+    g = quantized("yolov3", "fp32")[0].clone()
+    g.tensors[g.input_tensors[0]].shape = [2, 3, 32, 32]
+    want = pt.compile_graph(g, pt.Options(quant_mode="fast", batch_size=2), device="cpu").run(small)
+    outs = cg.run(small)
+    assert outs[0].shape[2] * 2 == got[0].shape[2]
+    for a, b in zip(outs, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(cg.run(xq[:1]), got, strict=True):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_a_failing_node_is_named():
@@ -201,7 +239,7 @@ def _equal(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["yolov3-A", "yolov3-B", "yolofastest-D", "resnet50-F",
-                                  "mobilenet-K", "mobilenet-L"])
+                                  "mobilenet-K", "mobilenet-L", "ssd-U"])
 def test_captured_forward_equals_eager_on_card(case, monkeypatch):
     _need_card()
     cg, xq = compiled(case, monkeypatch, "cuda")

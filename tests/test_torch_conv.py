@@ -6,6 +6,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 import tengine_tpu as jt  # noqa: E402
 from tengine_tpu.ops import qmath as jq  # noqa: E402
 from tengine_tpu.serializer.tm2.writer import graph_to_tm_bytes  # noqa: E402

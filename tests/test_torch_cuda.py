@@ -15,6 +15,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 from tengine_tpu_torch.ops.cuda.stem_conv import (  # noqa: E402
     pack_stem_weights,
     stem_qconv,

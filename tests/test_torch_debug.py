@@ -18,6 +18,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 import tengine_tpu as jt  # noqa: E402
 from tengine_tpu.executor import debug as jdebug  # noqa: E402
 

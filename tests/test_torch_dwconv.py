@@ -22,6 +22,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

@@ -18,6 +18,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 import jax.numpy as jnp  # noqa: E402
 
 from tengine_tpu.ops.pallas.qgemm import qgemm_requant as jax_qgemm  # noqa: E402

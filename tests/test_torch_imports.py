@@ -11,6 +11,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "tengine_tpu_torch"
 
@@ -33,7 +37,7 @@ def test_port_imports_no_jax():
             "tengine_tpu_torch.ops.cuda.qblock", "tengine_tpu_torch.ops.fused",
             "tengine_tpu_torch.convert.darknet_frontend",
             "tengine_tpu_torch.models.darknet_zoo", "tengine_tpu_torch.api",
-            "tengine_tpu_torch.executor.debug",
+            "tengine_tpu_torch.executor.debug", "tengine_tpu_torch.ops.detection",
             "tengine_tpu_torch.serializer.tm2.writer"} <= set(mods)
     code = (
         "import importlib, sys\n"

@@ -30,6 +30,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 from tengine_tpu.graph import ir as jir  # noqa: E402
 from tengine_tpu.ops import qmath as jq  # noqa: E402
 from tengine_tpu.quantize.quantizer import quantize_graph as jax_quantize  # noqa: E402

@@ -36,6 +36,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 import tengine_tpu as jt  # noqa: E402
 from tengine_tpu.executor.engine import _native_profitable as jax_profitable  # noqa: E402
 from tengine_tpu.graph import ir as jir  # noqa: E402

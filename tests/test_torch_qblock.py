@@ -26,6 +26,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 from tengine_tpu.ops.pallas import qblock as jqb  # noqa: E402
 
 from tengine_tpu_torch.ops.cuda import qblock as pqb  # noqa: E402

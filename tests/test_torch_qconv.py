@@ -16,6 +16,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 import jax.numpy as jnp  # noqa: E402
 
 from tengine_tpu.ops.pallas import qconv as jq  # noqa: E402

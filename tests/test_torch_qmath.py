@@ -6,6 +6,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 from tengine_tpu.graph.ir import DType as JDType  # noqa: E402
 from tengine_tpu.graph.ir import QuantParam as JQuantParam  # noqa: E402
 from tengine_tpu.ops import qmath as jq  # noqa: E402

@@ -9,6 +9,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 import tengine_tpu as jt  # noqa: E402
 import tengine_tpu.executor.engine as jax_engine  # noqa: E402
 from tengine_tpu.graph import ir as jir  # noqa: E402

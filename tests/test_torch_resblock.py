@@ -27,6 +27,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 import tengine_tpu as jt  # noqa: E402
 from tengine_tpu.graph.passes import fuse_resnet_blocks as jax_fuse  # noqa: E402
 from tengine_tpu.quantize.quantizer import quantize_graph as jax_quantize  # noqa: E402

@@ -29,6 +29,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 import tengine_tpu as jt  # noqa: E402
 from tengine_tpu.graph import ir as jir  # noqa: E402
 from tengine_tpu.ops import qmath as jq  # noqa: E402
@@ -99,8 +103,19 @@ def test_float_fc_matches_jax():
 
 
 def test_minmax_calibration_matches_jax():
-    """Same calibration image, same QuantParams: weights and biases exact,
-    activation zero points equal and scales within rtol 1e-5."""
+    """Same calibration image, same QuantParams: weights exact, activation
+    zero points equal and scales within rtol 1e-5, the raw int32 biases
+    within 1.
+
+    The biases round b / (s_in·s_w) on the activation scales, and those come
+    from each engine's fp32 forward. The JAX engine's fp32 convs sum in an
+    order that depends on how XLA:CPU splits them over its threads: the JAX
+    package's own calibration of this graph, run with XLA's Eigen threads
+    off, moves 2 int32 bias values by 1 and 31 scales in the last bits
+    against its multi-threaded run. So a bias within 1 is what the two
+    engines can be held to (as tests/test_torch_mobilenet.py holds
+    mobilenet's); the port's own fp32 forward gives the same ranges at 1, 2,
+    4 and 8 torch threads."""
     _, pg, jqg, x, _ = net()
     pqg = pt.quantize_graph(pg, [x[:1]], scheme="int8", algorithm="minmax", device="cpu")
     assert len(pqg.tensors) == len(jqg.tensors)
@@ -111,6 +126,10 @@ def test_minmax_calibration_matches_jax():
             continue
         if a.tensor_type.name == "CONST":
             n_const += 1
+            if a.dtype.name == "INT32":
+                assert a.data.dtype == b.data.dtype, a.name
+                assert np.abs(a.data.astype(np.int64) - b.data).max() <= 1, a.name
+                continue
             np.testing.assert_array_equal(a.data, b.data)
             if a.dtype.name == "INT8":
                 assert _quant_key(a.quant) == _quant_key(b.quant), a.name

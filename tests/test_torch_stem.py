@@ -10,6 +10,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 import jax.numpy as jnp  # noqa: E402
 
 from tengine_tpu.ops.pallas.stem_conv import pack_stem_weights as jax_pack_stem_weights  # noqa: E402

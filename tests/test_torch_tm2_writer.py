@@ -16,6 +16,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 import tengine_tpu as jt  # noqa: E402
 from tengine_tpu.graph import ir as jir  # noqa: E402
 from tengine_tpu.ops import qmath as jq  # noqa: E402

@@ -11,6 +11,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 import tengine_tpu as jt  # noqa: E402
 from tengine_tpu.convert.darknet_frontend import from_darknet as jax_from_darknet  # noqa: E402
 from tengine_tpu.models.darknet_zoo import build_yolov3_graph as jax_build  # noqa: E402

@@ -7,6 +7,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_threads import cap_threads  # noqa: E402
+
+cap_threads()
+
 import tengine_tpu as jt  # noqa: E402
 from tengine_tpu.models.yolov5 import build_yolov5s_graph as jax_build  # noqa: E402
 from tengine_tpu.ops import qmath as jq  # noqa: E402
