@@ -122,6 +122,37 @@ Phases, in order; any failure raises and the exit code is not 0:
                own shapes), each of the first 8 images' detection rows at
                batch 1 against its rows in the batch (labels and scores
                equal, boxes within 1e-5), at least 10 valid rows an image.
+               Then the face pipeline (bench.py:265-298): RetinaFace
+               mnet0.25 320x240 UINT8 at batch 1 and MobileFaceNet-112
+               UINT8 at batch 8 (build_retinaface_mnet_graph,
+               build_mobilefacenet_graph below; seed-0 weights, MinMax
+               from one seeded image each) under
+                 FACE-S  Options(quant_mode="fast", batch_size=...): every
+                         conv on the fast lowering; PReLU, Softmax, Crop,
+                         BatchNormalization and L2Normalization through
+                         the generic wrapper
+                 FACE-T  FACE-S + quant_bf16_storage=False: every group-1
+                         1x1 conv on qconv1x1 (25 and 31 a forward; no
+                         k x k conv has C_in % 128 == 0)
+                 FACE-U  MobileFaceNet alone at batch 32, FACE-T with
+                         TT_DW_PALLAS=1: its 16 3x3 depthwise convs on
+                         dw_qconv too, the 7x7 GDConv on the fast lowering;
+               the detect ms, embed ms and frames/s = 1000 / (detect +
+               embed) of FACE-S and FACE-T, captured and eager. Then
+               shufflenet-v2 1.0x 224 UINT8 (build_shufflenet_v2_graph
+               below) at batch 32 under
+                 SHUF-T  Options(quant_mode="fast", quant_bf16_storage=
+                         False): fold_shuffle_gathers folds its 16
+                         shuffles (ChannelGather nodes on the
+                         passthrough, scattered and permuted 1x1 weights),
+                         its 36 1x1 convs on qconv1x1.
+               Each face and shufflenet tier is checked right after it
+               runs (run_quant_tier): its kernels' launches derived from
+               the IR, the fold count, every kernel launch of one eager
+               forward against its plain version, each output's cosine
+               against the fp32 engine > 0.99, the first 8 images at batch
+               1 equal to their rows in the batch, and the card within
+               1 LSB of the port's CPU run with the same Options on image 0.
                Every kernel's launch count is set to 0 just before each
                tier's captured run and read just after it; the counts must be
                exact: a wrapper launches its kernel in the warm-up forward
@@ -294,6 +325,36 @@ SSD_TIERS = {
     "SSD-U": (dict(quant_bf16_storage=False), "1", dict(SSD_T_LAUNCHES, dw_qconv=13),
               SSD_U_BATCH),
 }
+# phase 3g: the face pipeline (bench.py:265-298, bench_face_pipeline):
+# RetinaFace mnet0.25 UINT8 at batch 1 (the detector on one 320x240 frame),
+# then MobileFaceNet-112 UINT8 at batch 8 (the worst case of 8 faces a
+# frame), MinMax from one seeded image each. Per tier: the Options beyond
+# Options(quant_mode="fast", batch_size=batch), TT_DW_PALLAS while
+# compile_graph runs (None: unset), and per net its launches per forward and
+# its batch. T: every group-1 1x1 conv on qconv1x1 (RetinaFace's 13
+# pointwise, 3 laterals and 9 heads; MobileFaceNet's 15 expansions, 15
+# projections and conv5); no k x k conv of either net has C_in % 128 == 0,
+# so none reaches qconv_direct (both derived from the IR and asserted). U:
+# MobileFaceNet at batch 32 (the dw gate's least batch) with its 16 3x3
+# depthwise convs (64, 128, 256 and 512 channels) on dw_qconv too; the 7x7
+# GDConv stays on the fast lowering
+FACE_T_LAUNCHES = {"retinaface": {"qconv1x1": 25}, "mobilefacenet": {"qconv1x1": 31}}
+FACE_TIERS = {
+    "FACE-S": ({}, None, {"retinaface": ({}, 1), "mobilefacenet": ({}, 8)}),
+    "FACE-T": (dict(quant_bf16_storage=False), None,
+               {"retinaface": (FACE_T_LAUNCHES["retinaface"], 1),
+                "mobilefacenet": (FACE_T_LAUNCHES["mobilefacenet"], 8)}),
+    "FACE-U": (dict(quant_bf16_storage=False), "1",
+               {"mobilefacenet": (dict(FACE_T_LAUNCHES["mobilefacenet"], dw_qconv=16), 32)}),
+}
+# phase 3h: shufflenet-v2 1.0x UINT8 at batch 32 on the integer-storage
+# tier: fold_shuffle_gathers folds its 16 shuffles (13 with a Slice: one
+# half into a ChannelGather, the other into its 1x1 conv's scattered
+# weights; 3 into permuted weights), and its 36 1x1 convs, the folded ones
+# among them, run on qconv1x1; its depthwise convs stay on the fast
+# lowering (TT_DW_PALLAS unset)
+SHUF_TIERS = {"SHUF-T": (dict(quant_bf16_storage=False), None, {"qconv1x1": 36}, 32)}
+SHUF_FOLDS = 16
 # the forwards of a tier's main-path run that call the kernels' wrappers: the
 # captured forward's warm-up and its capture (drive)
 WRAPPER_RUNS = 2
@@ -544,6 +605,260 @@ def build_mobilenet_ssd_graph(ir, img=300, classes=SSD_CLASSES, seed=0, widths=M
                             confidence_threshold=0.25, nms_threshold=0.45))
     g.outputs = [det_node.idx, loc_node.idx, conf_node.idx]
     return g
+
+
+class _NetMaker:
+    """The IR-building steps the face nets and shufflenet-v2 share: seeded
+    He-normal convs with a small bias (batch norm folded away), PReLU,
+    and plain nodes, on a Graph of the IR module `ir`."""
+
+    def __init__(self, ir, name, seed):
+        self.ir, self.rng = ir, np.random.default_rng(seed)
+        self.g = ir.Graph(name=name)
+
+    def const(self, name, data):
+        return self.g.add_tensor(name, self.ir.DType.FP32, list(data.shape),
+                                 self.ir.TensorType.CONST, data=data.astype(np.float32))
+
+    def node(self, op, name, inputs, shape, params):
+        y = self.g.add_tensor(f"{name}.out", self.ir.DType.FP32, list(shape), self.ir.TensorType.VAR)
+        self.g.add_node(op, name, [t.idx for t in inputs], [y.idx], params)
+        return y
+
+    def conv(self, name, x, c_out, k, stride=1, pad=0, group=1, act=-1, gain=1.0):
+        n, c_in, h, w = x.shape
+        fan_in = c_in // group * k * k
+        wt = self.const(f"{name}.w", self.rng.standard_normal((c_out, c_in // group, k, k))
+                        * (gain * np.sqrt(2.0 / fan_in)))
+        bt = self.const(f"{name}.b", self.rng.standard_normal(c_out) * 0.05)
+        oh, ow = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+        return self.node("Convolution", name, [x, wt, bt], [n, c_out, oh, ow], dict(
+            kernel_h=k, kernel_w=k, stride_h=stride, stride_w=stride, dilation_h=1,
+            dilation_w=1, input_channel=c_in, output_channel=c_out, group=group,
+            activation=act, pad_h0=pad, pad_w0=pad, pad_h1=pad, pad_w1=pad))
+
+    def prelu(self, name, x):
+        slope = self.const(f"{name}.slope", self.rng.uniform(0.1, 0.4, x.shape[1]))
+        return self.node("PReLU", name, [x, slope], x.shape, {})
+
+    def input(self, shape):
+        x = self.g.add_tensor("data", self.ir.DType.FP32, list(shape), self.ir.TensorType.INPUT)
+        self.g.inputs = [self.g.add_node("InputOp", "input", [], [x.idx]).idx]
+        return x
+
+    def finish(self, outputs):
+        self.g.outputs = [self.g.tensors[t.idx].producer for t in outputs]
+        return self.g
+
+
+# RetinaFace mnet0.25 (insightface's mnet.25, the model Tengine's
+# tm_retinaface example loads): MobileNet-0.25's widths (build_mobilenet_v1
+# _graph's strides), the pyramid's and the SSH modules' width, and the
+# anchors a position
+RETINAFACE_WIDTHS = tuple(c // 4 for c in MOBILENET_WIDTHS)
+RETINAFACE_FPN = 64
+RETINAFACE_ANCHORS = 2
+
+
+def build_retinaface_mnet_graph(ir, h=320, w=240, seed=0, widths=RETINAFACE_WIDTHS,
+                                fpn=RETINAFACE_FPN):
+    """RetinaFace (Deng et al., "RetinaFace: Single-stage Dense Face
+    Localisation in the Wild", 2019) as insightface's mnet.25, the model
+    Tengine's tm_retinaface example loads, as a float IR graph with seeded
+    weights (batch norm folded into the convs), built with the IR module
+    `ir` it is given; input (1, 3, h, w), zoo.py's (1, 3, 320, 240).
+
+    Backbone: MobileNet-0.25 (conv 3x3 s2 p1 to widths[0] -> 13 depthwise
+    3x3 p1 at build_mobilenet_v1_graph's strides and pointwise 1x1 convs to
+    widths 16, 32, 32, 64, 64, 128 x6, 256, 256), every conv with ReLU.
+    The stride-8, -16 and -32 maps are the 5th, 11th and 13th pointwise
+    outputs. Pyramid (insightface's rf_c*_lateral / rf_c*_aggr): a 1x1
+    lateral conv (ReLU) to `fpn` on each; top-down, the coarser map through
+    Upsample x2 (nearest), Crop to the lateral's size (at 320x240 the
+    stride-32 map is 10x8, its upsample 20x16 crops to the stride-16 map's
+    20x15), an Eltwise sum with the lateral, and a 3x3 p1 conv (ReLU).
+    SSH module on each level (insightface's ssh_detection_module): a 3x3
+    conv to fpn/2, and the context branch's 3x3 to fpn/4 (ReLU) feeding a
+    3x3 to fpn/4 and a 3x3 (ReLU) -> 3x3 to fpn/4, the three concatenated
+    (fpn channels), then a ReLu node. Heads a level, RETINAFACE_ANCHORS = 2
+    anchors a position: cls 1x1 to 4 -> Reshape (0, 2, -1, 0) -> Softmax
+    (axis 1) -> Reshape (0, 4, -1, 0); bbox 1x1 to 8; landmark 1x1 to 20.
+    Outputs, stride 32, 16, 8 in turn: cls prob, bbox, landmark (9).
+    Assumed where the published graph's details are not in the repo: the
+    weights' scales (He-normal, bias 0.05) and the names of the nodes."""
+    m = _NetMaker(ir, f"retinaface-mnet025-{h}x{w}", seed)
+    x = m.input([1, 3, h, w])
+    t = m.conv("conv1", x, widths[0], 3, stride=2, pad=1, act=0)
+    maps = {}
+    for i, stride in enumerate(MOBILENET_STRIDES):
+        t = m.conv(f"conv{i + 2}_dw", t, widths[i], 3, stride=stride, pad=1, group=widths[i],
+                   act=0)
+        t = m.conv(f"conv{i + 2}_pw", t, widths[i + 1], 1, act=0)
+        if i + 1 in (5, 11, 13):
+            maps[{5: 8, 11: 16, 13: 32}[i + 1]] = t
+    levels = {32: m.conv("rf_c3_lateral", maps[32], fpn, 1, act=0)}
+    for s, coarse in ((16, 32), (8, 16)):
+        lateral = m.conv(f"rf_c{s // 8}_lateral", maps[s], fpn, 1, act=0)
+        n, c, lh, lw = lateral.shape
+        up = levels[coarse]
+        up = m.node("Upsample", f"rf_c{coarse // 8}_upsampling", [up],
+                    [n, c, 2 * up.shape[2], 2 * up.shape[3]], dict(scale=2.0))
+        up = m.node("Crop", f"rf_c{coarse // 8}_crop", [up, lateral], [n, c, lh, lw], dict(
+            num_args=2, offset_c=0, offset_h=0, offset_w=0, crop_h=0, crop_w=0,
+            center_crop=False, axis=2, flag=0))
+        t = m.node("Eltwise", f"rf_c{s // 8}_sum", [lateral, up], lateral.shape, dict(type=2))
+        levels[s] = m.conv(f"rf_c{s // 8}_aggr", t, fpn, 3, pad=1, act=0)
+    outputs = []
+    for s in (32, 16, 8):
+        name = f"rf_c{s // 8}_det"
+        t = levels[s]
+        a = m.conv(f"{name}_conv1", t, fpn // 2, 3, pad=1)
+        ctx = m.conv(f"{name}_context_conv1", t, fpn // 4, 3, pad=1, act=0)
+        b = m.conv(f"{name}_context_conv2", ctx, fpn // 4, 3, pad=1)
+        c = m.conv(f"{name}_context_conv3_1", ctx, fpn // 4, 3, pad=1, act=0)
+        c = m.conv(f"{name}_context_conv3_2", c, fpn // 4, 3, pad=1)
+        n, _, lh, lw = t.shape
+        t = m.node("Concat", f"{name}_concat", [a, b, c], [n, fpn, lh, lw], dict(axis=1))
+        t = m.node("ReLu", f"{name}_relu", [t], t.shape, dict(negative_slope=0.0))
+        k = RETINAFACE_ANCHORS
+        cls = m.conv(f"face_rpn_cls_score_stride{s}", t, 2 * k, 1)
+        cls = m.node("Reshape", f"face_rpn_cls_score_reshape_stride{s}", [cls],
+                     [n, 2, k * lh, lw], dict(is_mxnet=0, reverse=0, shape=[0, 2, -1, 0],
+                                              is_onnx=0))
+        cls = m.node("Softmax", f"face_rpn_cls_prob_stride{s}", [cls], cls.shape, dict(axis=1))
+        cls = m.node("Reshape", f"face_rpn_cls_prob_reshape_stride{s}", [cls],
+                     [n, 2 * k, lh, lw], dict(is_mxnet=0, reverse=0, shape=[0, 2 * k, -1, 0],
+                                              is_onnx=0))
+        outputs += [cls, m.conv(f"face_rpn_bbox_pred_stride{s}", t, 4 * k, 1),
+                    m.conv(f"face_rpn_landmark_pred_stride{s}", t, 10 * k, 1)]
+    return m.finish(outputs)
+
+
+# MobileFaceNet (Chen et al. 2018, Table 1): the stem's width, the
+# bottlenecks (expansion t, width c, repeats n, first stride s), the last
+# conv's width and the embedding's
+MOBILEFACENET_BOTTLENECKS = ((2, 64, 5, 2), (4, 128, 1, 2), (2, 128, 6, 1), (4, 128, 1, 2),
+                             (2, 128, 2, 1))
+MOBILEFACENET_STEM, MOBILEFACENET_CONV5, MOBILEFACENET_EMBEDDING = 64, 512, 128
+
+
+def build_mobilefacenet_graph(ir, img=112, seed=0, stem=MOBILEFACENET_STEM,
+                              bottlenecks=MOBILEFACENET_BOTTLENECKS, conv5=MOBILEFACENET_CONV5,
+                              embedding=MOBILEFACENET_EMBEDDING):
+    """MobileFaceNet (Chen et al., "MobileFaceNets: Efficient CNNs for
+    Accurate Real-Time Face Verification on Mobile Devices", 2018, Table 1)
+    as a float IR graph with seeded weights (batch norm folded into the
+    convs), built with the IR module `ir` it is given; input (1, 3, img,
+    img), 112 as zoo.py's. conv 3x3 s2 p1 to `stem` (PReLU) -> depthwise
+    3x3 p1 (PReLU) -> bottlenecks (t, c, n, s): 1x1 expansion to t x c_in
+    (PReLU) -> depthwise 3x3 p1 at stride s for the first of the n, 1 after
+    (PReLU) -> linear 1x1 projection to c, an Eltwise sum with the block's
+    input where the stride is 1 and the width stays -> 1x1 conv to `conv5`
+    (PReLU) -> linear GDConv (depthwise, its kernel the map's size, img/16:
+    7x7 at 112) -> insightface's fc1 form of the embedding: Flatten ->
+    FullyConnected to `embedding` -> BatchNormalization (gamma 1:
+    insightface's fix_gamma; eps 2e-5) -> L2Normalization. Output: the
+    unit embedding [N, embedding]. PReLU follows every non-linear conv, a
+    node of its own (slopes seeded in [0.1, 0.4]). Assumed: the weights'
+    scales (He-normal, bias 0.05; the projections at gain 0.5 so that the
+    residual stream keeps its variance), the BN's statistics (seeded), the
+    names of the nodes."""
+    m = _NetMaker(ir, f"mobilefacenet-{img}", seed)
+    x = m.input([1, 3, img, img])
+    t = m.prelu("conv1_prelu", m.conv("conv1", x, stem, 3, stride=2, pad=1))
+    t = m.prelu("conv2_dw_prelu", m.conv("conv2_dw", t, stem, 3, pad=1, group=stem))
+    for b, (expand, c, repeats, first) in enumerate(bottlenecks):
+        for i in range(repeats):
+            name = f"res{b + 3}_{i + 1}"
+            stride = first if i == 0 else 1
+            c_in = t.shape[1]
+            y = m.prelu(f"{name}_expand_prelu", m.conv(f"{name}_expand", t, expand * c_in, 1))
+            y = m.prelu(f"{name}_dw_prelu", m.conv(f"{name}_dw", y, expand * c_in, 3,
+                                                   stride=stride, pad=1, group=expand * c_in))
+            y = m.conv(f"{name}_project", y, c, 1, gain=0.5)
+            if stride == 1 and c_in == c:
+                y = m.node("Eltwise", f"{name}_add", [y, t], y.shape, dict(type=2))
+            t = y
+    t = m.prelu("conv5_prelu", m.conv("conv5", t, conv5, 1))
+    n, c, h, w = t.shape
+    t = m.conv("conv6_dw", t, c, h, group=c)  # GDConv
+    t = m.node("Flatten", "conv6_flatten", [t], [n, c], dict(axis=1, end_axis=3))
+    wt = m.const("fc1.w", m.rng.standard_normal((embedding, c)) * np.sqrt(1.0 / c))
+    bt = m.const("fc1.b", m.rng.standard_normal(embedding) * 0.05)
+    t = m.node("FullyConnected", "fc1_dense", [t, wt, bt], [n, embedding],
+               dict(num_output=embedding))
+    bn = [m.const("fc1.gamma", np.ones(embedding)),
+          m.const("fc1.beta", m.rng.standard_normal(embedding) * 0.1),
+          m.const("fc1.mean", m.rng.standard_normal(embedding) * 0.1),
+          m.const("fc1.var", m.rng.uniform(0.5, 2.0, embedding))]
+    t = m.node("BatchNormalization", "fc1", [t] + bn, t.shape,
+               dict(rescale_factor=1.0, eps=2e-5, caffe_flavor=0))
+    return m.finish([m.node("L2Normalization", "embedding", [t], t.shape, {})])
+
+
+# ShuffleNet V2 1.0x (Ma et al. 2018, Table 5): the stem's width, each
+# stage's width and units, the last conv's width
+SHUFFLENET_STEM, SHUFFLENET_WIDTHS, SHUFFLENET_UNITS = 24, (116, 232, 464), (4, 8, 4)
+SHUFFLENET_CONV5 = 1024
+
+
+def build_shufflenet_v2_graph(ir, img=224, classes=1000, seed=0, stem=SHUFFLENET_STEM,
+                              widths=SHUFFLENET_WIDTHS, units=SHUFFLENET_UNITS,
+                              conv5=SHUFFLENET_CONV5):
+    """ShuffleNet V2 1.0x (Ma et al., "ShuffleNet V2: Practical Guidelines
+    for Efficient CNN Architecture Design", 2018, Table 5) in its Caffe
+    form, as a float IR graph with seeded weights (batch norm folded into
+    the convs), built with the IR module `ir` it is given; input (1, 3,
+    img, img). conv 3x3 s2 p1 to `stem` (ReLU) -> max-pool 3x3 s2 p1 ->
+    stages of `widths` channels and `units` units -> 1x1 conv to `conv5`
+    (ReLU) -> global average pool -> FullyConnected. A stage's first unit
+    (stride 2) runs two branches on its whole input: depthwise 3x3 s2
+    (linear) -> 1x1 (ReLU), and 1x1 (ReLU) -> depthwise 3x3 s2 (linear) ->
+    1x1 (ReLU), each to half the stage's width. Every later unit starts
+    with a Slice (axis 1, iscaffe) into halves, keeps the first and runs the
+    second through 1x1 (ReLU) -> depthwise 3x3 (linear) -> 1x1 (ReLU).
+    Every unit ends in Concat -> ShuffleChannel(group 2): the chain
+    fold_shuffle_gathers folds. Assumed: the weights' scales (He-normal,
+    bias 0.05) and the names of the nodes."""
+    m = _NetMaker(ir, f"shufflenet-v2-{img}", seed)
+    x = m.input([1, 3, img, img])
+    t = m.conv("conv1", x, stem, 3, stride=2, pad=1, act=0)
+    n, c, h, w = t.shape
+    t = m.node("Pooling", "pool1", [t], [n, c, (h - 1) // 2 + 1, (w - 1) // 2 + 1], dict(
+        alg=0, kernel_h=3, kernel_w=3, stride_h=2, stride_w=2, global_pool=0, caffe_flavor=0,
+        pad_h0=1, pad_w0=1, pad_h1=1, pad_w1=1))
+    for s, (width, repeats) in enumerate(zip(widths, units)):
+        half = width // 2
+        for i in range(repeats):
+            name = f"stage{s + 2}_{i + 1}"
+            n, c, h, w = t.shape
+            if i == 0:
+                a = m.conv(f"{name}_branch1_dw", t, c, 3, stride=2, pad=1, group=c)
+                a = m.conv(f"{name}_branch1_pw", a, half, 1, act=0)
+                b = m.conv(f"{name}_branch2_pw1", t, half, 1, act=0)
+                b = m.conv(f"{name}_branch2_dw", b, half, 3, stride=2, pad=1, group=half)
+            else:
+                a = m.g.add_tensor(f"{name}_slice.out0", ir.DType.FP32, [n, half, h, w],
+                                   ir.TensorType.VAR)
+                b = m.g.add_tensor(f"{name}_slice.out1", ir.DType.FP32, [n, half, h, w],
+                                   ir.TensorType.VAR)
+                m.g.add_node("Slice", f"{name}_slice", [t.idx], [a.idx, b.idx], dict(
+                    axis=1, iscaffe=1, slice_points=[half], begins=[], sizes=[]))
+                b = m.conv(f"{name}_branch2_pw1", b, half, 1, act=0)
+                b = m.conv(f"{name}_branch2_dw", b, half, 3, pad=1, group=half)
+            b = m.conv(f"{name}_branch2_pw2", b, half, 1, act=0)
+            n, _, h, w = b.shape
+            t = m.node("Concat", f"{name}_concat", [a, b], [n, width, h, w], dict(axis=1))
+            t = m.node("ShuffleChannel", f"{name}_shuffle", [t], t.shape, dict(group=2))
+    t = m.conv("conv5", t, conv5, 1, act=0)
+    n, c, h, w = t.shape
+    t = m.node("Pooling", "pool5", [t], [n, c, 1, 1], dict(
+        alg=1, kernel_h=h, kernel_w=w, stride_h=1, stride_w=1, global_pool=1, caffe_flavor=0,
+        pad_h0=0, pad_w0=0, pad_h1=0, pad_w1=0))
+    wt = m.const("fc.w", m.rng.standard_normal((classes, c)) * np.sqrt(1.0 / c))
+    bt = m.const("fc.b", m.rng.standard_normal(classes) * 0.05)
+    return m.finish([m.node("FullyConnected", "fc", [t, wt, bt], [n, classes, 1, 1],
+                            dict(num_output=classes))])
 
 
 def log(msg: str) -> None:
@@ -1183,7 +1498,7 @@ def drive(torch, cg, x_dev, counters, what, profile=False, n_batches=3):
     equal to the captured ones at 0 LSB. The seconds each part took are
     printed. With profile, a torch.profiler breakdown of one captured
     batch. Returns (captured outputs, captured ms per batch, launches by
-    kernel)."""
+    kernel, eager ms per batch)."""
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
@@ -1215,7 +1530,7 @@ def drive(torch, cg, x_dev, counters, what, profile=False, n_batches=3):
         f"cost_analysis {t3 - t2:.2f}, eager {t4 - t3:.2f}")
     if profile:
         profile_batch(torch, cg, x_dev)
-    return outs, batch_ms, launches
+    return outs, batch_ms, launches, eager_ms
 
 
 def eager(torch, cg, x):
@@ -1443,7 +1758,7 @@ def run_default_tiers(torch, tt, qmath, counters, graphs, images, profile):
             raise AssertionError(f"{net} {scheme} {tier}: convs by route {got_routes}, expected "
                                  f"{want_routes}; native-int8 plan {took_plan}, {len(shifted)} "
                                  f"shifted tensors")
-        outs, batch_ms, launches = drive(torch, cg, x_dev, counters,
+        outs, batch_ms, launches, _ = drive(torch, cg, x_dev, counters,
                                          f"{net}-224 {scheme} b{batch} tier {tier}", profile)
         want = dict.fromkeys(counters, 0) | {
             name: WRAPPER_RUNS * n for name, n in per_forward.items()}
@@ -1583,7 +1898,7 @@ def run_ssd_tiers(torch, tt, qmath, counters, g, fp32_outs, images, profile):
             raise AssertionError(f"mobilenet-ssd {tier}: convs on (dw, direct/1x1) {got}, "
                                  f"expected {want}, of {len(routes)}")
         x = x_all[:batch]
-        outs, _, launches = drive(torch, cg, x, counters, f"mobilenet-ssd-300 uint8 b{batch} "
+        outs, _, launches, _ = drive(torch, cg, x, counters, f"mobilenet-ssd-300 uint8 b{batch} "
                                   f"tier {tier}", profile)
         want = dict.fromkeys(counters, 0) | {
             name: WRAPPER_RUNS * n for name, n in per_forward.items()}
@@ -1615,6 +1930,131 @@ def run_ssd_tiers(torch, tt, qmath, counters, g, fp32_outs, images, profile):
             f"= at batch {batch} (boxes within {worst:g}), card = CPU (boxes within {box:g}) "
             f"[{time.time() - t1:.1f} s]")
         del cg
+    return total
+
+
+def derived_launches(cg, gate):
+    """The kernel launches a forward of cg makes, derived from its IR as the
+    routes' gates read it: on the integer-storage tier a group-1 1x1 conv
+    goes to qconv1x1 and a k x k one with C_in % 128 == 0 to qconv_direct;
+    with the dw gate on (TT_DW_PALLAS=1, batch >= 32) a 3x3 or 5x5
+    depthwise conv with C % 32 == 0 to dw_qconv. Counted over the convs
+    that took the kernels' lowerings, which must be all of those."""
+    got = dict.fromkeys(("qconv1x1", "qconv_direct", "dw_qconv"), 0)
+    want = dict(got)
+    for n in cg.graph.nodes:
+        if n.op != "Convolution":
+            continue
+        p, route = n.params, cg.kernels[n.name]
+        c_in = int(cg.graph.tensors[n.inputs[1]].shape[1])
+        k = p["kernel_h"]
+        if p["group"] == 1 and not cg.options.quant_bf16_storage:
+            name = "qconv1x1" if k == 1 else "qconv_direct" if c_in % 128 == 0 else None
+        elif p["group"] > 1 and c_in == 1 and gate == "1" and k in (3, 5) and p["group"] % 32 == 0:
+            name = "dw_qconv"
+        else:
+            name = None
+        if name:
+            want[name] += 1
+        if route == "lower_conv_quant_pallas_direct":
+            got["qconv1x1" if k == 1 else "qconv_direct"] += 1
+        elif route == "lower_conv_quant_pallas_dw":
+            got["dw_qconv"] += 1
+    if got != want:
+        raise AssertionError(f"{cg.graph.name}: convs on the kernels' routes {got}, the IR gives {want}")
+    return {name: n for name, n in got.items() if n}
+
+
+def run_quant_tier(torch, tt, qmath, counters, what, qg, fp32_outs, images, opts, gate,
+                   per_forward, batch, folds, profile):
+    """One tier of a UINT8 net (phases 3g and 3h), checked right after it
+    runs so that its CUDA graph can go before the next: compiled with opts
+    (TT_DW_PALLAS = gate while it compiles), the convs on the kernels'
+    routes derived from the IR and equal to per_forward; driven as drive
+    does (captured = eager at 0 LSB), the wrapper launches exact; every
+    kernel launch of one eager forward against its plain version
+    (check_path_kernels); each output's dequantized cosine against the fp32
+    engine > 0.99; the first images at batch 1 equal to their rows in the
+    batch; the card against the port's CPU run with the same Options on
+    image 0, within 1 LSB. fold_shuffle_gathers must fold `folds` shuffles
+    and leave none. Returns the launches by kernel and the captured and
+    eager ms per batch (medians)."""
+    from tengine_tpu_torch.graph.passes import fold_shuffle_gathers
+
+    t1 = time.time()
+    t_in = qg.tensors[qg.input_tensors[0]]
+    xq = qmath.quantize_np(images[:batch], t_in.quant, t_in.dtype)
+    x = torch.from_numpy(xq).cuda()
+    with dw_gate(gate):
+        cg = tt.compile_graph(qg, tt.Options(**opts))
+    derived = derived_launches(cg, gate)
+    if derived != per_forward:
+        raise AssertionError(f"{what}: the IR gives {derived}, expected {per_forward}")
+    folded = fold_shuffle_gathers(qg.clone())
+    left = sum(n.op == "ShuffleChannel" for n in cg.graph.nodes)
+    if folded != folds or left:
+        raise AssertionError(f"{what}: {folded} shuffles folded, {left} left; expected {folds}")
+    outs, batch_ms, launches, eager_ms = drive(torch, cg, x, counters, what, profile)
+    want = dict.fromkeys(counters, 0) | {name: WRAPPER_RUNS * n for name, n in per_forward.items()}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    if per_forward:
+        seen = check_path_kernels(torch, cg, x, what)
+        if any(seen[name][0] != n for name, n in per_forward.items()):
+            raise AssertionError(f"{what}: checked {seen}, expected {per_forward}")
+    heads = [cg.graph.tensors[t] for t in cg.output_ids]
+    check_heads(torch, what, heads, outs, [f[:batch] for f in fp32_outs], 0.99, torch.uint8)
+    for i in range(min(batch, 8) if batch > 1 else 0):
+        one = cg(x[i : i + 1])
+        if not all(torch.equal(a, b[i : i + 1]) for a, b in zip(one, outs)):
+            raise AssertionError(f"{what}: image {i} at batch 1 differs from its rows in the batch")
+    with dw_gate(gate):
+        cg_cpu = tt.compile_graph(qg, tt.Options(**opts), device="cpu")
+    if cg_cpu.kernels != cg.kernels:
+        raise AssertionError(f"{what}: the CPU compile took other routes")
+    check_within_lsb(f"{what} card vs CPU (image 0)", [o[:1] for o in outs],
+                     cg_cpu.run(xq[:1]), heads)
+    log(f"phase 3 main path: {what} Options({opts}) TT_DW_PALLAS={gate}: kernels a forward "
+        f"{per_forward}, shuffles folded {folded}; rows at batch 1 = in the batch "
+        f"({min(batch, 8) if batch > 1 else 0} images), card = CPU [{time.time() - t1:.1f} s]")
+    del cg
+    return launches, float(np.median(batch_ms)), float(np.median(eager_ms))
+
+
+def run_face_pipeline(torch, tt, qmath, counters, ir, profile):
+    """Phase 3g: RetinaFace mnet0.25 320x240 and MobileFaceNet-112, UINT8
+    MinMax from one seeded image each (calibrated on the card), under
+    FACE_TIERS (run_quant_tier); prints the face pipeline's detect ms,
+    embed ms and frames/s = 1000 / (detect + embed) under FACE-S and
+    FACE-T, captured and eager. Returns the launches by kernel summed over
+    the tiers' main-path runs."""
+    t0 = time.time()
+    nets = {"retinaface": build_retinaface_mnet_graph(ir),
+            "mobilefacenet": build_mobilefacenet_graph(ir)}
+    big = max(b for _, _, per in FACE_TIERS.values() for _, b in per.values())
+    total = dict.fromkeys(counters, 0)
+    quantized, fp32, images = {}, {}, {}
+    for net, g in nets.items():
+        shape = g.tensors[g.input_tensors[0]].shape[1:]
+        images[net] = np.random.default_rng(0).standard_normal((big, *shape)).astype(np.float32)
+        quantized[net] = tt.quantize_graph(g, [images[net][:1]], scheme="uint8", algorithm="minmax")
+        fp32[net] = eager(torch, tt.compile_graph(g, tt.Options(precision="fp32", batch_size=big)),
+                          torch.from_numpy(images[net]).cuda())
+    log(f"  face set-up (build graphs, calibrate, fp32 references): {time.time() - t0:.1f} s")
+    for tier, (extra, gate, per_net) in FACE_TIERS.items():
+        ms = {}
+        for net, (per_forward, batch) in per_net.items():
+            opts = dict(quant_mode="fast", batch_size=batch, **extra)
+            launches, *ms[net] = run_quant_tier(
+                torch, tt, qmath, counters, f"{net} uint8 b{batch} tier {tier}", quantized[net],
+                fp32[net], images[net], opts, gate, per_forward, batch, 0, profile)
+            for name, n in launches.items():
+                total[name] += n
+        if len(ms) == 2:
+            (dc, de), (ec, ee) = ms["retinaface"], ms["mobilefacenet"]
+            log(f"phase 3 face pipeline {tier}: detect (retinaface b1) {dc:.3f} ms, embed "
+                f"(mobilefacenet b8) {ec:.3f} ms, {1e3 / (dc + ec):.1f} frames/s captured; eager "
+                f"{de:.3f} + {ee:.3f} ms, {1e3 / (de + ee):.1f} frames/s")
     return total
 
 
@@ -1674,7 +2114,7 @@ def main(argv) -> int:
     xq5 = qmath.quantize_np(images5, t_in.quant, t_in.dtype)
     x5 = torch.from_numpy(xq5).cuda()
     log(f"  yolov5s set-up (build graph, calibrate, compile): {time.time() - t0:.1f} s")
-    outs5, batch_ms, launches = drive(torch, cg5, x5, counters, f"yolov5s-{img} int8 b{batch}",
+    outs5, batch_ms, launches, _ = drive(torch, cg5, x5, counters, f"yolov5s-{img} int8 b{batch}",
                                       profile)
     want = dict.fromkeys(counters, 0) | {"stem_qconv": WRAPPER_RUNS}
     if launches != want:
@@ -1698,7 +2138,7 @@ def main(argv) -> int:
         t1 = time.time()
         opts = dict(quant_mode="fast", quant_bf16_storage=False, batch_size=batch, **extra)
         cg3 = tt.compile_graph(qg3, tt.Options(**opts))
-        outs3, batch_ms, launches = drive(torch, cg3, x3, counters,
+        outs3, batch_ms, launches, _ = drive(torch, cg3, x3, counters,
                                           f"yolov3-{img3} int8 b{batch} tier {tier}", profile)
         want = dict.fromkeys(counters, 0) | {
             name: WRAPPER_RUNS * n for name, n in per_forward.items()}
@@ -1735,7 +2175,7 @@ def main(argv) -> int:
                         routes.count("lower_conv_quant_fast"))
             if by_route != (per_forward["dw_qconv"], per_forward["qconv1x1"], n_fast):
                 raise AssertionError(f"yolofastest {scheme} {tier}: convs by route {by_route}")
-            outsf, batch_ms, launches = drive(
+            outsf, batch_ms, launches, _ = drive(
                 torch, cgf, xf, counters, f"yolofastest-{imgf} {scheme} b{FASTEST_BATCH} tier "
                 f"{tier}", profile and scheme == "int8")
             want = dict.fromkeys(counters, 0) | {
@@ -1784,7 +2224,7 @@ def main(argv) -> int:
                                      f"the kernel's lowering, FC on {fc}")
         elif routed:
             raise AssertionError(f"resnet50 {tier}: a conv left the fast lowering")
-        outsr, batch_ms, launches = drive(torch, cgr, xr, counters,
+        outsr, batch_ms, launches, _ = drive(torch, cgr, xr, counters,
                                           f"resnet50-{imgr} int8 b{RESNET_BATCH} tier {tier}",
                                           profile)
         want = dict.fromkeys(counters, 0) | {
@@ -1829,6 +2269,33 @@ def main(argv) -> int:
         if n:
             entries[name]["launches"] += n
     log(f"  mobilenet-ssd tiers in all: {time.time() - t0:.1f} s")
+
+    # 3g. main path: the face pipeline, RetinaFace mnet0.25 UINT8 b1 and
+    # MobileFaceNet UINT8 b8 on the fast lowering (FACE-S) and on qconv1x1
+    # (FACE-T), MobileFaceNet b32 with dw_qconv too (FACE-U)
+    t0 = time.time()
+    for name, n in run_face_pipeline(torch, tt, qmath, counters, ir, profile).items():
+        entries[name]["launches"] += n
+    log(f"  face tiers in all: {time.time() - t0:.1f} s")
+
+    # 3h. main path: shufflenet-v2 1.0x UINT8 b32, its shuffles folded, its
+    # 1x1 convs on qconv1x1 (SHUF-T)
+    t0 = time.time()
+    gsh = build_shufflenet_v2_graph(ir)
+    images_sh = np.random.default_rng(0).standard_normal(
+        (SHUF_TIERS["SHUF-T"][3], 3, 224, 224)).astype(np.float32)
+    qsh = tt.quantize_graph(gsh, [images_sh[:1]], scheme="uint8", algorithm="minmax")
+    fp32_sh = eager(torch, tt.compile_graph(gsh, tt.Options(precision="fp32",
+                                                            batch_size=len(images_sh))),
+                    torch.from_numpy(images_sh).cuda())
+    for tier, (extra, gate, per_forward, batch) in SHUF_TIERS.items():
+        launches, _, _ = run_quant_tier(
+            torch, tt, qmath, counters, f"shufflenet-v2-224 uint8 b{batch} tier {tier}", qsh,
+            fp32_sh, images_sh, dict(quant_mode="fast", batch_size=batch, **extra), gate,
+            per_forward, batch, SHUF_FOLDS, profile)
+        for name, n in launches.items():
+            entries[name]["launches"] += n
+    log(f"  shufflenet-v2 in all: {time.time() - t0:.1f} s")
 
 
     # 4. correctness: fp32 engine on the card, and the port's CPU run

@@ -579,8 +579,8 @@ def compile_graph(
 ) -> CompiledGraph:
     """prerun_graph_multithread analog: passes, prepare, device params.
 
-    The pass pipeline is the JAX engine's, in its order. Passes and kernels
-    the port does not have yet raise NotImplementedError where the JAX
+    The pass pipeline is the JAX engine's, in its order. Options the port
+    does not have yet (stem_s2d) raise NotImplementedError where the JAX
     engine would use them."""
     device = resolve_device(device)
     options = options or Options.from_env()
@@ -611,7 +611,12 @@ def compile_graph(
             graph, min_cmid=0 if options.fuse_resblock else options.chain_min_cmid
         )
     if fast_quant and os.environ.get("TT_FOLD_SHUFFLE", "1") not in ("0", "off"):
-        fold_shuffle_gathers(graph)  # a guard: raises where the JAX pass would fold
+        # shuffle+slice chains fold into consumer conv weights / one
+        # ChannelGather (exact on the shared grid the quantizer pins); the
+        # folded clone replaces the graph only where something folded
+        g2 = graph.clone()
+        if fold_shuffle_gathers(g2):
+            graph = g2
     if fast_quant:
         # residual eltwise-sums fold into the conv requant epilogue
         graph = graph.clone()

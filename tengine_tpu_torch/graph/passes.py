@@ -1,17 +1,13 @@
 """Graph-level optimization passes (PyTorch port of the subset of
-tengine_tpu/graph/passes.py that the yolov5s and ResNet paths and the
-default compile pipeline run, the native-int8 plan's to_native_int8 among
-them).
+tengine_tpu/graph/passes.py that the default compile pipeline runs:
+fold_shuffle_gathers and the native-int8 plan's to_native_int8 among them).
 
 The reference runs these at convert time (tools/convert_tool/utils/
 graph_optimizer/graph_opt.cpp:624-947: conv+bn fold, conv+relu fuse,
 bn+scale fold, ...). Here they run on the IR before compilation. The passes
 are numpy-only and copied unchanged, so both packages build the same IR
-(compact, which the TM2 writer runs, too).
-The default-pipeline pass not ported yet (fold_shuffle_gathers) is a guard,
-wider than the JAX pass: it raises NotImplementedError on any ShuffleChannel
-node, while the JAX pass changes the graph only where a caffe-style axis-1
-Slice on one shared grid follows the shuffle.
+(compact, which the TM2 writer runs, too), except where fold_shuffle_gathers
+leaves out two faults of the JAX pass (its docstring says which).
 """
 
 from __future__ import annotations
@@ -942,16 +938,287 @@ def ensure_shapes(g: Graph) -> None:
         pass
 
 
+def _grid(t):
+    """The one (scale, zero point, dtype) grid of a per-tensor quantized
+    tensor, else None."""
+    q = t.quant
+    if q is None or q.per_channel:
+        return None
+    return (float(np.asarray(q.scales)), int(np.asarray(q.zero_points)), t.dtype)
+
+
+def _scatter_fill(q: QuantParam, out_c: int):
+    """The weight code that dequantizes to 0 in each out-channel row, shaped
+    to broadcast over [O, C, kh, kw]: the zero point, per tensor or per out
+    channel. None when a per-channel grid does not run along axis 0."""
+    zps = np.asarray(q.zero_points).reshape(-1)
+    if zps.size == 1:
+        return zps[0]
+    if zps.size != out_c:
+        return None
+    return zps.reshape(out_c, 1, 1, 1)
+
+
 def fold_shuffle_gathers(g: Graph) -> int:
-    """Guard for the JAX pass that folds ShuffleChannel -> Slice chains into
-    consumer conv weights / ChannelGather nodes, not ported yet: raises
-    NotImplementedError on any ShuffleChannel node, else returns 0."""
-    for n in g.nodes:
-        if n.op == "ShuffleChannel" and n.outputs:
-            raise NotImplementedError(
-                f"fold_shuffle_gathers on ShuffleChannel {n.name!r} is not ported yet"
+    """Fold ShuffleChannel -> Slice chains into their consumers (the
+    shufflenet-v2 block tail: concat -> shuffle(g=2) -> slice halves).
+
+    The shuffle materializes a full-C interleave copy and the conv-side
+    slice half another C/2. Both vanish exactly:
+
+      * a slice output consumed ONLY by group-1 convs folds into each
+        conv's weight: the conv reads the shuffle's INPUT directly and its
+        weight scatters to the gathered channel positions (unused columns
+        hold the weight zero-point = exact zero contribution, so the
+        engine's colsum zero-point corrections stay exact).
+      * any other slice output becomes one ChannelGather (a single C/2
+        interleave copy) instead of riding the full-C shuffle.
+
+    Slice-less shuffles fold into group-1 conv consumers as a column
+    permutation, and through a depthwise consumer into its consumers.
+
+    Exact in the quantized domain because quantize_graph pins one grid
+    across the chain (restricted-op scale sharing). Compile-time clone
+    only. Returns the number of chains folded.
+
+    Copied from the JAX pass but for two of its faults, which the port
+    does not copy:
+      * the unused columns of a per-channel weight hold each out-channel's
+        own zero point (the JAX pass writes code 0 there, which dequantizes
+        to -zp_c * s_c for a per-channel UINT8 weight); a per-channel grid
+        that does not run along the out-channel axis takes the
+        ChannelGather branch instead;
+      * a caffe Slice whose slice_points do not split it into its outputs
+        (len(points) != outputs - 1) is left alone (the JAX pass's zip
+        truncates and leaves the other outputs without a producer)."""
+    if any(
+        n.op == "ShuffleChannel" and n.inputs
+        and not g.tensors[n.inputs[0]].shape
+        for n in g.nodes
+    ):
+        try:
+            from ..executor.engine import infer_shapes
+
+            infer_shapes(g)
+        except Exception:
+            return 0
+    folded = 0
+    for sh in list(g.nodes):
+        if sh.op != "ShuffleChannel" or not sh.outputs:
+            continue
+        sl = _single_consumer(g, sh)
+        if sl is None or sl.op != "Slice" or sl.inputs[0] != sh.outputs[0]:
+            continue
+        if sl.params.get("axis", 0) != 1 or not sl.params.get("iscaffe"):
+            continue
+        t_x = g.tensors[sh.inputs[0]]
+        t_mid = g.tensors[sh.outputs[0]]
+        if t_mid.idx in g.output_tensors or sh.idx in g.outputs or sl.idx in g.outputs:
+            continue
+        if not t_x.shape or len(t_x.shape) != 4:
+            continue
+        C = int(t_x.shape[1])
+        grp = sh.params.get("group", 1)
+        if grp <= 1 or C % grp:
+            continue
+        # same-grid requirement (the passes are exact only on one grid)
+        g0 = _grid(t_x)
+        if g0 is None or _grid(t_mid) != g0:
+            continue
+        perm = [(k % grp) * (C // grp) + k // grp for k in range(C)]
+        points = list(sl.params.get("slice_points") or [])
+        n_out = len(sl.outputs)
+        if not points:
+            step = C // n_out
+            points = [step * (i + 1) for i in range(n_out - 1)]
+        if len(points) != n_out - 1:
+            continue  # a malformed slice: not every output has a range
+        starts = [0] + points
+        ends = points + [C]
+
+        def _foldable(c, o_tid):
+            if not (
+                c.op == "Convolution"
+                and c.params.get("group", 1) == 1
+                and c.inputs and c.inputs[0] == o_tid
+                and len(c.inputs) >= 2
+            ):
+                return False
+            tw = g.tensors[c.inputs[1]]
+            return (tw.is_const and tw.data is not None and tw.quant is not None
+                    and _scatter_fill(tw.quant, int(tw.data.shape[0])) is not None)
+
+        plans = []  # (out_tid, idx, conv_consumers or None)
+        ok = True
+        for o_tid, s, e in zip(sl.outputs, starts, ends):
+            t_o = g.tensors[o_tid]
+            if _grid(t_o) != g0 or o_tid in g.output_tensors:
+                ok = False
+                break
+            idx = perm[s:e]
+            consumers = [
+                g.nodes[c] for c in t_o.consumers if o_tid in g.nodes[c].inputs
+            ]
+            conv_ok = consumers and all(_foldable(c, o_tid) for c in consumers)
+            plans.append((o_tid, idx, consumers if conv_ok else None))
+        if not ok:
+            continue
+
+        for o_tid, idx, convs in plans:
+            t_o = g.tensors[o_tid]
+            if convs is not None:
+                for conv in convs:
+                    tw = g.tensors[conv.inputs[1]]
+                    w = tw.data
+                    O = int(w.shape[0])
+                    q = tw.quant
+                    w_new = np.empty((O, C) + w.shape[2:], w.dtype)
+                    w_new[...] = _scatter_fill(q, O)
+                    w_new[:, idx] = w
+                    # weights are often shared per-node in clones; make a
+                    # private const so other consumers keep the original
+                    wt2 = g.add_tensor(
+                        f"{tw.name}/shfold", tw.dtype, list(w_new.shape),
+                        TensorType.CONST, data=w_new,
+                    )
+                    wt2.quant = q
+                    conv.inputs[1] = wt2.idx
+                    wt2.consumers.append(conv.idx)
+                    tw.consumers = [c for c in tw.consumers if c != conv.idx]
+                    conv.params["input_channel"] = C
+                    conv.inputs[0] = t_x.idx
+                    t_x.consumers = sorted(set(t_x.consumers + [conv.idx]))
+                t_o.consumers = []
+            else:
+                n = g.add_node(
+                    "ChannelGather", f"{sh.name}/gather{o_tid}",
+                    [t_x.idx], [o_tid], params=dict(indices=idx),
+                )
+                t_o.producer = n.idx
+                t_x.consumers = sorted(set(t_x.consumers + [n.idx]))
+        t_mid.consumers = []
+        t_x.consumers = [c for c in t_x.consumers if c != sh.idx]
+        for node in (sh, sl):
+            node.op = "Noop"
+            node.inputs = []
+            node.outputs = []
+        folded += 1
+
+    # slice-less shuffles (the stride-2 downsample blocks feed both
+    # branches the full shuffled tensor): a pure permutation folds into
+    # group-1 conv consumers as W[:, inv_perm]
+    for sh in list(g.nodes):
+        if sh.op != "ShuffleChannel" or not sh.outputs or not sh.inputs:
+            continue
+        t_x = g.tensors[sh.inputs[0]]
+        t_mid = g.tensors[sh.outputs[0]]
+        if t_mid.idx in g.output_tensors or sh.idx in g.outputs:
+            continue
+        if not t_x.shape or len(t_x.shape) != 4:
+            continue
+        C = int(t_x.shape[1])
+        grp = sh.params.get("group", 1)
+        if grp <= 1 or C % grp:
+            continue
+        if _grid(t_x) is None or _grid(t_mid) != _grid(t_x):
+            continue
+        consumers = [
+            g.nodes[c] for c in t_mid.consumers
+            if t_mid.idx in g.nodes[c].inputs
+        ]
+
+        def _const_w(c):
+            return (
+                c.op == "Convolution"
+                and c.inputs and c.inputs[0] == t_mid.idx
+                and len(c.inputs) >= 2
+                and g.tensors[c.inputs[1]].is_const
+                and g.tensors[c.inputs[1]].data is not None
+                and g.tensors[c.inputs[1]].quant is not None
             )
-    return 0
+
+        def _dw_chain_ok(c):
+            """depthwise consumer: the permutation propagates through its
+            per-channel weights to ITS consumers, which must all be
+            group-1 const-weight convs reading it at input 0."""
+            if not (_const_w(c) and c.params.get("group", 1) == C
+                    and int(g.tensors[c.inputs[1]].shape[1]) == 1):
+                return False
+            t_o = g.tensors[c.outputs[0]]
+            if t_o.idx in g.output_tensors:
+                return False
+            nxt = [g.nodes[i] for i in t_o.consumers if t_o.idx in g.nodes[i].inputs]
+            return nxt and all(
+                n2.op == "Convolution"
+                and n2.params.get("group", 1) == 1
+                and n2.inputs and n2.inputs[0] == t_o.idx
+                and len(n2.inputs) >= 2
+                and g.tensors[n2.inputs[1]].is_const
+                and g.tensors[n2.inputs[1]].data is not None
+                and g.tensors[n2.inputs[1]].quant is not None
+                for n2 in nxt
+            )
+
+        plain = [c for c in consumers if _const_w(c) and c.params.get("group", 1) == 1]
+        dws = [c for c in consumers if c not in plain]
+        if not consumers or len(plain) + len(dws) != len(consumers) or not all(
+            _dw_chain_ok(c) for c in dws
+        ):
+            continue
+        perm = [(k % grp) * (C // grp) + k // grp for k in range(C)]
+        inv = np.argsort(np.asarray(perm))
+
+        def _permuted_w(conv, w_new):
+            tw = g.tensors[conv.inputs[1]]
+            wt2 = g.add_tensor(
+                f"{tw.name}/shperm", tw.dtype, list(w_new.shape),
+                TensorType.CONST, data=np.ascontiguousarray(w_new),
+            )
+            wt2.quant = tw.quant
+            conv.inputs[1] = wt2.idx
+            wt2.consumers.append(conv.idx)
+            tw.consumers = [c for c in tw.consumers if c != conv.idx]
+            return tw
+
+        for conv in plain:
+            _permuted_w(conv, g.tensors[conv.inputs[1]].data[:, inv])
+            conv.inputs[0] = t_x.idx
+            t_x.consumers = sorted(set(t_x.consumers + [conv.idx]))
+        import copy as _copy
+
+        for dw in dws:
+            tw = g.tensors[dw.inputs[1]]
+            old = _permuted_w(dw, tw.data[inv])
+            wt2 = g.tensors[dw.inputs[1]]
+            if old.quant.per_channel:
+                wt2.quant = _copy.deepcopy(old.quant)
+                wt2.quant.scales = np.asarray(old.quant.scales)[inv]
+                wt2.quant.zero_points = np.asarray(old.quant.zero_points)[inv]
+            if len(dw.inputs) > 2:
+                tb = g.tensors[dw.inputs[2]]
+                if tb.data is not None:
+                    bt2 = g.add_tensor(
+                        f"{tb.name}/shperm", tb.dtype,
+                        list(tb.data.shape), TensorType.CONST,
+                        data=np.ascontiguousarray(tb.data[inv]),
+                    )
+                    bt2.quant = tb.quant
+                    dw.inputs[2] = bt2.idx
+                    bt2.consumers.append(dw.idx)
+            dw.inputs[0] = t_x.idx
+            t_x.consumers = sorted(set(t_x.consumers + [dw.idx]))
+            # the dw's output now carries x-order channels: its consumers'
+            # weights permute the same way
+            t_o = g.tensors[dw.outputs[0]]
+            for n2 in [g.nodes[i] for i in t_o.consumers if t_o.idx in g.nodes[i].inputs]:
+                _permuted_w(n2, g.tensors[n2.inputs[1]].data[:, inv])
+        t_mid.consumers = []
+        t_x.consumers = [c for c in t_x.consumers if c != sh.idx]
+        sh.op = "Noop"
+        sh.inputs = []
+        sh.outputs = []
+        folded += 1
+    return folded
 
 
 def to_native_int8(g: Graph) -> int:

@@ -87,6 +87,11 @@ def like(t: TArr, x) -> TArr:
     return TArr(x, t.layout if x.ndim == t.x.ndim else None)
 
 
+def channel_axis(t: TArr) -> int:
+    """Physical axis holding C for a 4-D activation."""
+    return 3 if t.layout == "NHWC" else 1
+
+
 def semantic_axis(t: TArr, axis: int) -> int:
     """Map an NCHW-semantic axis index to the physical axis of `t`."""
     if t.layout != "NHWC" or t.x.ndim != 4:

@@ -1,10 +1,15 @@
 """Plain-torch op lowerings (the "reference kernel" tier) — PyTorch port of
 the subset of tengine_tpu/ops/lowering.py that the quantized yolov5s,
-yolov3, ResNet, mobilenet and mobilenet-SSD paths and their fp32 calibration
-run: activations, Convolution, Pooling, FullyConnected, Eltwise, Softmax and
-LogSoftmax, ReLu (incl. leaky), Dropout, Noop, and the shape ops Concat,
-Flatten, Reshape, Permute, Transpose, Squeeze, Slice, Split, Crop and
-Upsample.
+yolov3, ResNet, mobilenet, mobilenet-SSD, RetinaFace, MobileFaceNet and
+shufflenet-v2 paths and their fp32 calibration run: Convolution and
+Deconvolution, Pooling, FullyConnected, the normalizations
+(BatchNormalization, Scale, Normalize, L2Normalization), the activations
+(ReLu incl. leaky, PReLU, the unary table, Elu, Selu, HardSwish,
+Hardsigmoid, Clip, Threshold, Unary), Dropout, Noop, Eltwise, Softmax and
+LogSoftmax, the shape ops Concat, Flatten, Reshape, Permute, Transpose,
+Squeeze, Slice, Split, Crop, Pad, ShuffleChannel, ChannelGather,
+SpaceToDepth, DepthToSpace and Reorg, and the resizes Upsample, Interp and
+Resize/BilinearResize.
 
 Each function lowers one IR node to eager torch calls on the engine's
 device. Semantics follow the reference C kernels and shape-inference rules,
@@ -23,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from .layout import (
-    TArr, as_nchw, as_nhwc, as_semantic, like, nchw, nhwc, semantic_axis, semantic_shape, wrap,
+    TArr, as_nchw, as_nhwc, as_semantic, channel_axis, like, nchw, nhwc, semantic_axis,
+    semantic_shape, wrap,
 )
 from .registry import LowerCtx, register_op
 from .qmath import node_is_float
@@ -135,6 +141,60 @@ def lower_conv(ctx: LowerCtx, x: TArr, *rest: TArr):
         out = out + ctx.weight(2).to(torch.float32)
     out = apply_activation(out, p.get("activation", -1))
     return nhwc(out.to(dt) if dt != torch.float32 else out)
+
+
+@register_op("Deconvolution")
+def lower_deconv(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """Transposed conv (deconvolution.c infer_shape):
+    out = (in - 1) * stride + out_pad + k_eff - pad0 - pad1.
+
+    Also serves quantized graphs (deconv_ref uint8 semantics): the engine's
+    generic wrapper dequantizes the activation and requantizes the output;
+    quantized weights/bias are dequantized host-side here.
+
+    The JAX lowering runs a forward conv of the stride-dilated input with the
+    flipped kernel, padded by k_eff - 1 - pad (the hi side + output_pad).
+    Here conv_transpose2d computes the full transposed conv (no padding, the
+    same sums), and one F.pad crops pad0 from the front and pad1 - out_pad
+    from the back (a negative crop appends zeros): the same window."""
+    p = ctx.params
+    dil_h, dil_w = p["dilation_h"], p["dilation_w"]
+    group = p["group"]
+
+    # the tmfile deconv weight is [in_c, out_c/group, kh, kw] (IOHW): the
+    # layout conv_transpose2d takes as is
+    def weight_f32(a: np.ndarray) -> np.ndarray:
+        t_w = ctx.in_tensor(1)
+        if t_w.quant is not None and not np.issubdtype(a.dtype, np.floating):
+            from . import qmath
+
+            a = qmath.dequantize_np(a, t_w.quant, channel_axis=0)
+        return a.astype(np.float32)
+
+    w = ctx.weight(1, weight_f32, tag="iohw_f32")
+    dt = compute_dtype(ctx)
+    full = F.conv_transpose2d(
+        as_nchw(x).to(dt), w.to(dt), stride=(p["stride_h"], p["stride_w"]),
+        dilation=(dil_h, dil_w), groups=group,
+    ).to(torch.float32)
+    out = F.pad(full, (
+        -p["pad_w0"], p.get("output_pad_w0", 0) - p["pad_w1"],
+        -p["pad_h0"], p.get("output_pad_h0", 0) - p["pad_h1"],
+    )).permute(0, 2, 3, 1)
+    if ctx.num_inputs > 2:
+
+        def bias_f():
+            t_b = ctx.in_tensor(2)
+            b = t_b.data
+            if t_b.quant is not None and not np.issubdtype(b.dtype, np.floating):
+                from . import qmath
+
+                return qmath.dequantize_np(b, t_b.quant, channel_axis=0)
+            return b.astype(np.float32)
+
+        out = out + ctx.get_param("bias_deq", bias_f)
+    out = apply_activation(out, p.get("activation", -1))
+    return nhwc(out)
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +329,80 @@ def lower_fc(ctx: LowerCtx, x: TArr, *rest: TArr):
 
 
 # ---------------------------------------------------------------------------
+# normalization
+# ---------------------------------------------------------------------------
+
+
+@register_op("BatchNormalization")
+def lower_batchnorm(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """Inference BN (batchnorm_ref.c:56-105): inputs
+    [x, gamma, beta, mean, var]; rf = 1/rescale_factor (0 if unset);
+    y = x * s + b with s = 1/sqrt(var*rf + eps), b = -mean*rf*s, then
+    gamma/beta unless caffe_flavor. The fold runs in float64 on the host
+    and [s, b] is cast to f32 once, a compile-time param. The channel axis
+    is the layout's on a 4-D tensor, else axis 1 (the last one of a 2-D
+    FC output), as in the JAX lowering."""
+    p = ctx.params
+
+    def folded():
+        mean = ctx.const_data(3).astype(np.float64)
+        var = ctx.const_data(4).astype(np.float64)
+        rf = p["rescale_factor"]
+        rf = 1.0 / rf if rf else 0.0
+        s = 1.0 / np.sqrt(var * rf + p["eps"])
+        b = -mean * rf * s
+        if not p["caffe_flavor"]:
+            gamma = ctx.const_data(1).astype(np.float64)
+            beta = ctx.const_data(2).astype(np.float64)
+            s, b = gamma * s, gamma * b + beta
+        return np.stack([s, b]).astype(np.float32)
+
+    sb = ctx.get_param("bn_sb", folded)
+    s, b = sb[0], sb[1]
+    nd = x.x.ndim
+    shape = [1] * nd
+    if nd == 4:
+        shape[channel_axis(x)] = s.shape[0]
+    else:
+        shape[1 if nd > 1 else 0] = s.shape[0]
+    return like(x, x.x * s.reshape(shape) + b.reshape(shape))
+
+
+@register_op("Scale")
+def lower_scale(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """Caffe Scale: per-channel gamma (+ beta) (scale_ref.c)."""
+    cax = channel_axis(x) if x.x.ndim == 4 else 1
+    shape = [1] * x.x.ndim
+    gamma = ctx.weight(1)
+    shape[cax] = gamma.shape[0] if gamma.ndim else 1
+    out = x.x * gamma.reshape(shape)
+    if ctx.num_inputs > 2:
+        out = out + ctx.weight(2).reshape(shape)
+    return like(x, out)
+
+
+@register_op("Normalize")
+def lower_normalize(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """SSD Normalize: L2 across channels, per-channel scale
+    (normalize_ref.c; across_spatial unsupported there too)."""
+    xn = as_nhwc(x)
+    out = xn * torch.rsqrt(torch.sum(xn * xn, dim=3, keepdim=True) + 1e-10)
+    if ctx.num_inputs > 1:
+        out = out * ctx.weight(1).reshape(1, 1, 1, -1)
+    return nhwc(out)
+
+
+@register_op("L2Normalization")
+def lower_l2norm(ctx: LowerCtx, x: TArr):
+    """L2-normalize over the channel axis, no epsilon: the reference kernel
+    normalizes dims[1] elements (l2normalization_ref.c:115 channel_size =
+    dims[1]), i.e. the embedding axis of (N, C) / (N, C, 1, 1) heads."""
+    xs = as_semantic(x)
+    axis = 1 if xs.ndim > 1 else 0
+    return wrap(xs * torch.rsqrt(torch.sum(xs * xs, dim=axis, keepdim=True)))
+
+
+# ---------------------------------------------------------------------------
 # activations / elementwise unary
 # ---------------------------------------------------------------------------
 
@@ -280,6 +414,30 @@ def _unary_op(fn):
     return lower
 
 
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus, logaddexp(x, 0) as jnp computes it: max(x, 0) +
+    log1p(exp(-|x|)) (F.softplus returns x itself above its threshold)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+_SQRT_HALF = float(np.float32(np.sqrt(0.5)))
+
+
+register_op("ReLu6")(_unary_op(lambda x: torch.clamp(x, 0.0, 6.0)))
+register_op("ReLU1")(_unary_op(lambda x: torch.clamp(x, -1.0, 1.0)))
+register_op("Logistic")(_unary_op(torch.sigmoid))
+register_op("Sigmoid")(_unary_op(torch.sigmoid))
+register_op("Tanh")(_unary_op(torch.tanh))
+register_op("Absval")(_unary_op(torch.abs))
+register_op("Mish")(_unary_op(lambda x: x * torch.tanh(_softplus(x))))
+register_op("Softplus")(_unary_op(_softplus))
+register_op("Reciprocal")(_unary_op(lambda x: 1.0 / x))
+register_op("Ceil")(_unary_op(torch.ceil))
+# torch.round and jnp.round both round half to even
+register_op("Round")(_unary_op(torch.round))
+register_op("ZerosLike")(_unary_op(torch.zeros_like))
+# jax.nn.gelu(approximate=False): 0.5 * x * erfc(-x * sqrt(1/2))
+register_op("Gelu")(_unary_op(lambda x: 0.5 * x * torch.erfc(-x * _SQRT_HALF)))
 register_op("Noop")(_unary_op(lambda x: x))
 register_op("Dropout")(_unary_op(lambda x: x))
 
@@ -291,6 +449,73 @@ def lower_relu(ctx: LowerCtx, x: TArr):
     if slope == 0.0:
         return like(x, torch.clamp_min(x.x, 0))
     return like(x, torch.where(x.x > 0, x.x, x.x * slope))
+
+
+@register_op("PReLU")
+def lower_prelu(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """Per-channel PReLU (prelu_ref.c): the slope on the layout's channel
+    axis of a 4-D tensor, else broadcast as it is."""
+    slope = ctx.weight(1)
+    if x.x.ndim == 4:
+        shape = [1, 1, 1, 1]
+        shape[channel_axis(x)] = slope.shape[0]
+        slope = slope.reshape(shape)
+    return like(x, torch.where(x.x > 0, x.x, x.x * slope))
+
+
+@register_op("Elu")
+def lower_elu(ctx: LowerCtx, x: TArr):
+    """alpha * (exp(x) - 1) below 0, as the JAX lowering (not expm1)."""
+    alpha = ctx.params.get("alpha", 1.0)
+    return like(x, torch.where(x.x > 0, x.x, alpha * (torch.exp(x.x) - 1.0)))
+
+
+@register_op("Selu")
+def lower_selu(ctx: LowerCtx, x: TArr):
+    alpha = ctx.params.get("alpha", 1.6732632)
+    lam = ctx.params.get("lambda_", 1.0507010)
+    return like(x, lam * torch.where(x.x > 0, x.x, alpha * (torch.exp(x.x) - 1.0)))
+
+
+@register_op("HardSwish")
+def lower_hardswish(ctx: LowerCtx, x: TArr):
+    """x * clip(alpha*x + beta, 0, 1) (hardswish_ref.c; default alpha=1/6,
+    beta=0.5): the node's own params, not F.hardswish's constants."""
+    alpha = ctx.params.get("alpha", 1.0 / 6.0)
+    beta = ctx.params.get("beta", 0.5)
+    return like(x, x.x * torch.clamp(alpha * x.x + beta, 0.0, 1.0))
+
+
+@register_op("Hardsigmoid")
+def lower_hardsigmoid(ctx: LowerCtx, x: TArr):
+    alpha = ctx.params.get("alpha", 0.2)
+    beta = ctx.params.get("beta", 0.5)
+    return like(x, torch.clamp(alpha * x.x + beta, 0.0, 1.0))
+
+
+@register_op("Clip")
+def lower_clip(ctx: LowerCtx, x: TArr):
+    return like(x, torch.clamp(x.x, ctx.params["min"], ctx.params["max"]))
+
+
+@register_op("Threshold")
+def lower_threshold(ctx: LowerCtx, x: TArr):
+    return like(x, (x.x > ctx.params["threshold"]).to(x.x.dtype))
+
+
+_UNARY = {
+    0: torch.abs, 1: torch.negative, 2: torch.floor, 3: torch.ceil,
+    4: torch.square, 5: torch.sqrt, 6: torch.rsqrt, 7: torch.exp,
+    8: torch.log, 9: torch.sin, 10: torch.cos, 11: torch.tan,
+    12: torch.asin, 13: torch.acos, 14: torch.atan,
+    15: lambda v: 1.0 / v, 16: torch.tanh,
+}
+
+
+@register_op("Unary")
+def lower_unary(ctx: LowerCtx, x: TArr):
+    """Unary op dispatch (unary_param.h type table)."""
+    return like(x, _UNARY[ctx.params["type"]](x.x))
 
 
 # ---------------------------------------------------------------------------
@@ -548,6 +773,124 @@ def lower_crop(ctx: LowerCtx, x: TArr, *rest: TArr):
     return nchw(xs[:, :, oh : oh + th, ow : ow + tw])
 
 
+def _index_pad(ctx: LowerCtx, xs: torch.Tensor, pads, mode: str) -> torch.Tensor:
+    """Edge or reflect padding (np.pad's modes, which jnp.pad follows) as one
+    index_select per padded axis; the index tables are compile-time params."""
+    for axis, (lo, hi) in enumerate(pads):
+        if lo or hi:
+            size = xs.shape[axis]
+            idx = ctx.get_param(f"pad_idx{axis}", lambda size=size, lo=lo, hi=hi: np.pad(
+                np.arange(size, dtype=np.int64), (lo, hi), mode=mode))
+            xs = xs.index_select(axis, idx)
+    return xs
+
+
+@register_op("Pad")
+def lower_pad(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """Pad NCHW (pad.c): mode 0=constant 1=edge 2=reflect; negative pads
+    clamp to 0."""
+    p = ctx.params
+    xs = as_nchw(x) if x.x.ndim == 4 else as_semantic(x)
+    pads = [
+        (p["pad_n_0"], p["pad_n_1"]),
+        (p["pad_c_0"], p["pad_c_1"]),
+        (p["pad_h_0"], p["pad_h_1"]),
+        (p["pad_w_0"], p["pad_w_1"]),
+    ][: xs.ndim]
+    pads = [(max(a, 0), max(b, 0)) for a, b in pads]
+    mode = {0: "constant", 1: "edge", 2: "reflect"}[p.get("mode", 0)]
+    if mode == "constant":
+        flat = [v for lo_hi in reversed(pads) for v in lo_hi]
+        out = F.pad(xs, flat, value=float(p.get("value", 0.0)))
+    else:
+        out = _index_pad(ctx, xs, pads, mode)
+    return nchw(out) if x.x.ndim == 4 else wrap(out)
+
+
+@register_op("ShuffleChannel")
+def lower_shufflechannel(ctx: LowerCtx, x: TArr):
+    """Channel shuffle (shufflechannel_ref.c): [N,g,C/g,...] transpose."""
+    g = ctx.params["group"]
+    if x.layout == "NHWC":
+        n, h, w, c = x.x.shape
+        return nhwc(x.x.reshape(n, h, w, g, c // g).transpose(3, 4).reshape(n, h, w, c))
+    n, c, h, w = x.x.shape
+    return nchw(x.x.reshape(n, g, c // g, h, w).transpose(1, 2).reshape(n, c, h, w))
+
+
+@register_op("ChannelGather")
+def lower_channel_gather(ctx: LowerCtx, x: TArr):
+    """Static channel gather (graph/passes.py:fold_shuffle_gathers) — the
+    materialized residue of a folded shuffle+slice chain. The indices are a
+    compile-time param."""
+    idx = ctx.get_param("gather_idx", lambda: np.asarray(ctx.params["indices"], np.int64))
+    if x.layout == "NHWC":
+        return nhwc(x.x.index_select(3, idx))
+    return wrap(as_semantic(x).index_select(1, idx))
+
+
+@register_op("SpaceToDepth")
+def lower_space_to_depth(ctx: LowerCtx, x: TArr):
+    """mode DCR (ONNX): channel order (dy, dx, c); mode CRD (default, torch
+    pixel_unshuffle — matches the DepthToSpace default so the pair
+    round-trips). Computed in the input's own layout, as the JAX lowering
+    does; the result is NCHW either way."""
+    bs = ctx.params["block_size"]
+    crd = ctx.params.get("mode", "CRD") == "CRD"
+    if x.layout != "NHWC":
+        n, c, h, w = x.x.shape
+        v = x.x.reshape(n, c, h // bs, bs, w // bs, bs)
+        v = v.permute(0, 1, 3, 5, 2, 4) if crd else v.permute(0, 3, 5, 1, 2, 4)
+        return nchw(v.reshape(n, c * bs * bs, h // bs, w // bs))
+    n, h, w, c = x.x.shape
+    v = x.x.reshape(n, h // bs, bs, w // bs, bs, c)
+    v = v.permute(0, 5, 2, 4, 1, 3) if crd else v.permute(0, 2, 4, 5, 1, 3)
+    return nchw(v.reshape(n, bs * bs * c, h // bs, w // bs))
+
+
+@register_op("DepthToSpace")
+def lower_depth_to_space(ctx: LowerCtx, x: TArr):
+    """Inverse of SpaceToDepth; mode CRD = torch pixel_shuffle, the default
+    (depthtospace_ref.c hardcodes the CRD index map); ONNX-imported graphs
+    carry an explicit mode."""
+    bs = ctx.params["block_size"]
+    crd = ctx.params.get("mode", "CRD") == "CRD"
+    xn = as_nhwc(x)
+    n, h, w, c = xn.shape
+    c2 = c // (bs * bs)
+    if crd:
+        out = xn.reshape(n, h, w, c2, bs, bs).permute(0, 1, 4, 2, 5, 3)
+    else:
+        out = xn.reshape(n, h, w, bs, bs, c2).permute(0, 1, 3, 2, 4, 5)
+    return nhwc(out.reshape(n, h * bs, w * bs, c2))
+
+
+@register_op("Reorg")
+def lower_reorg(ctx: LowerCtx, x: TArr):
+    """YOLO reorg with darknet's inverse ("backward") index map, which the
+    reference replicates exactly (reorg_ref.c:44-60, out_data[in_index] =
+    in_data[out_index]): out_flat[(k*h + j)*w + i] =
+    in_flat[(c2*(h*s) + h2)*(w*s) + w2] with c2 = k % oc, off = k // oc,
+    h2 = j*s + off//s, w2 = i*s + off%s, the result read as
+    (n, c*s*s, h//s, w//s). One gather per image; its flat index table is a
+    compile-time param."""
+    s = ctx.params["stride"]
+    xs = as_nchw(x)
+    n, c, h, w = xs.shape
+    oc = c // (s * s)
+
+    def table():
+        k = np.arange(c)[:, None, None]
+        off = k // oc
+        h2 = np.arange(h)[None, :, None] * s + off // s
+        w2 = np.arange(w)[None, None, :] * s + off % s
+        return (((k % oc) * (h * s) + h2) * (w * s) + w2).reshape(-1).astype(np.int64)
+
+    idx = ctx.get_param("reorg_idx", table)
+    out = xs.reshape(n, c * h * w).index_select(1, idx)
+    return nchw(out.reshape(n, c * s * s, h // s, w // s))
+
+
 # ---------------------------------------------------------------------------
 # resize / upsample
 # ---------------------------------------------------------------------------
@@ -576,3 +919,75 @@ def lower_upsample(ctx: LowerCtx, x: TArr, *rest: TArr):
     xn = as_nhwc(x)
     n, h, w, c = xn.shape
     return nhwc(_nearest_nhwc(ctx, xn, int(h * scale), int(w * scale)))
+
+
+def _bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
+    """One axis of jax.image.resize(method="bilinear") — its
+    compute_weight_mat with translation 0 and antialias on — as an
+    [in_size, out_size] float32 matrix: a triangle kernel widened by the
+    scale when downscaling (antialiasing, which F.interpolate's bilinear
+    mode does not do), each column normalized to sum 1, and zero where the
+    sample falls outside the input."""
+    f32 = np.float32
+    inv = f32(1.0 / (out_size / in_size))
+    kernel_scale = np.maximum(inv, f32(1.0))
+    sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def _bilinear_nhwc(ctx: LowerCtx, xn: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """jax.image.resize's bilinear resize (half-pixel centers, antialiased
+    when downscaling) as a contraction with one weight matrix per resized
+    axis; an axis whose size does not change is left alone, as JAX leaves
+    it. The matrices are compile-time params, at the compiled size."""
+    n, h, w, c = xn.shape
+    out = xn
+    if out_h != h:
+        wh = ctx.get_param("bilinear_h", lambda: _bilinear_weights(h, out_h))
+        out = torch.einsum("nhwc,ho->nowc", out, wh)
+    if out_w != w:
+        ww = ctx.get_param("bilinear_w", lambda: _bilinear_weights(w, out_w))
+        out = torch.einsum("nhwc,wp->nhpc", out, ww)
+    return out
+
+
+def _resize_nhwc(ctx: LowerCtx, xn: torch.Tensor, out_h: int, out_w: int,
+                 method: str) -> torch.Tensor:
+    if method == "nearest":
+        return _nearest_nhwc(ctx, xn, out_h, out_w)
+    # bilinear, half-pixel centers align with the reference interp
+    # (interp_ref.c uses align_corners=false caffe style)
+    return _bilinear_nhwc(ctx, xn, out_h, out_w)
+
+
+@register_op("Interp")
+def lower_interp(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """Interp resize (interp_ref.c): resize_type 1=nearest 2=bilinear."""
+    p = ctx.params
+    xn = as_nhwc(x)
+    n, h, w, c = xn.shape
+    out_h, out_w = p.get("output_height", 0), p.get("output_width", 0)
+    if out_h <= 0 or out_w <= 0:
+        out_h = int(h * p.get("height_scale", 1.0))
+        out_w = int(w * p.get("width_scale", 1.0))
+    method = "nearest" if p.get("resize_type", 2) == 1 else "bilinear"
+    return nhwc(_resize_nhwc(ctx, xn, out_h, out_w, method))
+
+
+@register_op("Resize")
+@register_op("BilinearResize")
+def lower_resize(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """Resize (resize.c): type 0=nearest, else bilinear; scales from param."""
+    p = ctx.params
+    xn = as_nhwc(x)
+    n, h, w, c = xn.shape
+    out_h = int(h * p.get("scale_y", p.get("scale_x", 1.0)))
+    out_w = int(w * p.get("scale_x", 1.0))
+    method = "nearest" if p.get("type", 0) == 0 else "bilinear"
+    return nhwc(_resize_nhwc(ctx, xn, out_h, out_w, method))

@@ -3,8 +3,10 @@ port of the subset of tengine_tpu/ops/quantized.py that the yolov5s INT8
 path, the yolov3 integer-storage path (quant_bf16_storage=False), the
 YOLO-Fastest depthwise path (INT8 and UINT8), the ResNet-50 INT8 path
 (FullyConnected, global average pool, ReLu; the bottleneck chains lower in
-ops/fused.py) and the native-int8 plan (UINT8 grids shifted to full-range
-INT8, executor/engine.py) run.
+ops/fused.py), the native-int8 plan (UINT8 grids shifted to full-range
+INT8, executor/engine.py) and the shape ops of the SSD, face and
+shufflenet-v2 paths (the passthroughs, ShuffleChannel and ChannelGather
+among them) run: every lowering the JAX module registers.
 
 Two tiers, mirroring the reference's ref-vs-optimized kernel split:
 
@@ -1076,10 +1078,10 @@ def lower_relu_quant(ctx: LowerCtx, x: TArr):
 # Quantized-domain passthrough for value-preserving data-movement ops: when
 # every activation in/out shares one (scale, zp) grid they commute with the
 # quantization map and run on the raw stored values (bit-equal; the
-# quantizer pins these grids equal). The JAX package's list but
-# ShuffleChannel and ChannelGather, which wait for fold_shuffle_gathers
-# (graph/passes.py guards them). The port stores every activation as its
-# 1-byte dtype, so no cast to a storage dtype follows.
+# quantizer pins these grids equal). The JAX package's list, ShuffleChannel
+# and ChannelGather (the residue of graph/passes.py:fold_shuffle_gathers)
+# among them. The port stores every activation as its 1-byte dtype, so no
+# cast to a storage dtype follows.
 # ---------------------------------------------------------------------------
 
 
@@ -1131,6 +1133,7 @@ def _install_passthroughs():
     from . import lowering as L
 
     for op, fn in (
+        ("ShuffleChannel", L.lower_shufflechannel),
         ("Reshape", L.lower_reshape),
         ("Flatten", L.lower_flatten),
         ("Squeeze", L.lower_squeeze),
@@ -1143,6 +1146,7 @@ def _install_passthroughs():
         # both value-preserving (bilinear Interp is NOT and stays wrapped)
         ("Upsample", L.lower_upsample),
         ("Crop", L.lower_crop),
+        ("ChannelGather", L.lower_channel_gather),
     ):
         _register_passthrough(op, fn)
 

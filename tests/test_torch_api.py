@@ -78,10 +78,11 @@ def _threshold_graph(gain):
 
 
 def test_custom_op_registration(rng):
-    """A torch lowering registered for Threshold (a builtin op of the JAX
-    package, none in the port) wins selection at SCORE_STATIC; the JAX
+    """A torch lowering registered for Threshold (a builtin op of both
+    packages) wins selection at SCORE_STATIC over the builtin; the JAX
     package runs its own registration on the same tmfile; unregister drops
-    it again."""
+    it again, and the builtin lowering, equal to the JAX package's, takes
+    the node back."""
     from tengine_tpu.api import register_custom_op as jax_register
     from tengine_tpu.ops.layout import like as jlike
     from tengine_tpu.ops.registry import SCORE_STATIC
@@ -110,8 +111,12 @@ def test_custom_op_registration(rng):
     finally:
         unregister()  # don't leak the override into the global registry
         jax_unregister()
-    with pytest.raises(NotImplementedError, match="Threshold"):
-        pt.compile_graph(pt.load_tm_bytes(blob), device="cpu")
+    cg = pt.compile_graph(pt.load_tm_bytes(blob), device="cpu")
+    assert cg.kernels["threshold"] == "lower_threshold"
+    (out,) = cg.run(x)
+    (want,) = jt.compile_graph(jt.load_tm_bytes(blob)).run(x)
+    np.testing.assert_array_equal(out, (x > 0).astype(np.float32))
+    np.testing.assert_array_equal(out, want)
 
 
 PLUGIN = """

@@ -6,8 +6,10 @@ On the CPU: the proof that the forward can be captured. With torch's host
 upload and sync entry points patched to raise after compile_graph, the eager
 forward (CompiledGraph.forward_fn) runs yolov5s, yolov3 tiers A and B,
 YOLO-Fastest tier D, the narrow ResNet-50 under tier F and under the
-native-int8 plan, mobilenet-v1 under tiers K and L and mobilenet-SSD under
-SSD-U (its NMS on the device), each through the
+native-int8 plan, mobilenet-v1 under tiers K and L, mobilenet-SSD under
+SSD-U (its NMS on the device), RetinaFace and shufflenet-v2 (its shuffles
+folded) on the integer-storage tier and MobileFaceNet under FACE-U, each
+through the
 routes that reach the hand-written kernels' wrappers (on the CPU their plain
 versions), and the four nets in fp32. A capture
 fails on an upload from pageable host memory or a sync with the host, so a
@@ -45,7 +47,8 @@ from tengine_tpu_torch.ops import qmath  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
-    build_mobilenet_ssd_graph, build_mobilenet_v1_graph, build_resnet50_graph,
+    build_mobilefacenet_graph, build_mobilenet_ssd_graph, build_mobilenet_v1_graph,
+    build_resnet50_graph, build_retinaface_mnet_graph, build_shufflenet_v2_graph,
 )
 
 RESNET_SMALL = dict(img=32, classes=16, widths=(8, 16, 32, 64), depths=(2, 2, 2, 2))
@@ -53,6 +56,13 @@ MOBILENET_SMALL = dict(img=32, classes=16,
                        widths=(32, 32, 64, 64, 64, 64, 96, 96, 96, 96, 96, 96, 128, 128))
 SSD_SMALL = dict(img=64, widths=MOBILENET_SMALL["widths"],
                  extras=((128, 64), (128, 64), (32, 64), (32, 32)), conf_gain=16.0)
+RETINAFACE_SMALL = dict(h=64, w=48, widths=(8, 16, 32, 32, 32, 32, 32, 32, 32, 32, 32, 32, 64, 64),
+                        fpn=32)
+MOBILEFACENET_SMALL = dict(img=56, stem=32, bottlenecks=((2, 32, 2, 2), (2, 64, 1, 2),
+                                                         (2, 64, 2, 1), (2, 64, 1, 2),
+                                                         (2, 64, 1, 1)),
+                           conv5=128, embedding=32)
+SHUFFLENET_SMALL = dict(img=64, classes=16, stem=8, widths=(16, 32, 64), conv5=64)
 
 # net and tier: (net, scheme, batch, Options beyond quant_mode="fast", the
 # environment while compile_graph runs, the lowerings that must be taken)
@@ -79,6 +89,17 @@ CASES = {
     "ssd-U": ("ssd", "uint8", 32, dict(quant_bf16_storage=False), {"TT_DW_PALLAS": "1"},
               {"lower_conv_quant_pallas_dw", "lower_conv_quant_pallas_direct",
                "lower_detection_output", "lower_priorbox"}),
+    # the face pipeline's nets and shufflenet-v2 on the integer-storage tier:
+    # PReLU, BatchNormalization, L2Normalization, Softmax and Crop through
+    # the generic wrapper, the folded shuffles' ChannelGather passthroughs
+    "retinaface-T": ("retinaface", "uint8", 2, dict(quant_bf16_storage=False), {},
+                     {"lower_conv_quant_pallas_direct", "lower_crop", "lower_softmax"}),
+    "mobilefacenet-U": ("mobilefacenet", "uint8", 32, dict(quant_bf16_storage=False),
+                        {"TT_DW_PALLAS": "1"},
+                        {"lower_conv_quant_pallas_dw", "lower_prelu", "lower_batchnorm",
+                         "lower_l2norm"}),
+    "shufflenet-T": ("shufflenet", "uint8", 2, dict(quant_bf16_storage=False), {},
+                     {"lower_conv_quant_pallas_direct", "_lower"}),
     # the fp32 engine, which chip_smoke.py holds the quantized heads against
     "yolov5s-fp32": ("yolov5s", "fp32", 2, {}, {}, {"lower_conv"}),
     "yolov3-fp32": ("yolov3", "fp32", 2, {}, {}, {"lower_upsample"}),
@@ -104,9 +125,16 @@ def quantized(net, scheme):
         g, img = build_resnet50_graph(pir, **RESNET_SMALL), RESNET_SMALL["img"]
     elif net == "ssd":
         g, img = build_mobilenet_ssd_graph(pir, **SSD_SMALL), SSD_SMALL["img"]
+    elif net == "retinaface":
+        g, img = build_retinaface_mnet_graph(pir, **RETINAFACE_SMALL), None
+    elif net == "mobilefacenet":
+        g, img = build_mobilefacenet_graph(pir, **MOBILEFACENET_SMALL), MOBILEFACENET_SMALL["img"]
+    elif net == "shufflenet":
+        g, img = build_shufflenet_v2_graph(pir, **SHUFFLENET_SMALL), SHUFFLENET_SMALL["img"]
     else:
         g, img = build_mobilenet_v1_graph(pir, **MOBILENET_SMALL), MOBILENET_SMALL["img"]
-    x = np.random.default_rng(1).standard_normal((32, 3, img, img)).astype(np.float32)
+    shape = (3, img, img) if img else tuple(g.tensors[g.input_tensors[0]].shape[1:])
+    x = np.random.default_rng(1).standard_normal((32, *shape)).astype(np.float32)
     if scheme == "fp32":
         return g, x
     return pt.quantize_graph(g, [x[:1]], scheme=scheme, algorithm="minmax", device="cpu"), x
@@ -239,7 +267,8 @@ def _equal(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["yolov3-A", "yolov3-B", "yolofastest-D", "resnet50-F",
-                                  "mobilenet-K", "mobilenet-L", "ssd-U"])
+                                  "mobilenet-K", "mobilenet-L", "ssd-U", "retinaface-T",
+                                  "mobilefacenet-U", "shufflenet-T"])
 def test_captured_forward_equals_eager_on_card(case, monkeypatch):
     _need_card()
     cg, xq = compiled(case, monkeypatch, "cuda")

@@ -107,6 +107,17 @@ def test_uint8_minmax_calibration_matches_jax():
     scales, so they may part by 1. The detections stay float."""
     _, pg, jqg, x, _ = net()
     pqg = pt.quantize_graph(pg, [x[:1]], scheme="uint8", algorithm="minmax", device="cpu")
+    n_w, n_act = check_calibration(jqg, pqg)
+    det = pqg.tensors[pqg.output_tensors[0]]
+    assert det.quant is None and det.dtype.name == "FP32"
+    assert n_w == 47 and n_act >= 80
+
+
+def check_calibration(jqg, pqg):
+    """The UINT8 MinMax graphs of the two quantizers, tensor by tensor:
+    weights and their QuantParams equal, raw int32 biases within 1,
+    activation zero points equal and scales within rtol 1e-5. Returns the
+    numbers of weights and of quantized activations."""
     assert len(pqg.tensors) == len(jqg.tensors)
     n_act = n_w = 0
     for a, b in zip(jqg.tensors, pqg.tensors):
@@ -126,9 +137,7 @@ def test_uint8_minmax_calibration_matches_jax():
             assert int(a.quant.zero_points) == int(b.quant.zero_points), a.name
             np.testing.assert_allclose(float(b.quant.scales), float(a.quant.scales), rtol=1e-5,
                                        err_msg=a.name)
-    det = pqg.tensors[pqg.output_tensors[0]]
-    assert det.quant is None and det.dtype.name == "FP32"
-    assert n_w == 47 and n_act >= 80
+    return n_w, n_act
 
 
 @pytest.mark.parametrize("tier", list(TIERS))
