@@ -153,6 +153,34 @@ Phases, in order; any failure raises and the exit code is not 0:
                against the fp32 engine > 0.99, the first 8 images at batch
                1 equal to their rows in the batch, and the card within
                1 LSB of the port's CPU run with the same Options on image 0.
+               Then the transformers (models/transformer_zoo.py) INT8 at
+               batch 1, MinMax from one seeded image: ViT at DeiT-Ti's
+               widths and depth (224, patch 16, dim 192, 12 blocks, 3
+               heads, 1000 classes) and SegFormer at the ADE20K setting
+               (512x512, 150 classes, the builder's widths), under
+                 VIT-S, SEG-S  Options(quant_mode="fast"): every MatMul,
+                         LayerNorm, SwapAxis, Softmax, Gelu and Reduction
+                         through the generic wrapper, the convs and the FC
+                         on the fast lowerings
+                 VIT-T   VIT-S + quant_bf16_storage=False, pallas_qgemm=
+                         True: the head FC ([1, 192] x [192, 1000]) on
+                         qgemm_requant
+                 SEG-T   SEG-S + quant_bf16_storage=False: the decoder's
+                         four split fuse convs and classify on qconv1x1,
+                         embeds/3 and stage 3's two spatial reductions on
+                         qconv_direct;
+               each checked right after it runs (run_transformer_tiers):
+               launches derived from the IR, every kernel launch against
+               its plain version, the dequantized output's cosine against
+               the fp32 engine (> 0.95 ViT, > 0.99 SegFormer), the card
+               held to the port's CPU run node by node, each node fed the
+               CPU's inputs (within 1 LSB on at most 0.1% of a node's
+               elements), and the free-running output's cosine against
+               the CPU's >= 0.999; SegFormer's class map printed.
+               Every launch of qgemm_requant (yolov3 B, ResNet-50 H,
+               VIT-T), qconv1x1, qconv_direct and dw_qconv in one eager
+               forward of a tier that launches one is held against its
+               plain version (check_path_kernels).
                Every kernel's launch count is set to 0 just before each
                tier's captured run and read just after it; the counts must be
                exact: a wrapper launches its kernel in the warm-up forward
@@ -355,6 +383,31 @@ FACE_TIERS = {
 # lowering (TT_DW_PALLAS unset)
 SHUF_TIERS = {"SHUF-T": (dict(quant_bf16_storage=False), None, {"qconv1x1": 36}, 32)}
 SHUF_FOLDS = 16
+# phase 3i: the transformers (models/transformer_zoo.py) at batch 1, which
+# the builders bake into their token reshapes; INT8 MinMax from one seeded
+# image. ViT at DeiT-Ti's published widths and depth (Touvron et al. 2021,
+# Table 1: patch 16, dim 192, 12 blocks, 3 heads; 224, 1000 classes; the
+# builder's own default depth is 6); SegFormer at the paper's ADE20K setting
+# (Xie et al. 2021: 512x512, 150 classes) with the builder's B0-shaped
+# widths (dims 32/64/128/192, heads 1/2/4/8, sr 8/4/2/1, depths 2/2/2/2,
+# decoder 64; B0 itself is 32/64/160/256 with a decoder of 256, and the
+# builder takes neither argument). Per tier: the net, the Options beyond
+# Options(quant_mode="fast"), the launches per forward (derived from the IR
+# and asserted), and the cosine gate of the dequantized output against the
+# fp32 engine (ViT: tests/test_transformer_zoo.py's). T: ViT's head FC on
+# qgemm_requant; SegFormer's decoder (the four split fuse convs and
+# classify) on qconv1x1, embeds/3 (3x3 s2) and stage 3's two 2x2 s2 spatial
+# reductions (C_in 128) on qconv_direct
+VIT_CONFIG = dict(num_classes=1000, img=224, patch=16, dim=192, depth=12, nheads=3)
+SEG_CONFIG = dict(num_classes=150, img=512)
+TRANSFORMER_TIERS = {
+    "VIT-S": ("vit", {}, {}, 0.95),
+    "VIT-T": ("vit", dict(quant_bf16_storage=False, pallas_qgemm=True), {"qgemm_requant": 1},
+              0.95),
+    "SEG-S": ("segformer", {}, {}, 0.99),
+    "SEG-T": ("segformer", dict(quant_bf16_storage=False), {"qconv_direct": 3, "qconv1x1": 5},
+              0.99),
+}
 # the forwards of a tier's main-path run that call the kernels' wrappers: the
 # captured forward's warm-up and its capture (drive)
 WRAPPER_RUNS = 2
@@ -1832,16 +1885,18 @@ def check_rows(what, got, want, min_valid=10):
     return box
 
 
-def check_path_kernels(torch, cg, x, what):
-    """Every launch of qconv1x1, qconv_direct and dw_qconv in one eager
-    forward of cg (the main path's shapes and data) held against its plain
-    version on the same inputs: at most 1 LSB (0 expected). These launches
-    come after drive has read the counts, so they count for no tier."""
+def check_path_kernels(torch, cg, x, what, per_forward):
+    """Every launch of qconv1x1, qconv_direct, qgemm_requant and dw_qconv in
+    one eager forward of cg (the main path's shapes and data) held against
+    its plain version on the same inputs: at most 1 LSB (0 expected), and
+    the launches checked those of per_forward ({kernel: launches}). These
+    launches come after drive has read the counts, so they count for no
+    tier."""
     import tengine_tpu_torch.ops.quantized as quantized
-    from tengine_tpu_torch.ops.cuda import dw_conv, qconv
+    from tengine_tpu_torch.ops.cuda import dw_conv, qconv, qgemm
 
     pairs = {"qconv1x1": qconv.qconv1x1_plain, "qconv_direct": qconv.qconv_direct_plain,
-             "dw_qconv": dw_conv.dw_qconv_plain}
+             "qgemm_requant": qgemm.qgemm_requant_plain, "dw_qconv": dw_conv.dw_qconv_plain}
     seen = {name: [0, 0] for name in pairs}
 
     def checked(name, fn, plain):
@@ -1863,7 +1918,8 @@ def check_path_kernels(torch, cg, x, what):
         for name, fn in originals.items():
             setattr(quantized, name, fn)
     log(f"  {what}: kernel vs plain at the path's shapes, launches checked and max LSB: {seen}")
-    return seen
+    if any(n != per_forward.get(name, 0) for name, (n, _) in seen.items()):
+        raise AssertionError(f"{what}: checked {seen}, expected {per_forward}")
 
 
 def run_ssd_tiers(torch, tt, qmath, counters, g, fp32_outs, images, profile):
@@ -1907,9 +1963,7 @@ def run_ssd_tiers(torch, tt, qmath, counters, g, fp32_outs, images, profile):
         for name, n in launches.items():
             total[name] += n
         if per_forward:
-            seen = check_path_kernels(torch, cg, x, f"mobilenet-ssd {tier}")
-            if any(seen[name][0] != n for name, n in per_forward.items()):
-                raise AssertionError(f"mobilenet-ssd {tier}: checked {seen}, expected {per_forward}")
+            check_path_kernels(torch, cg, x, f"mobilenet-ssd {tier}", per_forward)
         det = outs[0]
         worst = max(check_rows(f"mobilenet-ssd {tier} image {i}: batch 1 vs batch {batch}",
                                cg(x[i:i + 1])[0], det[i:i + 1]) for i in range(SSD_BATCH))
@@ -1939,10 +1993,14 @@ def derived_launches(cg, gate):
     goes to qconv1x1 and a k x k one with C_in % 128 == 0 to qconv_direct;
     with the dw gate on (TT_DW_PALLAS=1, batch >= 32) a 3x3 or 5x5
     depthwise conv with C % 32 == 0 to dw_qconv. Counted over the convs
-    that took the kernels' lowerings, which must be all of those."""
-    got = dict.fromkeys(("qconv1x1", "qconv_direct", "dw_qconv"), 0)
+    that took the kernels' lowerings, which must be all of those; with
+    pallas_qgemm on that tier, every FC goes to qgemm_requant."""
+    got = dict.fromkeys(("qconv1x1", "qconv_direct", "qgemm_requant", "dw_qconv"), 0)
     want = dict(got)
     for n in cg.graph.nodes:
+        if n.op == "FullyConnected":
+            want["qgemm_requant"] += cg.options.pallas_qgemm and not cg.options.quant_bf16_storage
+            got["qgemm_requant"] += cg.kernels[n.name] == "lower_fc_quant_pallas"
         if n.op != "Convolution":
             continue
         p, route = n.params, cg.kernels[n.name]
@@ -1999,9 +2057,7 @@ def run_quant_tier(torch, tt, qmath, counters, what, qg, fp32_outs, images, opts
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
     if per_forward:
-        seen = check_path_kernels(torch, cg, x, what)
-        if any(seen[name][0] != n for name, n in per_forward.items()):
-            raise AssertionError(f"{what}: checked {seen}, expected {per_forward}")
+        check_path_kernels(torch, cg, x, what, per_forward)
     heads = [cg.graph.tensors[t] for t in cg.output_ids]
     check_heads(torch, what, heads, outs, [f[:batch] for f in fp32_outs], 0.99, torch.uint8)
     for i in range(min(batch, 8) if batch > 1 else 0):
@@ -2055,6 +2111,130 @@ def run_face_pipeline(torch, tt, qmath, counters, ir, profile):
             log(f"phase 3 face pipeline {tier}: detect (retinaface b1) {dc:.3f} ms, embed "
                 f"(mobilefacenet b8) {ec:.3f} ms, {1e3 / (dc + ec):.1f} frames/s captured; eager "
                 f"{de:.3f} + {ee:.3f} ms, {1e3 / (de + ee):.1f} frames/s")
+    return total
+
+
+def check_nodes_against_cpu(torch, tt, qg, opts, cg, xq, what):
+    """The card held to the CPU node by node: the CPU compile of qg under
+    the same Options (the same routes required) runs its forward step by
+    step on xq, and each step of cg's forward runs on the card on that
+    step's CPU inputs (its params the card's); every integer output within
+    1 LSB on at most 0.1% of its elements. The card's fp32 products and
+    sums run in another order than the CPU's, so a requant tie can part by
+    1 LSB; fed the CPU's inputs, a parting does not carry forward. Returns
+    the CPU's outputs, the largest LSB gap and the share of equal elements
+    over every compared element."""
+    from tengine_tpu_torch.executor.engine import bind_inputs
+    from tengine_tpu_torch.ops.layout import TArr, as_semantic
+
+    cg_cpu = tt.compile_graph(qg, tt.Options(**opts), device="cpu")
+    if cg_cpu.kernels != cg.kernels:
+        raise AssertionError(f"{what}: the CPU compile took other routes")
+    env = bind_inputs(cg_cpu.graph, cg_cpu.options, [torch.from_numpy(xq)])
+    worst, equal, total, nodes = 0, 0, 0, 0
+    with torch.inference_mode():
+        for s_cpu, s_dev in zip(cg_cpu.forward_fn.plan, cg.forward_fn.plan, strict=True):
+            if s_cpu.node.name != s_dev.node.name:
+                raise AssertionError(f"{what}: {s_cpu.node.name} against {s_dev.node.name}")
+            outs = s_cpu.apply(s_cpu.args(env))
+            on_card = {tid: TArr(env[tid].x.to(cg.device), env[tid].layout)
+                       for tid in s_dev.node.inputs if tid in env}
+            outs_dev = s_dev.apply(s_dev.args(on_card))
+            for tid, o, d in zip(s_cpu.node.outputs, outs, outs_dev, strict=True):
+                env[tid] = o
+                if o.x.is_floating_point():
+                    continue
+                gap = (as_semantic(d).cpu().int() - as_semantic(o).int()).abs()
+                share = float((gap > 0).double().mean())
+                if int(gap.max()) > 1 or share > 1e-3:
+                    raise AssertionError(f"{what} node {s_dev.node.name}: card {int(gap.max())} "
+                                         f"LSB from the CPU on {share:.5f} of its elements")
+                worst, nodes = max(worst, int(gap.max())), nodes + 1
+                equal, total = equal + int((gap == 0).sum()), total + gap.numel()
+    log(f"  {what}: card vs CPU node by node ({nodes} nodes, each fed the CPU's inputs): "
+        f"largest gap {worst} LSB, equal share {equal / total:.6f}")
+    outs = tuple(as_semantic(env[tid]).contiguous() for tid in cg_cpu.output_ids)
+    return outs, worst, equal / total
+
+
+def run_transformer_tiers(torch, tt, qmath, counters, profile):
+    """Phase 3i: ViT (DeiT-Ti-224, depth 12) and SegFormer-512 (150
+    classes) INT8 under TRANSFORMER_TIERS, calibrated on the card from one
+    seeded image; each tier compiled with its Options, its kernels'
+    launches derived from the IR and equal to the table's, driven as drive
+    does (captured = eager at 0 LSB), the wrapper launches exact; every
+    kernel launch of one eager forward against its plain version; the
+    dequantized output's cosine against the fp32 engine above the tier's
+    gate; the card held to the port's CPU run node by node
+    (check_nodes_against_cpu) and the free-running output's dequantized
+    cosine against the CPU's at least 0.999. Prints each tier's ms per
+    forward, launches and (with profile) idle share, and SegFormer's class
+    map at stride 4. Returns the launches by kernel summed over the tiers'
+    main-path runs."""
+    from tengine_tpu_torch.models.transformer_zoo import (
+        build_segformer_graph, build_vit_graph, segformer_classmap,
+    )
+
+    t0 = time.time()
+    builders = {"vit": (build_vit_graph, VIT_CONFIG), "segformer": (build_segformer_graph,
+                                                                    SEG_CONFIG)}
+    nets = {}
+    for net, (build, config) in builders.items():
+        torch.manual_seed(0)
+        _, g = build(**config)
+        img = config["img"]
+        x = np.random.default_rng(0).standard_normal((1, 3, img, img)).astype(np.float32)
+        qg = tt.quantize_graph(g, [x], scheme="int8", algorithm="minmax")
+        t_in = qg.tensors[qg.input_tensors[0]]
+        xq = qmath.quantize_np(x, t_in.quant, t_in.dtype)
+        fp32 = eager(torch, tt.compile_graph(g, tt.Options(precision="fp32")),
+                     torch.from_numpy(x).cuda())[0]
+        nets[net] = (qg, xq, fp32)
+    log(f"  transformer set-up (build graphs, calibrate, fp32 references): "
+        f"{time.time() - t0:.1f} s")
+    total = dict.fromkeys(counters, 0)
+    for tier, (net, extra, per_forward, gate) in TRANSFORMER_TIERS.items():
+        t1 = time.time()
+        qg, xq, fp32 = nets[net]
+        opts = dict(quant_mode="fast", **extra)
+        what = f"{net} int8 b1 tier {tier}"
+        cg = tt.compile_graph(qg, tt.Options(**opts))
+        derived = derived_launches(cg, None)
+        if derived != per_forward:
+            raise AssertionError(f"{what}: the IR gives {derived}, expected {per_forward}")
+        x = torch.from_numpy(xq).cuda()
+        outs, batch_ms, launches, eager_ms = drive(torch, cg, x, counters, what, profile)
+        want = dict.fromkeys(counters, 0) | {
+            name: WRAPPER_RUNS * n for name, n in per_forward.items()}
+        if launches != want:
+            raise AssertionError(f"{what}: launches {launches}, expected {want}")
+        for name, n in launches.items():
+            total[name] += n
+        if per_forward:
+            check_path_kernels(torch, cg, x, what, per_forward)
+        out = cg.graph.tensors[cg.output_ids[0]]
+        check_heads(torch, what, [out], outs, [fp32], gate, torch.int8)
+        cpu_outs, worst, equal = check_nodes_against_cpu(torch, tt, qg, opts, cg, xq, what)
+        a = dequant(torch, outs[0].cpu(), out).double().ravel()
+        b = dequant(torch, cpu_outs[0], out).double().ravel()
+        cos = float(a @ b / (a.norm() * b.norm() + 1e-12))
+        gap = (outs[0].cpu().int() - cpu_outs[0].int()).abs()
+        log(f"  {what}: free-running output card vs CPU: cosine {cos:.6f}, largest gap "
+            f"{int(gap.max())} LSB, equal share {float((gap == 0).double().mean()):.6f}")
+        if not cos >= 0.999:
+            raise AssertionError(f"{what}: card vs CPU cosine {cos:.6f} < 0.999")
+        if net == "segformer":
+            classes = segformer_classmap(outs[0].cpu().numpy())
+            ref = segformer_classmap(fp32.cpu().numpy())
+            counts = np.bincount(classes.ravel(), minlength=SEG_CONFIG["num_classes"])
+            top = np.argsort(-counts, kind="stable")[:5]
+            log(f"  {what}: class map {classes.shape} at stride 4, {int((counts > 0).sum())} "
+                f"classes, top 5 (class: pixels) {dict(zip(top.tolist(), counts[top].tolist()))}, "
+                f"{float((classes == ref).mean()):.4f} of the pixels the fp32 engine's class")
+        log(f"phase 3 main path: {what} Options({opts}): captured {np.median(batch_ms):.3f} ms, "
+            f"eager {np.median(eager_ms):.3f} ms a forward; kernels a forward {per_forward} "
+            f"[{time.time() - t1:.1f} s]")
+        del cg
     return total
 
 
@@ -2144,6 +2324,8 @@ def main(argv) -> int:
             name: WRAPPER_RUNS * n for name, n in per_forward.items()}
         if launches != want:
             raise AssertionError(f"yolov3 {tier}: launches {launches}, expected {want}")
+        if per_forward["qgemm_requant"]:
+            check_path_kernels(torch, cg3, x3, f"yolov3 {tier}", per_forward)
         tiers[tier] = (keep(cg3), outs3, opts)
         del cg3
         log(f"phase 3 main path: yolov3-{img3} int8 batch {batch} tier {tier} {extra} "
@@ -2231,6 +2413,8 @@ def main(argv) -> int:
             name: WRAPPER_RUNS * n for name, n in per_forward.items()}
         if launches != want:
             raise AssertionError(f"resnet50 {tier}: launches {launches}, expected {want}")
+        if "qgemm_requant" in per_forward:
+            check_path_kernels(torch, cgr, xr, f"resnet50 {tier}", per_forward)
         resnet[tier] = (keep(cgr), outsr, opts)
         del cgr
         log(f"phase 3 main path: resnet50-{imgr} int8 batch {RESNET_BATCH} tier {tier} {extra} "
@@ -2296,6 +2480,15 @@ def main(argv) -> int:
         for name, n in launches.items():
             entries[name]["launches"] += n
     log(f"  shufflenet-v2 in all: {time.time() - t0:.1f} s")
+
+    # 3i. main path: the transformers, ViT (DeiT-Ti-224) and SegFormer-512
+    # INT8 at batch 1, on the fast lowerings (VIT-S, SEG-S) and with the
+    # head on qgemm_requant (VIT-T) or the decoder and the C_in-128 convs on
+    # qconv1x1 / qconv_direct (SEG-T)
+    t0 = time.time()
+    for name, n in run_transformer_tiers(torch, tt, qmath, counters, profile).items():
+        entries[name]["launches"] += n
+    log(f"  transformer tiers in all: {time.time() - t0:.1f} s")
 
 
     # 4. correctness: fp32 engine on the card, and the port's CPU run

@@ -1,6 +1,7 @@
 """Graph-level optimization passes (PyTorch port of the subset of
-tengine_tpu/graph/passes.py that the default compile pipeline runs:
-fold_shuffle_gathers and the native-int8 plan's to_native_int8 among them).
+tengine_tpu/graph/passes.py that the default compile pipeline and the
+model builders run: fold_shuffle_gathers, the native-int8 plan's
+to_native_int8 and the builders' optimize pipeline among them).
 
 The reference runs these at convert time (tools/convert_tool/utils/
 graph_optimizer/graph_opt.cpp:624-947: conv+bn fold, conv+relu fuse,
@@ -562,15 +563,24 @@ def fuse_conv_add(g: Graph, geometry: str = "pallas", relaxed_relu: bool = False
     requantization epilogue (ops/quantized.py:_requant_conv_out; bit-faithful:
     both requant steps are reproduced there). The residual tensor is appended
     to the conv's inputs; params record its position and the intermediate
-    tensor's quant params. Returns number of fusions."""
+    tensor's quant params. Returns number of fusions.
+
+    Two departures from the JAX pass, which is at fault on the sum chains
+    that split_concat_conv1x1 makes (ROADMAP §3): it drops the activation
+    that pass moves onto the final sum (yolov5s's SiLU, SegFormer decoder's
+    ReLU), and it fuses a second sum into a conv that already took one,
+    dropping the first residual (a split of three or more parts). Here a
+    sum's ReLU folds into the epilogue as fused_add_relu, a sum with another
+    activation stays unfused (the epilogue applies none after the add), and
+    a conv takes at most one sum."""
     from ..serializer.tm2 import format as tmfmt
 
     fused = 0
     for add in list(g.nodes):
         if add.op != "Eltwise" or add.params.get("type") != tmfmt.ELT_SUM:
             continue
-        if len(add.inputs) != 2:
-            continue
+        if len(add.inputs) != 2 or add.params.get("activation", -1) not in (-1, 0, None):
+            continue  # an activation the epilogue does not apply after the add
         for which in (0, 1):
             mid_tid, r_tid = add.inputs[which], add.inputs[1 - which]
             mid = g.tensors[mid_tid]
@@ -578,7 +588,7 @@ def fuse_conv_add(g: Graph, geometry: str = "pallas", relaxed_relu: bool = False
             if mid.producer is None or r.data is not None:
                 continue
             conv = g.nodes[mid.producer]
-            if not _conv_residual_ok(g, conv, geometry):
+            if not _conv_residual_ok(g, conv, geometry) or "fused_add_pos" in conv.params:
                 continue
             if _single_consumer(g, conv) is not add:
                 continue
@@ -605,6 +615,10 @@ def fuse_conv_add(g: Graph, geometry: str = "pallas", relaxed_relu: bool = False
             add.op = "Noop"
             add.inputs = []
             add.outputs = []
+            if add.params.get("activation", -1) == 0:
+                # the sum's own ReLU: applied after the add, as a trailing
+                # ReLu's is
+                conv.params["fused_add_relu"] = True
             # absorb a trailing same-quant ReLu (relu commutes with the
             # monotonic quantization map: max(q, zp) in the q domain)
             relu = _single_consumer(g, conv)
@@ -916,6 +930,22 @@ def fuse_resnet_blocks(g: Graph, min_cmid: int = 0) -> int:
             n.outputs = []
         fused_blocks += len(chain)
     return fused_blocks
+
+
+def optimize(g: Graph) -> Graph:
+    """The standard pass pipeline (converter parity), in the JAX package's
+    order: bn fold, activation fuses, the focus and SPP rewrites, shapes,
+    the concat-conv split, dce. The model builders run it on the frontend's
+    graph."""
+    fold_batchnorm(g)
+    fuse_activation(g)
+    fuse_silu(g)
+    fuse_focus(g)
+    decompose_spp(g)
+    ensure_shapes(g)
+    split_concat_conv1x1(g)
+    dce(g)
+    return g
 
 
 def ensure_shapes(g: Graph) -> None:

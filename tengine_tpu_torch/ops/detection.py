@@ -125,11 +125,16 @@ def _iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def _top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The k largest of the last axis and their indices, the lower index
-    first among equal values: lax.top_k's order. torch.topk promises no
-    order among ties, so this is a stable descending sort, sliced."""
-    values, order = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return values[..., :k], order[..., :k]
+    """The k largest of the last axis (float32) and their indices in
+    lax.top_k's order: its total order (NaN above +inf, +0.0 above -0.0,
+    -NaN last), the lower index first among equal values. torch.topk
+    promises no order among ties and torch.sort takes -0.0 and +0.0 as
+    equal, so this is a stable descending sort of the floats' bits mapped
+    to that order, sliced."""
+    bits = scores.view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    order = torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :k]
+    return torch.gather(scores, -1, order), order
 
 
 def padded_nms(

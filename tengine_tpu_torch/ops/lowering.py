@@ -1,15 +1,20 @@
 """Plain-torch op lowerings (the "reference kernel" tier) — PyTorch port of
-the subset of tengine_tpu/ops/lowering.py that the quantized yolov5s,
-yolov3, ResNet, mobilenet, mobilenet-SSD, RetinaFace, MobileFaceNet and
-shufflenet-v2 paths and their fp32 calibration run: Convolution and
-Deconvolution, Pooling, FullyConnected, the normalizations
-(BatchNormalization, Scale, Normalize, L2Normalization), the activations
-(ReLu incl. leaky, PReLU, the unary table, Elu, Selu, HardSwish,
-Hardsigmoid, Clip, Threshold, Unary), Dropout, Noop, Eltwise, Softmax and
-LogSoftmax, the shape ops Concat, Flatten, Reshape, Permute, Transpose,
-Squeeze, Slice, Split, Crop, Pad, ShuffleChannel, ChannelGather,
-SpaceToDepth, DepthToSpace and Reorg, and the resizes Upsample, Interp and
-Resize/BilinearResize.
+tengine_tpu/ops/lowering.py, every op type it registers: Convolution and
+Deconvolution, Pooling, FullyConnected, Gemm and MatMul, the
+normalizations (BatchNormalization, Scale, Normalize, L2Normalization,
+LRN, InstanceNorm, LayerNorm, MVN), the activations (ReLu incl. leaky,
+PReLU, the unary table, Elu, Selu, HardSwish, Hardsigmoid, Clip,
+Threshold, Unary), Dropout, Noop, the elementwise Eltwise, BroadMul,
+Maximum, Minimum, SquaredDifference, Addn and Mean, Softmax and
+LogSoftmax, the reductions and selections ArgMax, ArgMin, TopKV2,
+Reduction and ReduceL2, the shape ops Concat, Flatten, Reshape, Permute,
+Transpose, SwapAxis, Squeeze, Unsqueeze, Expanddims, Shape, Slice, Split,
+StridedSlice, Crop, Pad, Tile, Expand, ShuffleChannel, ChannelGather,
+SpaceToDepth, DepthToSpace and Reorg, Gather, Cast, Comparison, Logical,
+Reverse and Where, and the resizes Upsample, Interp and
+Resize/BilinearResize. Where torch's semantics are not JAX's (a float ->
+int cast, jnp.take's indices, lax.top_k's order, jnp.mean's compiled
+reciprocal), the lowering computes JAX's.
 
 Each function lowers one IR node to eager torch calls on the engine's
 device. Semantics follow the reference C kernels and shape-inference rules,
@@ -31,6 +36,7 @@ from .layout import (
     TArr, as_nchw, as_nhwc, as_semantic, channel_axis, like, nchw, nhwc, semantic_axis,
     semantic_shape, wrap,
 )
+from .detection import _top_k
 from .registry import LowerCtx, register_op
 from .qmath import node_is_float
 from ..serializer.tm2 import format as tmfmt
@@ -328,6 +334,35 @@ def lower_fc(ctx: LowerCtx, x: TArr, *rest: TArr):
     return fc_output(out, xs.ndim)
 
 
+def _reversed_axes(t: torch.Tensor) -> torch.Tensor:
+    """numpy's .T: every axis reversed."""
+    return t.permute(*range(t.ndim - 1, -1, -1))
+
+
+@register_op("Gemm")
+def lower_gemm(ctx: LowerCtx, a: TArr, b: TArr, *rest: TArr):
+    """GEMM: alpha*op(A)op(B) + beta*C (gemm.c)."""
+    p = ctx.params
+    A = as_semantic(a)
+    B = as_semantic(b)
+    if p.get("transA"):
+        A = _reversed_axes(A)
+    if p.get("transB"):
+        B = _reversed_axes(B)
+    out = p.get("alpha", 1.0) * torch.matmul(A, B)
+    if ctx.num_inputs > 2:
+        out = out + p.get("beta", 1.0) * as_semantic(rest[0])
+    return wrap(out)
+
+
+@register_op("MatMul")
+def lower_matmul(ctx: LowerCtx, a: TArr, b: TArr):
+    """Batched matmul in fp32 (TF32 off, executor/engine.py), as the JAX
+    lowering's Precision.HIGHEST: the attention's q@k and attn@v and every
+    token Linear (x @ wT, the weight a const input)."""
+    return wrap(torch.matmul(as_semantic(a), as_semantic(b)))
+
+
 # ---------------------------------------------------------------------------
 # normalization
 # ---------------------------------------------------------------------------
@@ -400,6 +435,77 @@ def lower_l2norm(ctx: LowerCtx, x: TArr):
     xs = as_semantic(x)
     axis = 1 if xs.ndim > 1 else 0
     return wrap(xs * torch.rsqrt(torch.sum(xs * xs, dim=axis, keepdim=True)))
+
+
+def _mean(x: torch.Tensor, dims, keepdim: bool = True) -> torch.Tensor:
+    """jnp.mean as XLA compiles it: the sum times the f32 reciprocal of the
+    count (a division by a constant becomes a multiply; ROADMAP §3)."""
+    dims = tuple(dims)
+    n = int(np.prod([x.shape[d] for d in dims]))
+    return torch.sum(x, dim=dims, keepdim=keepdim) * float(np.float32(1.0) / np.float32(n))
+
+
+@register_op("LRN")
+def lower_lrn(ctx: LowerCtx, x: TArr):
+    """Across-channel LRN (lrn_ref.c:72-96):
+    y = x * (1 + alpha/size * sum_{window} x^2)^(-beta), the window
+    [c - (size-1)//2, c + size//2] summed as the JAX lowering unrolls it:
+    the zero-padded squares' shifted slices added in order."""
+    p = ctx.params
+    size = p["local_size"]
+    xn = as_nchw(x)
+    sq = xn * xn
+    c = sq.shape[1]
+    sqp = F.pad(sq, (0, 0, 0, 0, (size - 1) // 2, size // 2))
+    summed = sqp[:, 0:c]
+    for d in range(1, size):
+        summed = summed + sqp[:, d : d + c]
+    return nchw(xn * torch.pow(1.0 + (p["alpha"] / size) * summed, -p["beta"]))
+
+
+@register_op("InstanceNorm")
+def lower_instancenorm(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """InstanceNorm over the spatial dims (instancenorm_ref.c), in NHWC on
+    a 4-D tensor."""
+    eps = ctx.params.get("eps", 1e-5)
+    four = x.x.ndim == 4
+    xn = as_nhwc(x) if four else x.x
+    axes = (1, 2) if four else tuple(range(2, xn.ndim))
+    mean = _mean(xn, axes)
+    var = _mean((xn - mean) ** 2, axes)
+    out = (xn - mean) * torch.rsqrt(var + eps)
+    if ctx.num_inputs > 2:
+        out = out * ctx.weight(1).reshape(1, 1, 1, -1) + ctx.weight(2).reshape(1, 1, 1, -1)
+    return nhwc(out) if four else wrap(out)
+
+
+@register_op("LayerNorm")
+def lower_layernorm(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """LayerNorm over the last axis: the mean, the mean of the squared
+    deviations, then rsqrt, as the JAX lowering computes it (not
+    F.layer_norm, whose Welford sums round otherwise)."""
+    eps = ctx.params.get("eps", 1e-5)
+    xs = as_semantic(x)
+    mean = _mean(xs, (-1,))
+    var = _mean((xs - mean) ** 2, (-1,))
+    out = (xs - mean) * torch.rsqrt(var + eps)
+    if ctx.num_inputs > 2:
+        out = out * ctx.weight(1) + ctx.weight(2)
+    return wrap(out)
+
+
+@register_op("MVN")
+def lower_mvn(ctx: LowerCtx, x: TArr):
+    """MVN with the reference's normalizer (mvn_ref.c:130-190): the
+    denominator is sqrt(E[x^2]) of the raw input, the second moment and not
+    the centered variance, plus eps."""
+    p = ctx.params
+    xn = as_nchw(x)
+    axes = (1, 2, 3) if p["across_channels"] else (2, 3)
+    out = xn - _mean(xn, axes)
+    if p["normalize_variance"]:
+        out = out / (torch.sqrt(_mean(xn * xn, axes)) + p["eps"])
+    return nchw(out)
 
 
 # ---------------------------------------------------------------------------
@@ -543,6 +649,13 @@ def _bcast_eltwise(x0: torch.Tensor, x1: torch.Tensor, layout: Optional[str]):
     return x0, x1  # fall back to torch broadcasting
 
 
+def _align(a: TArr, b: TArr) -> torch.Tensor:
+    """b in a's layout where both are 4-D."""
+    if a.x.ndim == 4 and b.x.ndim == 4 and b.layout != a.layout:
+        return as_nhwc(b) if a.layout == "NHWC" else as_nchw(b)
+    return b.x
+
+
 @register_op("Eltwise")
 def lower_eltwise(ctx: LowerCtx, x0: TArr, *rest: TArr):
     """Eltwise binary/unary (eltwise_ref.c + eltwise_param.h types)."""
@@ -573,13 +686,7 @@ def lower_eltwise(ctx: LowerCtx, x0: TArr, *rest: TArr):
             return like(x0, x0.x - sc)
         raise NotImplementedError(f"eltwise type {t} with one input")
 
-    x1t = rest[0]
-    # align layouts: prefer x0's
-    if x0.x.ndim == 4 and x1t.x.ndim == 4 and x1t.layout != x0.layout:
-        x1 = as_nhwc(x1t) if x0.layout == "NHWC" else as_nchw(x1t)
-    else:
-        x1 = x1t.x
-    a, b = _bcast_eltwise(x0.x, x1, x0.layout)
+    a, b = _bcast_eltwise(x0.x, _align(x0, rest[0]), x0.layout)
     binary = {
         f.ELT_PROD: torch.mul, f.ELT_PROD_SCALAR: torch.mul,
         f.ELT_SUM: torch.add, f.ELT_SUM_SCALAR: torch.add,
@@ -594,6 +701,39 @@ def lower_eltwise(ctx: LowerCtx, x0: TArr, *rest: TArr):
     # activation onto the sum node); the reference eltwise has no epilogue
     out = apply_activation(out, ctx.params.get("activation", -1))
     return like(x0, out)
+
+
+@register_op("BroadMul")
+def lower_broadmul(ctx: LowerCtx, x0: TArr, x1: TArr):
+    """Broadcast multiply (broadmul_ref.c), as in SE blocks: x0 [N,C,H,W] *
+    x1 [N,C,1,1]."""
+    if x0.x.ndim == 4 and x1.x.ndim == 4:
+        return like(x0, x0.x * (as_nhwc(x1) if x0.layout == "NHWC" else as_nchw(x1)))
+    a, b = _bcast_eltwise(x0.x, x1.x, x0.layout)
+    return like(x0, a * b)
+
+
+register_op("Maximum")(lambda ctx, a, b: like(a, torch.maximum(a.x, _align(a, b))))
+register_op("Minimum")(lambda ctx, a, b: like(a, torch.minimum(a.x, _align(a, b))))
+register_op("SquaredDifference")(lambda ctx, a, b: like(a, torch.square(a.x - _align(a, b))))
+
+
+@register_op("Addn")
+def lower_addn(ctx: LowerCtx, *xs: TArr):
+    out = xs[0].x
+    for t in xs[1:]:
+        out = out + _align(xs[0], t)
+    return like(xs[0], out)
+
+
+@register_op("Mean")
+def lower_mean(ctx: LowerCtx, *xs: TArr):
+    """ONNX Mean: elementwise mean of n inputs (mean_ref.c); the division by
+    n a multiply by its f32 reciprocal, as XLA compiles the JAX lowering."""
+    acc = xs[0].x
+    for t in xs[1:]:
+        acc = acc + _align(xs[0], t)
+    return like(xs[0], acc * float(np.float32(1.0) / np.float32(len(xs))))
 
 
 # ---------------------------------------------------------------------------
@@ -611,6 +751,85 @@ def lower_softmax(ctx: LowerCtx, x: TArr):
 def lower_logsoftmax(ctx: LowerCtx, x: TArr):
     axis = semantic_axis(x, ctx.params.get("axis", 1))
     return like(x, torch.log_softmax(x.x, dim=axis))
+
+
+def _arg_reduce(ctx: LowerCtx, x: TArr, fn) -> TArr:
+    """ArgMax / ArgMin: int32 indices, the first of equal values."""
+    axis = ctx.params.get("axis", 0)
+    out = fn(as_semantic(x), dim=axis).to(torch.int32)
+    if ctx.params.get("keepdims", 1):
+        out = out.unsqueeze(axis)
+    return wrap(out)
+
+
+@register_op("ArgMax")
+def lower_argmax(ctx: LowerCtx, x: TArr):
+    return _arg_reduce(ctx, x, torch.argmax)
+
+
+@register_op("ArgMin")
+def lower_argmin(ctx: LowerCtx, x: TArr):
+    return _arg_reduce(ctx, x, torch.argmin)
+
+
+@register_op("TopKV2")
+def lower_topk(ctx: LowerCtx, x: TArr):
+    """lax.top_k over the last axis: values and int32 indices in its order
+    (ops/detection.py:_top_k)."""
+    values, order = _top_k(as_semantic(x).to(torch.float32), ctx.params["k"])
+    return wrap(values), wrap(order.to(torch.int32))
+
+
+def _prod(x: torch.Tensor, axis, keepdims: bool) -> torch.Tensor:
+    """torch.prod takes one axis: the product over each in turn."""
+    for d in axis:
+        x = torch.prod(x, dim=d, keepdim=True)
+    return x if keepdims else x.squeeze(axis)
+
+
+def _sum(a, axis, keepdims):
+    return torch.sum(a, dim=axis, keepdim=keepdims)
+
+
+def _asum(a, axis, keepdims):
+    return _sum(torch.abs(a), axis, keepdims)
+
+
+# The reference RUNTIME's type table (reduction_kernel_ref.h's dispatch),
+# which differs from its param header's names: 7 is a second asum; 8 ("l2")
+# sums sqrt(x*x) = |x| element by element, not an L2 norm; 9 is log(sum);
+# 10 the naive log(sum(exp(x))), not torch.logsumexp's shifted form.
+_REDUCTIONS = {
+    0: _sum,
+    1: lambda a, axis, keepdims: _mean(a, axis, keepdims),
+    2: _asum,
+    3: lambda a, axis, keepdims: _sum(torch.square(a), axis, keepdims),
+    4: lambda a, axis, keepdims: torch.amax(a, dim=axis, keepdim=keepdims),
+    5: lambda a, axis, keepdims: torch.amin(a, dim=axis, keepdim=keepdims),
+    6: _prod,
+    7: _asum,
+    8: _asum,
+    9: lambda a, axis, keepdims: torch.log(_sum(a, axis, keepdims)),
+    10: lambda a, axis, keepdims: torch.log(_sum(torch.exp(a), axis, keepdims)),
+}
+
+
+@register_op("Reduction")
+def lower_reduction(ctx: LowerCtx, x: TArr):
+    """Reduction over the dims dim_0..dim_3 (reduction_param.h; -2 unset,
+    none set: every axis)."""
+    p = ctx.params
+    xs = as_semantic(x)
+    dims = [d for d in (p["dim_0"], p["dim_1"], p["dim_2"], p["dim_3"]) if d != -2]
+    axes = tuple(d % xs.ndim for d in dims) if dims else tuple(range(xs.ndim))
+    return wrap(_REDUCTIONS[p.get("type", 0)](xs, axes, bool(p.get("keepdim", 0))))
+
+
+@register_op("ReduceL2")
+def lower_reducel2(ctx: LowerCtx, x: TArr):
+    xs = as_semantic(x)
+    axis = ctx.params["axis"] % xs.ndim
+    return wrap(torch.sqrt(_sum(torch.square(xs), axis, bool(ctx.params.get("keepdim")))))
 
 
 # ---------------------------------------------------------------------------
@@ -680,6 +899,11 @@ def lower_transpose(ctx: LowerCtx, x: TArr):
     return wrap(as_semantic(x).permute(list(ctx.params["perm"])))
 
 
+@register_op("SwapAxis")
+def lower_swapaxis(ctx: LowerCtx, x: TArr):
+    return wrap(as_semantic(x).transpose(ctx.params["dim_0"], ctx.params["dim_1"]))
+
+
 @register_op("Squeeze")
 def lower_squeeze(ctx: LowerCtx, x: TArr):
     """Squeeze flagged dims (squeeze.c): dim_k == 1 marks axis k for removal;
@@ -691,6 +915,27 @@ def lower_squeeze(ctx: LowerCtx, x: TArr):
     if not axes:
         axes = [i for i, d in enumerate(xs.shape) if d == 1]
     return wrap(xs.squeeze(tuple(axes)))
+
+
+@register_op("Unsqueeze")
+def lower_unsqueeze(ctx: LowerCtx, x: TArr):
+    xs = as_semantic(x)
+    for ax in sorted(ctx.params.get("axes") or [0]):
+        xs = xs.unsqueeze(ax)
+    return wrap(xs)
+
+
+@register_op("Expanddims")
+def lower_expanddims(ctx: LowerCtx, x: TArr):
+    return wrap(as_semantic(x).unsqueeze(ctx.params["axis"]))
+
+
+@register_op("Shape")
+def lower_shape(ctx: LowerCtx, x: TArr):
+    """The input's semantic shape as int32: a compile-time param at the
+    compiled size, so the forward uploads nothing."""
+    shape = semantic_shape(x)
+    return wrap(ctx.get_param("shape", lambda: np.asarray(shape, np.int32)))
 
 
 def _along(xs: torch.Tensor, axis: int, sl: slice) -> torch.Tensor:
@@ -749,6 +994,28 @@ def lower_split(ctx: LowerCtx, x: TArr):
     else:
         parts = torch.tensor_split(xs, len(ctx.node.outputs), dim=axis)
     return tuple(wrap(a) for a in parts)
+
+
+@register_op("StridedSlice")
+def lower_strided_slice(ctx: LowerCtx, x: TArr):
+    """NCHW strided slice with the reference's crop semantics
+    (strided_slice.c infer_shape + strided_slice_ref.c:67): per dim,
+    out = ceil((in - |end - begin|) / stride) elements taken at
+    begin + k*stride; end - begin is a total crop amount, not an exclusive
+    end index (begin = end = 0, stride 2 is the yolov5 focus slice)."""
+    p = ctx.params
+    xs = as_semantic(x)
+    idx = []
+    for dim, (b, e, s) in enumerate([
+        (p["begin_n"], p["end_n"], p["stride_n"]),
+        (p["begin_c"], p["end_c"], p["stride_c"]),
+        (p["begin_h"], p["end_h"], p["stride_h"]),
+        (p["begin_w"], p["end_w"], p["stride_w"]),
+    ][: xs.ndim]):
+        s = s or 1
+        out = max(1, -(-(xs.shape[dim] - abs(e - b)) // s))
+        idx.append(slice(b, b + (out - 1) * s + 1, s))
+    return wrap(xs[tuple(idx)])
 
 
 @register_op("Crop")
@@ -889,6 +1156,129 @@ def lower_reorg(ctx: LowerCtx, x: TArr):
     idx = ctx.get_param("reorg_idx", table)
     out = xs.reshape(n, c * h * w).index_select(1, idx)
     return nchw(out.reshape(n, c * s * s, h // s, w // s))
+
+
+def _repeat_each(xs: torch.Tensor, r: int, axis: int) -> torch.Tensor:
+    """np.repeat(xs, r, axis) as a broadcast view and a reshape (no repeat
+    count uploaded, as repeat_interleave may)."""
+    shape = list(xs.shape)
+    v = xs.unsqueeze(axis + 1).expand(*shape[: axis + 1], r, *shape[axis + 1 :])
+    shape[axis] *= r
+    return v.reshape(shape)
+
+
+@register_op("Tile")
+def lower_tile(ctx: LowerCtx, x: TArr):
+    """Tile with the reference's conventions (tile_ref.c): `reps` is stored
+    reversed (reps[0] repeats W, reps[-1] repeats N); frame_flag 0 (caffe)
+    repeats each element along the axis (np.repeat), frame_flag 1 (onnx)
+    tiles whole blocks (np.tile)."""
+    reps = list(ctx.params.get("reps") or [])
+    xs = as_semantic(x)
+    if not reps:
+        return wrap(xs)
+    reps = reps[::-1]
+    reps = [1] * (xs.ndim - len(reps)) + reps if len(reps) < xs.ndim else reps[-xs.ndim:]
+    if ctx.params.get("frame_flag", 0) == 0:
+        for ax, r in enumerate(reps):
+            if r != 1:
+                xs = _repeat_each(xs, r, ax)
+        return wrap(xs)
+    return wrap(xs.repeat(reps))
+
+
+@register_op("Expand")
+def lower_expand(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """Broadcast to shape (a param, or a const input read at compile
+    time)."""
+    shape = list(ctx.params.get("shape") or [])
+    if not shape and rest and ctx.const_data(1) is not None:
+        shape = [int(v) for v in np.asarray(ctx.const_data(1)).reshape(-1)]
+    xs = as_semantic(x)
+    return wrap(torch.broadcast_to(xs, np.broadcast_shapes(tuple(shape), tuple(xs.shape))))
+
+
+def _to_int(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A float -> integer cast as XLA converts: truncation toward zero,
+    saturating at the dtype's range, NaN to 0. torch's cast wraps out of
+    range and sends NaN to the lowest value."""
+    info = torch.iinfo(dtype)
+    x = torch.where(torch.isnan(x), 0.0, x)
+    big, small = x >= float(info.max), x <= float(info.min)
+    q = torch.where(big | small, 0.0, x).to(dtype)
+    return torch.where(big, info.max, torch.where(small, info.min, q))
+
+
+@register_op("Gather")
+def lower_gather(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """jnp.take's default mode: an index in [-n, n) picks (a negative one
+    wraps once); any other fills with NaN (the dtype's lowest value for an
+    integer tensor). The indices are the second input's, cast to int32."""
+    p = ctx.params
+    xs = as_semantic(x)
+    axis = p.get("axis", 0) % xs.ndim
+    if rest and rest[0] is not None:
+        idx = as_semantic(rest[0])
+        idx = _to_int(idx, torch.int32) if idx.is_floating_point() else idx.to(torch.int32)
+    else:
+        idx = ctx.get_param("gather_idx", lambda: np.asarray(ctx.const_data(1), np.int32))
+    n = xs.shape[axis]
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    picked = xs.index_select(axis, torch.where(ok, idx, 0).reshape(-1).long())
+    out_shape = (*xs.shape[:axis], *idx.shape, *xs.shape[axis + 1 :])
+    picked = picked.reshape(out_shape)
+    fill = (float("nan") if xs.is_floating_point() else
+            torch.iinfo(xs.dtype).min if xs.dtype.is_signed else torch.iinfo(xs.dtype).max)
+    ok = ok.reshape((1,) * axis + tuple(idx.shape) + (1,) * (xs.ndim - axis - 1))
+    return wrap(torch.where(ok, picked, fill))
+
+
+@register_op("Cast")
+def lower_cast(ctx: LowerCtx, x: TArr):
+    """Cast to type_to; float -> integer as XLA converts it (_to_int)."""
+    from ..graph.ir import DType
+    from .qmath import TORCH_DTYPES
+
+    to = TORCH_DTYPES[DType(ctx.params["type_to"])]
+    if x.x.is_floating_point() and not to.is_floating_point:
+        return like(x, _to_int(x.x, to))
+    return like(x, x.x.to(to))
+
+
+_COMPARISONS = {0: torch.eq, 1: torch.ne, 2: torch.gt, 3: torch.ge, 4: torch.lt, 5: torch.le}
+
+
+@register_op("Comparison")
+def lower_comparison(ctx: LowerCtx, a: TArr, b: TArr):
+    """1.0 where the comparison holds, else 0.0 (float32)."""
+    return like(a, _COMPARISONS[ctx.params["type"]](a.x, _align(a, b)).to(torch.float32))
+
+
+@register_op("Logical")
+def lower_logical(ctx: LowerCtx, a: TArr, *rest: TArr):
+    """AND (0), OR (1) of the operands' nonzero-ness, NOT (2) of one: 1.0 or
+    0.0 (float32)."""
+    t = ctx.params["type"]
+    if t == 2:
+        return like(a, (a.x == 0).to(torch.float32))
+    fn = {0: torch.logical_and, 1: torch.logical_or}[t]
+    return like(a, fn(a.x != 0, _align(a, rest[0]) != 0).to(torch.float32))
+
+
+@register_op("Reverse")
+def lower_reverse(ctx: LowerCtx, x: TArr, *rest: TArr):
+    """Flip one axis: the first value of a const second input (read at
+    compile time), else axis 0."""
+    axis = 0
+    if rest and ctx.const_data(1) is not None:
+        axis = int(np.asarray(ctx.const_data(1)).reshape(-1)[0])
+    return wrap(torch.flip(as_semantic(x), dims=(axis,)))
+
+
+@register_op("Where")
+def lower_where(ctx: LowerCtx, cond: TArr, a: TArr, b: TArr):
+    return like(a, torch.where(cond.x != 0, a.x, _align(a, b)))
 
 
 # ---------------------------------------------------------------------------
