@@ -177,6 +177,37 @@ Phases, in order; any failure raises and the exit code is not 0:
                CPU's inputs (within 1 LSB on at most 0.1% of a node's
                elements), and the free-running output's cosine against
                the CPU's >= 0.999; SegFormer's class map printed.
+               Then the OCR and segmentation nets (models/extra.py) at
+               batch 1, seed-0 weights: CRNN at build_crnn_graph's defaults
+               (32x100, widths 32-128, two LSTMs of hidden 128, 37
+               classes) INT8 MinMax from one seeded image, and U-Net at
+               Ronneberger et al.'s widths (64 -> 1024, depth 4, 2
+               classes) UINT8 MinMax at 512x512, under
+                 CRNN-S, UNET-S  Options(quant_mode="fast"): the convs on
+                         the fast lowering, the LSTMs and Deconvolutions
+                         through the generic wrapper
+                 CRNN-T  CRNN-S + quant_bf16_storage=False, pallas_qgemm=
+                         True: conv6 and conv7 (C_in 128) on qconv_direct,
+                         the FC ([24, 128] x [128, 37]) on qgemm_requant
+                 CRNN-E  CRNN-T on equalize_graph (DFQ) then
+                         quantize_graph(algorithm="eq") over 4 seeded
+                         images
+                 UNET-T  UNET-S + quant_bf16_storage=False, quant_native=
+                         "off": the 14 3x3 convs with C_in 128-1024 on
+                         qconv_direct, the 1x1 head (N = 2) on qconv1x1;
+               each checked right after it runs (run_extra_tiers) as the
+               transformers are, U-Net node by node at 128x128 with the
+               same widths, every kernel launch at 0 LSB; CRNN's CTC
+               string printed beside the fp32 engine's. Then
+                 S2D     yolov5s-640 b8 (phase 3a's graph) with
+                         Options(stem_s2d=True): SpaceToDepth + a 3x3 s1
+                         conv over 12 channels on the fast lowering, no
+                         stem_qconv launch; its heads within 1 LSB of 3a's,
+                         at batch 1 every tensor of both graphs within
+                         1 LSB, its cosine against fp32 in phase 4.
+               Then each of the 19 lowerings of ops/lowering_extra.py on a
+               one-node graph, run captured on the card and held to the
+               port's CPU run (extra_op_cases; RPN at per_nms_topn 300).
                Every launch of qgemm_requant (yolov3 B, ResNet-50 H,
                VIT-T), qconv1x1, qconv_direct and dw_qconv in one eager
                forward of a tier that launches one is held against its
@@ -408,6 +439,41 @@ TRANSFORMER_TIERS = {
     "SEG-T": ("segformer", dict(quant_bf16_storage=False), {"qconv_direct": 3, "qconv1x1": 5},
               0.99),
 }
+# phase 3j: the OCR and segmentation nets (models/extra.py, Tengine's
+# examples/tm_crnn.cpp and tm_unet.cpp) at batch 1. CRNN at build_crnn_graph's
+# defaults (32x100 grey input, widths 32-128, two LSTMs of hidden 128,
+# 37 classes, T = 24) INT8 MinMax from one seeded image; E: equalize_graph
+# (DFQ) then quantize_graph(algorithm="eq") on EQ_IMAGES seeded images.
+# U-Net at Ronneberger et al.'s widths (64 -> 1024, depth 4, 2 classes) UINT8
+# MinMax at 512x512 (ISBI-2012's image size); U-Net INT8 quantizes in neither
+# engine (ROADMAP §3). Per tier: the net, the Options beyond
+# Options(quant_mode="fast"), the launches per forward (derived from the IR
+# and asserted), the cosine gate against the fp32 engine. T: CRNN's conv6
+# (3x3 at 4x25) and conv7 (2x2 at 2x25), C_in 128, on qconv_direct, the FC
+# ([24, 128] x [128, 37]) on qgemm_requant; U-Net's 14 3x3 convs with C_in
+# 128-1024 on qconv_direct, the 1x1 head (N = 2) on qconv1x1.
+CRNN_CONFIG = dict(img_w=100, img_h=32, hidden=128)
+UNET_CONFIG = dict(img=512, base=64, depth=4, num_classes=2)
+UNET_CHECK_IMG = 128  # the card held to the CPU node by node at this size
+EQ_IMAGES = 4
+CRNN_T = dict(quant_bf16_storage=False, pallas_qgemm=True)
+EXTRA_TIERS = {
+    "CRNN-S": ("crnn", {}, {}, 0.99),
+    "CRNN-T": ("crnn", CRNN_T, {"qconv_direct": 2, "qgemm_requant": 1}, 0.99),
+    "CRNN-E": ("crnn-eq", CRNN_T, {"qconv_direct": 2, "qgemm_requant": 1}, 0.99),
+    "UNET-S": ("unet", {}, {}, 0.99),
+    "UNET-T": ("unet", dict(quant_bf16_storage=False, quant_native="off"),
+               {"qconv_direct": 14, "qconv1x1": 1}, 0.99),
+}
+# yolov5s-640 INT8 b8 (phase 3a's graph) with Options(stem_s2d=True): the 6x6
+# s2 stem becomes SpaceToDepth + a 3x3 s1 conv over 12 channels, which the
+# stem kernel's gate refuses (C_in <= 4): the fast lowering takes it, no
+# kernel is launched
+S2D_OPTS = dict(quant_mode="fast", stem_s2d=True)
+# RPN in phase 3j's one-node graphs: per_nms_topn 300 (the reference's 6000
+# makes padded_nms a 6000-step loop: correct, and too slow for this phase)
+RPN_SMOKE_TOPN = 300
+
 # the forwards of a tier's main-path run that call the kernels' wrappers: the
 # captured forward's warm-up and its capture (drive)
 WRAPPER_RUNS = 2
@@ -1920,6 +1986,7 @@ def check_path_kernels(torch, cg, x, what, per_forward):
     log(f"  {what}: kernel vs plain at the path's shapes, launches checked and max LSB: {seen}")
     if any(n != per_forward.get(name, 0) for name, (n, _) in seen.items()):
         raise AssertionError(f"{what}: checked {seen}, expected {per_forward}")
+    return seen
 
 
 def run_ssd_tiers(torch, tt, qmath, counters, g, fp32_outs, images, profile):
@@ -2238,6 +2305,288 @@ def run_transformer_tiers(torch, tt, qmath, counters, profile):
     return total
 
 
+def run_extra_tiers(torch, tt, qmath, counters, profile):
+    """Phase 3j: CRNN INT8 and U-Net-512 UINT8 (models/extra.py) under
+    EXTRA_TIERS, calibrated on the card; each tier compiled with its
+    Options, its kernels' launches derived from the IR and equal to the
+    table's, driven as drive does (captured = eager at 0 LSB), the wrapper
+    launches exact; every kernel launch of one eager forward equal to its
+    plain version at 0 LSB; the dequantized output's cosine against the
+    fp32 engine above the gate; the card held to the port's CPU run node by
+    node (check_nodes_against_cpu; U-Net at UNET_CHECK_IMG with the same
+    widths, its own calibration). Prints CRNN's CTC string beside the fp32
+    engine's and U-Net's mask agreement with fp32. Returns the launches by
+    kernel summed over the tiers' main-path runs."""
+    from tengine_tpu_torch.models.extra import (
+        build_crnn_graph, build_unet_graph, ctc_greedy_decode,
+    )
+    from tengine_tpu_torch.quantize.dfq import equalize_graph
+
+    t0 = time.time()
+    rng = np.random.default_rng(0)
+    g, _ = build_crnn_graph(**CRNN_CONFIG)
+    xc = rng.standard_normal((EQ_IMAGES, 1, CRNN_CONFIG["img_h"], CRNN_CONFIG["img_w"])).astype(
+        np.float32)
+    fp32_c = eager(torch, tt.compile_graph(g, tt.Options(precision="fp32")),
+                   torch.from_numpy(xc[:1]).cuda())[0]
+    ge = g.clone()
+    pairs = equalize_graph(ge)
+    nets = {
+        "crnn": (tt.quantize_graph(g, [xc[:1]], scheme="int8", algorithm="minmax"), xc[:1],
+                 fp32_c, None),
+        "crnn-eq": (tt.quantize_graph(ge, [xc[i : i + 1] for i in range(EQ_IMAGES)],
+                                      scheme="int8", algorithm="eq"), xc[:1], fp32_c, None),
+    }
+    unet = {}
+    for img in (UNET_CONFIG["img"], UNET_CHECK_IMG):
+        _, gu = build_unet_graph(**dict(UNET_CONFIG, img=img))
+        xu = rng.standard_normal((1, 3, img, img)).astype(np.float32)
+        unet[img] = (tt.quantize_graph(gu, [xu], scheme="uint8", algorithm="minmax"), xu, gu)
+    qu, xu, gu = unet[UNET_CONFIG["img"]]
+    fp32_u = eager(torch, tt.compile_graph(gu, tt.Options(precision="fp32")),
+                   torch.from_numpy(xu).cuda())[0]
+    nets["unet"] = (qu, xu, fp32_u, unet[UNET_CHECK_IMG][:2])
+    log(f"  crnn / unet set-up (build graphs, DFQ over {pairs} conv pairs, MinMax and EQ "
+        f"calibration, fp32 references): {time.time() - t0:.1f} s")
+    total = dict.fromkeys(counters, 0)
+    for tier, (net, extra, per_forward, gate) in EXTRA_TIERS.items():
+        t1 = time.time()
+        qg, x, fp32, small = nets[net]
+        opts = dict(quant_mode="fast", **extra)
+        what = f"{net} {'uint8' if net == 'unet' else 'int8'} b1 tier {tier}"
+        cg = tt.compile_graph(qg, tt.Options(**opts))
+        derived = derived_launches(cg, None)
+        if derived != per_forward:
+            raise AssertionError(f"{what}: the IR gives {derived}, expected {per_forward}")
+        t_in = qg.tensors[qg.input_tensors[0]]
+        xq = qmath.quantize_np(x, t_in.quant, t_in.dtype)
+        xd = torch.from_numpy(xq).cuda()
+        outs, batch_ms, launches, eager_ms = drive(torch, cg, xd, counters, what, profile)
+        want = dict.fromkeys(counters, 0) | {
+            name: WRAPPER_RUNS * n for name, n in per_forward.items()}
+        if launches != want:
+            raise AssertionError(f"{what}: launches {launches}, expected {want}")
+        for name, n in launches.items():
+            total[name] += n
+        if per_forward:
+            seen = check_path_kernels(torch, cg, xd, what, per_forward)
+            if any(err for _, err in seen.values()):
+                raise AssertionError(f"{what}: a kernel launch differs from its plain version {seen}")
+        out = cg.graph.tensors[cg.output_ids[0]]
+        check_heads(torch, what, [out], outs, [fp32], gate,
+                    torch.uint8 if net == "unet" else torch.int8)
+        if small is None:
+            check_nodes_against_cpu(torch, tt, qg, opts, cg, xq, what)
+        else:
+            qs, xs = small
+            t_s = qs.tensors[qs.input_tensors[0]]
+            xqs = qmath.quantize_np(xs, t_s.quant, t_s.dtype)
+            cgs = tt.compile_graph(qs, tt.Options(**opts))
+            check_nodes_against_cpu(torch, tt, qs, opts, cgs, xqs, f"{what} at {UNET_CHECK_IMG}")
+            del cgs
+        deq = dequant(torch, outs[0], out).cpu().numpy()
+        if net == "unet":
+            agree = float((deq.argmax(1) == fp32.cpu().numpy().argmax(1)).mean())
+            log(f"  {what}: mask {deq.shape[2:]}, {agree:.4f} of the pixels the fp32 engine's class")
+        else:
+            log(f"  {what}: CTC string {ctc_greedy_decode(deq)!r}, the fp32 engine's "
+                f"{ctc_greedy_decode(fp32.cpu().numpy())!r}")
+        log(f"phase 3 main path: {what} Options({opts}): captured {np.median(batch_ms):.3f} ms, "
+            f"eager {np.median(eager_ms):.3f} ms a forward; kernels a forward {per_forward} "
+            f"[{time.time() - t1:.1f} s]")
+        del cg
+    return total
+
+
+def tensors_by_name(torch, cg, x) -> dict:
+    """Every tensor of one eager forward of cg on x, by name."""
+    from tengine_tpu_torch.executor.engine import build_forward
+
+    fwd, _, _ = build_forward(cg.graph, cg.options, cg.forward_fn.store, return_all=True,
+                              plan=cg.forward_fn.plan)
+    with torch.inference_mode():
+        env = fwd(cg.params, x)
+    return {cg.graph.tensors[t].name: v for t, v in env.items()}
+
+
+def run_s2d_tier(torch, tt, counters, qg5, x5, outs5, profile):
+    """Phase 3j: yolov5s-640 INT8 b8 (phase 3a's graph) under S2D_OPTS: the
+    stem rewritten as SpaceToDepth + a 3x3 s1 conv over 12 channels on the
+    fast lowering, no kernel launched; driven as drive does; the heads
+    within 1 LSB of phase 3a's; at batch 1, every tensor both graphs hold
+    within 1 LSB of the default tier's, on at most 0.1% of its elements.
+    Returns the outputs and the tier's kept graph."""
+    t1 = time.time()
+    batch = x5.shape[0]
+    what = f"yolov5s-{x5.shape[-1]} int8 b{batch} tier S2D"
+    cg = tt.compile_graph(qg5, tt.Options(batch_size=batch, **S2D_OPTS))
+    (stem,) = [n for n in cg.graph.nodes if n.op == "Convolution" and n.inputs[0] in [
+        m.outputs[0] for m in cg.graph.nodes if m.op == "SpaceToDepth"]]
+    p = stem.params
+    if ((p["kernel_h"], p["stride_h"], p["input_channel"]) != (3, 1, 12)
+            or cg.kernels[stem.name] != "lower_conv_quant_fast"):
+        raise AssertionError(f"{what}: stem {p['kernel_h']}x{p['kernel_w']} s{p['stride_h']} "
+                             f"C_in {p['input_channel']} on {cg.kernels[stem.name]}")
+    outs, batch_ms, launches, eager_ms = drive(torch, cg, x5, counters, what, profile)
+    if any(launches.values()):
+        raise AssertionError(f"{what}: launches {launches}, expected none")
+    heads = [cg.graph.tensors[t] for t in cg.output_ids]
+    check_within_lsb(f"{what} vs the default tier", outs, outs5, heads)
+    one = {}
+    for name, opts in (("default", dict(quant_mode="fast")), ("s2d", S2D_OPTS)):
+        one[name] = tensors_by_name(torch, tt.compile_graph(qg5, tt.Options(batch_size=1, **opts)),
+                                    x5[:1])
+    worst, compared = 0, 0
+    for name, a in one["s2d"].items():
+        b = one["default"].get(name)
+        if b is None or a.is_floating_point() or a.shape != b.shape:
+            continue
+        gap = (a.int() - b.int()).abs()
+        share = float((gap > 0).double().mean())
+        if int(gap.max()) > 1 or share > 1e-3:
+            raise AssertionError(f"{what} node {name}: {int(gap.max())} LSB from the default "
+                                 f"tier on {share:.5f} of its elements")
+        worst, compared = max(worst, int(gap.max())), compared + 1
+    log(f"  {what}: vs the default tier at batch 1, {compared} tensors: largest gap {worst} LSB")
+    log(f"phase 3 main path: {what} Options({S2D_OPTS}): captured {np.median(batch_ms):.3f} ms, "
+        f"eager {np.median(eager_ms):.3f} ms a batch; stem {stem.name} on the fast lowering, no "
+        f"kernel launched [{time.time() - t1:.1f} s]")
+    kept = keep(cg)
+    del cg
+    return outs, kept
+
+
+def extra_op_cases(ir):
+    """The 19 lowerings of ops/lowering_extra.py, each as a small one-node
+    graph of seeded constants and its seeded inputs: (name, graph, inputs,
+    exact). exact: data movement, selection and max, which the card must
+    compute bit for bit as the CPU does; the rest hold to rtol 1e-5 (exp,
+    sigmoid and tanh, and the products' order, round apart in the last
+    bits)."""
+    rng = np.random.default_rng(0)
+
+    def normal(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    rois = np.array([[0, 0, 3, 3], [2, 1, 7, 6], [1.5, 2.5, 4.4, 8.6], [-3, -2, 20, 15],
+                     [5, 5, 4, 4], [1e10, -1e10, 3e9, 2.0]], np.float32)
+    anchors = np.concatenate([rng.uniform(0.2, 0.8, (40, 2)), rng.uniform(0.1, 0.3, (40, 2))],
+                             1).astype(np.float32)
+    H = 16
+    cases = [  # op, params, inputs, consts, exact
+        ("LSTM", dict(hidden_size=H), [normal(24, 2, 32)],
+         [normal(4 * H, 32, scale=0.2), normal(4 * H, H, scale=0.2), normal(8 * H)], False),
+        ("RNN", dict(hidden_size=H), [normal(24, 2, 32)],
+         [normal(H, 32, scale=0.2), normal(H, H, scale=0.2), normal(2 * H)], False),
+        ("GRU", dict(hidden_size=H), [normal(24, 2, 32)],
+         [normal(3 * H, 32, scale=0.2), normal(3 * H, H, scale=0.2), normal(6 * H)], False),
+        ("ROIPooling", dict(pooled_h=2, pooled_w=3, spatial_scale=1.0),
+         [normal(1, 16, 8, 10), rois], [], True),
+        ("Roialign", dict(pooled_height=2, pooled_width=3, spatial_scale=0.5),
+         [normal(1, 16, 8, 10), rois[:5] * 2.3], [], False),
+        ("Psroipooling", dict(pooled_h=2, pooled_w=3, spatial_scale=1.0, output_dim=2),
+         [normal(1, 12, 8, 10), rois], [], False),
+        ("RPN", dict(feat_stride=16, basesize=16, min_size=16, per_nms_topn=RPN_SMOKE_TOPN,
+                     post_nms_topn=50, nms_thresh=0.7, ratios=[0.5, 1.0, 2.0],
+                     anchor_scales=[2.0, 4.0, 8.0], anchors=[]),
+         [normal(1, 18, 6, 6), normal(1, 36, 6, 6, scale=0.3),
+          np.array([[96.0, 80.0, 1.0]], np.float32)], [], False),
+        ("SpaceToBatchND", dict(dilation_x=2, dilation_y=2, pad_top=1, pad_bottom=0,
+                                pad_left=0, pad_right=1), [normal(1, 6, 7, 9)], [], True),
+        ("BatchToSpaceND", dict(dilation_x=2, dilation_y=2, crop_top=1, crop_bottom=0,
+                                crop_left=0, crop_right=1), [normal(4, 6, 3, 5)], [], True),
+        ("L2Pool", dict(padding_type=0, kernel_h=3, kernel_w=3, stride_h=2, stride_w=2),
+         [normal(2, 6, 7, 9)], [], True),
+        ("Bias", dict(bias_size=6), [normal(2, 6, 7, 9)], [normal(6)], True),
+        ("Embedding", dict(num_output=6, input_dim=10, bias_term=1, weight_data_size=60),
+         [np.array([1.0, 5.0, 9.0, -1.0, 3.7, -10.0, 10.0, 12.0], np.float32)],
+         [normal(10, 6), normal(6)], True),
+        ("Scatter", dict(axis=0, is_onnx=True),
+         [normal(5, 4), np.array([[0, -1, 7, 2], [3, 1, -2, -6]], np.float32), normal(2, 4)],
+         [], True),
+        ("SparseToDense", dict(output_shape_size0=4, output_shape_size1=5, default_value=0),
+         [np.array([[0, 0], [3, 4], [-1, 2], [1, 7], [4, 0]], np.float32)],
+         [np.array([4, 5], np.int32)], True),
+        ("DetectionPostProcess", dict(max_detections=6, max_classes_per_detection=1,
+                                      nms_score_threshold=0.3, nms_iou_threshold=0.5,
+                                      num_classes=3, scales=[10.0, 10.0, 5.0, 5.0]),
+         [normal(1, 40, 4, scale=0.5), rng.uniform(0, 1, (1, 40, 3)).astype(np.float32),
+          anchors], [], False),
+        ("SpatialTransformer", dict(target_shape=[5, 7]),
+         [normal(2, 3, 6, 8), np.array([1, 0, 0, 0, 1, 0], np.float32) + normal(2, 6,
+                                                                                 scale=0.2)],
+         [], False),
+        ("FusedBNScaleReLu", {}, [normal(2, 6, 7, 9)], [normal(6), normal(6)], False),
+        ("Accuracy", {}, [normal(2, 6, 7, 9)], [], True),
+        ("Generic", dict(max_input_num=1, max_output_num=1, op_name="MyOp"), [normal(1, 4)], [],
+         True),
+    ]
+    out = []
+    for op, params, inputs, consts, exact in cases:
+        g = ir.Graph(name=op)
+        data = g.add_tensor("in0", ir.DType.FP32, list(inputs[0].shape), ir.TensorType.INPUT)
+        nodes = [g.add_node("InputOp", "input0", [], [data.idx]).idx]
+        ins = [data.idx]
+        if op == "SparseToDense":  # indices, the shape const, then the values input
+            consts, extra = consts, [normal(5)]
+        else:
+            extra = inputs[1:]
+        for i, c in enumerate(consts):
+            dt = ir.DType.INT32 if c.dtype == np.int32 else ir.DType.FP32
+            ins.append(g.add_tensor(f"c{i}", dt, list(c.shape), ir.TensorType.CONST, data=c).idx)
+        for i, a in enumerate(extra):
+            t = g.add_tensor(f"in{i + 1}", ir.DType.FP32, list(a.shape), ir.TensorType.INPUT)
+            nodes.append(g.add_node("InputOp", f"input{i + 1}", [], [t.idx]).idx)
+            ins.append(t.idx)
+        y = g.add_tensor("out", ir.DType.FP32, [], ir.TensorType.VAR)
+        g.add_node(op, op.lower(), ins, [y.idx], params)
+        g.inputs, g.outputs = nodes, [g.nodes[-1].idx]
+        out.append((op, g, [inputs[0]] + list(extra), exact))
+    return out
+
+
+def check_extra_lowerings(torch, tt, ir) -> None:
+    """Phase 3j: each of the 19 lowerings of ops/lowering_extra.py compiled
+    on its one-node graph (extra_op_cases) and run captured on the card
+    (CompiledGraph.__call__: a capture fails on a host read or upload, or
+    on a data-dependent shape), held to the port's CPU run: bit for bit
+    where exact, else within rtol 1e-5 with a floor of 1e-6 of the largest
+    magnitude. Generic must refuse to compile on both, naming
+    register_custom_op."""
+    worst = {}
+    for op, g, inputs, exact in extra_op_cases(ir):
+        if op == "Generic":
+            for device in (None, "cpu"):
+                try:
+                    tt.compile_graph(g, tt.Options(), device=device)
+                except NotImplementedError as e:
+                    if "register_custom_op" not in str(e):
+                        raise
+                else:
+                    raise AssertionError("Generic compiled without a custom kernel")
+            continue
+        cg = tt.compile_graph(g, tt.Options())
+        xs = [torch.from_numpy(a).cuda() for a in inputs]
+        got = cg(*xs)[0]  # captured at this first call, then replayed
+        again = cg(*xs)[0]  # a second replay of the graph
+        want = tt.compile_graph(g, tt.Options(), device="cpu").run(*inputs)[0]
+        got, again = got.cpu().numpy(), again.cpu().numpy()
+        if got.shape != want.shape or not np.array_equal(got, again, equal_nan=True):
+            raise AssertionError(f"{op}: card {got.shape} against CPU {want.shape}, or replays differ")
+        if exact:
+            ok = np.array_equal(got, want, equal_nan=True)
+            dev = 0.0 if ok else float(np.nanmax(np.abs(got - want)))
+        else:
+            dev = float(np.nanmax(np.abs(got - want)))
+            ok = np.allclose(got, want, rtol=1e-5, atol=1e-6 * float(np.nanmax(np.abs(want))),
+                             equal_nan=True)
+        worst[op] = dev
+        if not ok:
+            raise AssertionError(f"{op}: card against CPU, largest gap {dev:g}")
+    log(f"  lowering_extra: {len(worst)} lowerings captured on the card = the CPU run "
+        f"(largest gap: {worst}); Generic refused on both")
+
+
 def main(argv) -> int:
     import torch
 
@@ -2490,6 +2839,17 @@ def main(argv) -> int:
         entries[name]["launches"] += n
     log(f"  transformer tiers in all: {time.time() - t0:.1f} s")
 
+    # 3j. main path: CRNN INT8 and U-Net-512 UINT8 at batch 1 on the fast
+    # lowerings (CRNN-S, UNET-S), with the C_in-128 convs, U-Net's head and
+    # CRNN's FC on qconv_direct / qconv1x1 / qgemm_requant (CRNN-T, UNET-T),
+    # CRNN-T after DFQ and EQ (CRNN-E); yolov5s-640 with stem_s2d (S2D); the
+    # 19 lowerings of ops/lowering_extra.py captured on the card
+    t0 = time.time()
+    for name, n in run_extra_tiers(torch, tt, qmath, counters, profile).items():
+        entries[name]["launches"] += n
+    outs_s2d, cg_s2d = run_s2d_tier(torch, tt, counters, qg5, x5, outs5, profile)
+    check_extra_lowerings(torch, tt, ir)
+    log(f"  crnn / unet / s2d tiers and the extra lowerings in all: {time.time() - t0:.1f} s")
 
     # 4. correctness: fp32 engine on the card, and the port's CPU run
     t0 = time.time()
@@ -2497,6 +2857,8 @@ def main(argv) -> int:
     fouts5 = eager(torch, tt.compile_graph(g5, tt.Options(precision="fp32", batch_size=batch)),
                    torch.from_numpy(images5).cuda())
     check_heads(torch, "yolov5s", heads5, outs5, fouts5, 0.95, torch.int8)
+    check_heads(torch, "yolov5s S2D", [cg_s2d.graph.tensors[t] for t in cg_s2d.output_ids],
+                outs_s2d, fouts5, 0.95, torch.int8)
     couts5 = tt.compile_graph(qg5, tt.Options(quant_mode="fast", batch_size=1), device="cpu").run(xq5[:1])
     check_within_lsb("yolov5s card vs CPU (image 0)", [o[:1] for o in outs5], couts5, heads5)
 

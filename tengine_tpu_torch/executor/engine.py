@@ -34,11 +34,12 @@ import torch
 
 from ..graph.ir import Graph, Tensor
 from ..graph.passes import (
-    fold_shuffle_gathers, fuse_conv_add, fuse_resnet_blocks, to_native_int8,
+    fold_shuffle_gathers, fuse_conv_add, fuse_resnet_blocks, stem_conv_s2d, to_native_int8,
 )
 from ..ops import detection as _detection  # noqa: F401 — populate registry
 from ..ops import fused as _fused  # noqa: F401
 from ..ops import lowering as _lowering  # noqa: F401
+from ..ops import lowering_extra as _lowering_extra  # noqa: F401
 from ..ops import qmath
 from ..ops import quantized as _quantized  # noqa: F401
 from ..ops.layout import TArr, as_semantic, nchw, nhwc
@@ -579,9 +580,7 @@ def compile_graph(
 ) -> CompiledGraph:
     """prerun_graph_multithread analog: passes, prepare, device params.
 
-    The pass pipeline is the JAX engine's, in its order. Options the port
-    does not have yet (stem_s2d) raise NotImplementedError where the JAX
-    engine would use them."""
+    The pass pipeline is the JAX engine's, in its order."""
     device = resolve_device(device)
     options = options or Options.from_env()
     fast_quant = (
@@ -590,7 +589,10 @@ def compile_graph(
         and not options.force_ref_kernels
     )
     if options.stem_s2d and not options.force_ref_kernels:
-        raise NotImplementedError("stem_s2d (tengine_tpu/graph/passes.py:stem_conv_s2d) is not ported yet")
+        # small-channel stride-2 stems -> SpaceToDepth + a stride-1 conv
+        g2 = graph.clone()
+        if stem_conv_s2d(g2):
+            graph = g2
     native_int8 = (
         fast_quant
         and options.quant_native != "off"

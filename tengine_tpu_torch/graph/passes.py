@@ -476,6 +476,117 @@ def split_concat_conv1x1(g: Graph) -> int:
     return split
 
 
+def stem_conv_s2d(g: Graph, max_in_c: int = 8, min_kernel: int = 4, min_hw: int = 320 * 320) -> int:
+    """Rewrite small-input-channel stride-2 convs — the classic 3-channel
+    stem (3x3s2 mobilenet, 7x7s2 resnet, 6x6s2 yolov5-after-focus-fold) —
+    as SpaceToDepth(2) + a stride-1 conv over 4C channels with re-indexed
+    weights. Exact: the same multiply-adds, permuted.
+
+    Per spatial axis, an original tap at offset t (relative to 2*out_idx,
+    t in [-p0, k-1-p0]) maps to s2d phase t%2 and plane shift floor(t/2):
+        w'[o, (dy*2+dx)*C + c, fy(ty), fx(tx)] = w[o, c, ty+p0h, tx+p0w]
+    (dy/dx = tap parities; the (dy,dx,c) channel order matches our
+    SpaceToDepth lowering). New pads: p0' = ceil(p0/2); p1' fixed by the
+    unchanged output size.
+
+    Opt-in (Options.stem_s2d). Runs at compile time (prerun weight-repack
+    analog, cpu_graph.c:143) so quantized weights are permuted too: an
+    inserted zero tap encodes as the weight's zero point, each output
+    channel's own for per-channel weights (the JAX pass fills those with
+    0, which is a nonzero weight where a channel's zero point is not 0)."""
+    rewrites = 0
+    for conv in list(g.nodes):
+        p = conv.params
+        if (
+            conv.op != "Convolution"
+            or p.get("stride_h") != 2
+            or p.get("stride_w") != 2
+            or p.get("group", 1) != 1
+            or p.get("dilation_h", 1) != 1
+            or p.get("dilation_w", 1) != 1
+            or "fused_add_pos" in p
+        ):
+            continue
+        t_in = g.tensors[conv.inputs[0]]
+        t_w = g.tensors[conv.inputs[1]]
+        if t_w.data is None or not t_in.shape or len(t_in.shape) != 4:
+            continue
+        w = np.asarray(t_w.data)
+        O, C = int(w.shape[0]), int(w.shape[1])
+        if C > max_in_c:
+            continue
+        H, W = int(t_in.shape[2]), int(t_in.shape[3])
+        if H % 2 or W % 2:
+            continue
+        kh, kw = p["kernel_h"], p["kernel_w"]
+        if max(kh, kw) < min_kernel or H * W < min_hw:
+            continue
+        ph0, ph1 = p.get("pad_h0", 0), p.get("pad_h1", 0)
+        pw0, pw1 = p.get("pad_w0", 0), p.get("pad_w1", 0)
+
+        def axis_map(k, p0, p1, size):
+            u0 = (-p0) // 2
+            k2 = (k - 1 - p0) // 2 - u0 + 1
+            out = (size + p0 + p1 - k) // 2 + 1
+            p0_new = -u0
+            p1_new = (out - 1) + k2 - size // 2 - p0_new
+            return u0, k2, p0_new, p1_new, out
+
+        u0y, k2h, p0h2, p1h2, _ = axis_map(kh, ph0, ph1, H)
+        u0x, k2w, p0w2, p1w2, _ = axis_map(kw, pw0, pw1, W)
+        if min(p1h2, p1w2) < 0:
+            continue
+
+        zps = np.asarray([] if t_w.quant is None else t_w.quant.zero_points,
+                         np.int64).reshape(-1)
+        fill = zps if zps.size == O else np.full(O, zps[0] if zps.size else 0)
+        wn = np.empty((O, 4 * C, k2h, k2w), dtype=w.dtype)
+        wn[...] = fill.reshape(O, 1, 1, 1).astype(w.dtype)
+        for ty in range(-ph0, kh - ph0):
+            dy = ty % 2
+            uy = (ty - dy) // 2 - u0y
+            for tx in range(-pw0, kw - pw0):
+                dx = tx % 2
+                ux = (tx - dx) // 2 - u0x
+                wn[:, (dy * 2 + dx) * C : (dy * 2 + dx + 1) * C, uy, ux] = w[
+                    :, :, ty + ph0, tx + pw0
+                ]
+        t_w.data = np.ascontiguousarray(wn)
+        t_w.shape = [O, 4 * C, k2h, k2w]
+
+        s2d_out = g.add_tensor(
+            f"{conv.name}/s2d",
+            t_in.dtype,
+            [int(t_in.shape[0]), 4 * C, H // 2, W // 2],
+            quant=t_in.quant,
+        )
+        g.add_node(
+            "SpaceToDepth",
+            f"{conv.name}/s2d",
+            [conv.inputs[0]],
+            [s2d_out.idx],
+            # the weight re-indexing above assumes DCR channel order; the
+            # engine default is CRD (reference parity), so say it explicitly
+            params={"block_size": 2, "mode": "DCR"},
+        )
+        t_in.consumers = [c for c in t_in.consumers if c != conv.idx]
+        conv.inputs[0] = s2d_out.idx
+        s2d_out.consumers = sorted(set(s2d_out.consumers) | {conv.idx})
+        p.update(
+            kernel_h=k2h,
+            kernel_w=k2w,
+            stride_h=1,
+            stride_w=1,
+            pad_h0=p0h2,
+            pad_h1=p1h2,
+            pad_w0=p0w2,
+            pad_w1=p1w2,
+            input_channel=4 * C,
+        )
+        rewrites += 1
+    return rewrites
+
+
 def decompose_spp(g: Graph) -> int:
     """Rewrite parallel stride-1 same-pad odd-kernel max-pools of one tensor
     as a chain of the smallest pool (SPP -> SPPF): mp9 = mp5∘mp5,

@@ -1211,9 +1211,8 @@ def _to_int(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 @register_op("Gather")
 def lower_gather(ctx: LowerCtx, x: TArr, *rest: TArr):
-    """jnp.take's default mode: an index in [-n, n) picks (a negative one
-    wraps once); any other fills with NaN (the dtype's lowest value for an
-    integer tensor). The indices are the second input's, cast to int32."""
+    """jnp.take in its default mode (take). The indices are the second
+    input's, cast to int32."""
     p = ctx.params
     xs = as_semantic(x)
     axis = p.get("axis", 0) % xs.ndim
@@ -1222,6 +1221,13 @@ def lower_gather(ctx: LowerCtx, x: TArr, *rest: TArr):
         idx = _to_int(idx, torch.int32) if idx.is_floating_point() else idx.to(torch.int32)
     else:
         idx = ctx.get_param("gather_idx", lambda: np.asarray(ctx.const_data(1), np.int32))
+    return wrap(take(xs, idx, axis))
+
+
+def take(xs: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
+    """jnp.take(xs, idx, axis) in its default mode: an index in [-n, n)
+    picks (a negative one wraps once); any other fills with NaN (the
+    dtype's lowest value for an integer tensor)."""
     n = xs.shape[axis]
     idx = torch.where(idx < 0, idx + n, idx)
     ok = (idx >= 0) & (idx < n)
@@ -1231,7 +1237,7 @@ def lower_gather(ctx: LowerCtx, x: TArr, *rest: TArr):
     fill = (float("nan") if xs.is_floating_point() else
             torch.iinfo(xs.dtype).min if xs.dtype.is_signed else torch.iinfo(xs.dtype).max)
     ok = ok.reshape((1,) * axis + tuple(idx.shape) + (1,) * (xs.ndim - axis - 1))
-    return wrap(torch.where(ok, picked, fill))
+    return torch.where(ok, picked, fill)
 
 
 @register_op("Cast")

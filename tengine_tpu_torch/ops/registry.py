@@ -128,3 +128,7 @@ def select_kernel(op: str, ctx: LowerCtx) -> Kernel:
     if ctx.options.force_ref_kernels:
         return applicable[-1]  # lowest score = reference path
     return applicable[0]
+
+
+def registered_ops() -> List[str]:
+    return sorted(_REGISTRY.keys())

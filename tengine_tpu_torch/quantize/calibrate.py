@@ -31,6 +31,21 @@ class ActivationStats:
     count: int = 0  # total elements observed (for the ACIQ sigma estimate)
 
 
+def tensors_by_batch(graph: Graph, batches, options: Options, device: torch.device):
+    """Every tensor of the graph's forward on `device`, by id, in semantic
+    layout, for each batch (a tuple of numpy arrays, at the dtypes the
+    graph takes): one dict a batch, yielded in turn. The prepare pass runs
+    once, at the first batch's shapes."""
+    store = ParamStore()
+    forward_all, _, _ = build_forward(graph, options, store, return_all=True)
+    with torch.inference_mode():
+        forward_all({}, *[torch.from_numpy(b).to("meta") for b in batches[0]])
+    params = store.upload(device)
+    for batch in batches:
+        with torch.inference_mode():
+            yield forward_all(params, *[torch.from_numpy(b).to(device) for b in batch])
+
+
 def collect_activation_ranges(
     graph: Graph,
     inputs: Iterable[Tuple[np.ndarray, ...]],
@@ -44,24 +59,15 @@ def collect_activation_ranges(
     histograms for KL)."""
     device = resolve_device(device)
     options = options or Options(quant_mode="float")
-    store = ParamStore()
-    forward_all, _, _ = build_forward(graph, options, store, return_all=True)
-
     batches = []
     for batch in inputs:
         batch = batch if isinstance(batch, (tuple, list)) else (batch,)
         batches.append(tuple(np.asarray(b, np.float32) for b in batch))
     if not batches:
         raise ValueError("no calibration inputs")
-    # prepare pass on shape-only tensors populates the store
-    with torch.inference_mode():
-        forward_all({}, *[torch.empty(b.shape, device="meta") for b in batches[0]])
-    params = store.upload(device)
 
     stats: Dict[int, ActivationStats] = {}
-    for batch in batches:
-        with torch.inference_mode():
-            env = forward_all(params, *[torch.from_numpy(b).to(device) for b in batch])
+    for env in tensors_by_batch(graph, batches, options, device):
         for tid, arr in env.items():
             t = graph.tensors[tid]
             if t.tensor_type == TensorType.CONST:

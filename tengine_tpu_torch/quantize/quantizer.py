@@ -19,6 +19,7 @@ import numpy as np
 from ..graph.ir import DType, Graph, QuantParam, TensorType
 from ..ops import qmath
 from ..utils.config import Options
+from ..utils.log import logger
 from .calibrate import (
     ActivationStats,
     aciq_int8,
@@ -64,11 +65,11 @@ def quantize_graph(
         # carries (quant_tool splits the same way); silently falling back to
         # minmax would misreport what ran
         raise ValueError("algorithm='eq' requires scheme='int8'")
-    if algorithm == "eq":
-        raise NotImplementedError(
-            "algorithm='eq' (tengine_tpu/quantize/eq.py) is not ported yet"
-        )
     act_dtype = DType.UINT8 if scheme == "uint8" else DType.INT8
+
+    # materialize once: calibration_inputs may be a generator, and EQ below
+    # iterates it a second time after collect_activation_ranges consumed it
+    calibration_inputs = list(calibration_inputs)
 
     stats = collect_activation_ranges(
         graph, calibration_inputs, options, with_histograms=(algorithm == "kl"),
@@ -216,4 +217,12 @@ def quantize_graph(
             )
 
     q._is_quantized = True
+
+    if algorithm == "eq" and scheme == "int8":
+        # search-based per-channel weight-scale equalization on top of the
+        # minmax base quantization (quant_eq.cpp QuantTool::quant_search)
+        from .eq import eq_adjust_weights
+
+        n = eq_adjust_weights(graph, q, calibration_inputs, options, device=device)
+        logger.info("eq search adjusted %d weighted nodes", n)
     return q

@@ -71,7 +71,7 @@ class Options:
     # "NHWC" the caller hands NHWC arrays. Outputs are semantic NCHW.
     input_layout: str = "NCHW"
     # Rewrite small-channel stride-2 stem convs as SpaceToDepth + stride-1
-    # conv at compile time (passes.stem_conv_s2d; not ported yet).
+    # conv at compile time (passes.stem_conv_s2d).
     stem_s2d: bool = False
     # Route large pointwise convs / FC to the qgemm_requant kernel (with
     # quant_bf16_storage=False; ops/cuda/qgemm.py).

@@ -5,8 +5,8 @@ the reductions and selections ArgMax, ArgMin, TopKV2, Reduction (all 11
 types) and ReduceL2, the shape ops SwapAxis, Unsqueeze, Expanddims, Shape,
 StridedSlice, Tile and Expand, and Gather, Cast, Comparison, Logical,
 Reverse and Where, against the JAX package, on the CPU; and the registry:
-the port lowers every op type that tengine_tpu/ops/lowering.py and
-detection.py register.
+the port lowers every op type that tengine_tpu/ops/lowering.py,
+detection.py and lowering_extra.py register.
 
 Each case is a one-node graph (tests/test_torch_shape_ops.py:
 one_node_graph), or the node after a 1x1 conv so that its first input
@@ -336,16 +336,17 @@ def test_reduction_types_follow_the_runtime_table(t, want, monkeypatch):
 
 def test_registry_covers_the_jax_lowerings():
     """The port registers a lowering for every op type that
-    tengine_tpu/ops/lowering.py and tengine_tpu/ops/detection.py register
-    (87); only ops/lowering_extra.py's are left."""
+    tengine_tpu/ops/lowering.py, detection.py and lowering_extra.py
+    register (106: all of the reference's)."""
     import tengine_tpu.executor.engine  # noqa: F401 — populate the registry
     from tengine_tpu.ops.registry import _REGISTRY as jax_registry
 
     import tengine_tpu_torch.executor.engine  # noqa: F401
     from tengine_tpu_torch.ops.registry import _REGISTRY as port_registry
 
-    modules = {"tengine_tpu.ops.lowering", "tengine_tpu.ops.detection"}
+    modules = {"tengine_tpu.ops.lowering", "tengine_tpu.ops.detection",
+               "tengine_tpu.ops.lowering_extra"}
     want = {op for op, kernels in jax_registry.items()
             if any(k.fn.__module__ in modules for k in kernels)}
-    assert len(want) == 87
+    assert len(want) == 106
     assert want <= set(port_registry), sorted(want - set(port_registry))

@@ -193,14 +193,55 @@ def test_kernel_wrappers_refuse_other_devices():
         pqb._block_args(x, x, a, blk, False, (5, 5))
 
 
+def _stem_graph(img=320):
+    """input -> a 6x6 s2 p2 stem conv (3 -> 8): the shape stem_conv_s2d
+    rewrites at its compile-time gate."""
+    from tengine_tpu_torch.graph.ir import DType, Graph, TensorType
+
+    rng = np.random.default_rng(6)
+    g = Graph(name="stem")
+    x = g.add_tensor("x", DType.FP32, [1, 3, img, img], TensorType.INPUT)
+    w = g.add_tensor("w", DType.FP32, [8, 3, 6, 6], TensorType.CONST,
+                     data=(rng.standard_normal((8, 3, 6, 6)) * 0.2).astype(np.float32))
+    y = g.add_tensor("y", DType.FP32, [1, 8, img // 2, img // 2])
+    g.add_node("InputOp", "in", [], [x.idx])
+    params = dict(
+        kernel_h=6, kernel_w=6, stride_h=2, stride_w=2, pad_h0=2, pad_h1=2,
+        pad_w0=2, pad_w1=2, dilation_h=1, dilation_w=1, group=1,
+        output_channel=8, input_channel=3, activation=-1,
+    )
+    g.add_node("Convolution", "stem", [x.idx, w.idx], [y.idx], params=params)
+    g.inputs = [0]
+    g.outputs = [1]
+    return g
+
+
 def test_unported_settings_raise(monkeypatch):
+    """The settings that raised NotImplementedError while their modules
+    were not ported now run, each held to the JAX package: stem_s2d, EQ,
+    the native-int8 plan, the dw route and the chain kernel."""
+    import tengine_tpu as jt
+    from tengine_tpu.quantize.quantizer import quantize_graph as jax_quantize
+
     import tengine_tpu_torch as tt
+    from tengine_tpu_torch.ops import qmath
+    from tengine_tpu_torch.serializer.tm2.writer import graph_to_tm_bytes
 
     monkeypatch.setenv("TT_DW_PALLAS", "1")
     calib = [np.random.default_rng(0).standard_normal((1, 3, 8, 8)).astype(np.float32)]
     qg = tt.quantize_graph(_tiny_float_graph(), calib, scheme="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="stem_s2d"):
-        tt.compile_graph(qg, tt.Options(quant_mode="fast", stem_s2d=True), device="cpu")
+    # stem_s2d: ported, so the stem compiles rewritten and equals the JAX
+    # engine's output under the same Options
+    images = np.random.default_rng(1).standard_normal((1, 3, 320, 320)).astype(np.float32)
+    qs = tt.quantize_graph(_stem_graph(), [images], scheme="int8", device="cpu")
+    t_in = qs.tensors[qs.input_tensors[0]]
+    xq = qmath.quantize_np(images, t_in.quant, t_in.dtype)
+    opts = dict(quant_mode="fast", stem_s2d=True)
+    cg = tt.compile_graph(qs, tt.Options(**opts), device="cpu")
+    assert [n.op for n in cg.graph.nodes] == ["InputOp", "Convolution", "SpaceToDepth"]
+    (want,) = jt.compile_graph(jt.load_tm_bytes(graph_to_tm_bytes(qs)), jt.Options(**opts)).run(xq)
+    d = np.abs(cg.run(xq)[0].astype(np.int32) - np.asarray(want).astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3
     # the native-int8 plan: ported, so it compiles and marks the storage plan
     cg = tt.compile_graph(qg, tt.Options(quant_mode="fast", quant_native="on"), device="cpu")
     assert cg.graph._bf16_tids == set()
@@ -211,9 +252,19 @@ def test_unported_settings_raise(monkeypatch):
     cg = tt.compile_graph(
         qdw, tt.Options(quant_mode="fast", quant_bf16_storage=False, batch_size=32), device="cpu")
     assert cg.kernels["dw"] == "lower_conv_quant_pallas_dw"
-    with pytest.raises(NotImplementedError, match="eq"):
-        tt.quantize_graph(_tiny_float_graph(), calib, scheme="int8", algorithm="eq",
-                          device="cpu")
+    # algorithm="eq": ported, so it quantizes, to the JAX quantizer's scales
+    # (on random weights: the tiny graph's all-ones weights make every zoom
+    # a tie, tests/test_torch_dfq_eq.py)
+    calib_s = [images[..., :16, :16].copy()]
+    q_eq = tt.quantize_graph(_stem_graph(16), calib_s, scheme="int8", algorithm="eq",
+                             device="cpu")
+    j_eq = jax_quantize(jt.load_tm_bytes(graph_to_tm_bytes(_stem_graph(16))), calib_s,
+                        scheme="int8", algorithm="eq")
+    for a, b in zip(q_eq.tensors, j_eq.tensors, strict=True):
+        assert (a.quant is None) == (b.quant is None)
+        if a.data is not None:
+            np.testing.assert_array_equal(a.data, b.data)
+            np.testing.assert_array_equal(a.quant.scales, b.quant.scales)
     # fuse_resblock routes bottleneck chains to the chain kernel: ported, so a
     # two-block chain compiles under the exact chain tier and names it
     chain = two_block_chain_graph()
