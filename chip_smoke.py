@@ -275,6 +275,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from pathlib import Path
@@ -477,6 +478,59 @@ RPN_SMOKE_TOPN = 300
 # the forwards of a tier's main-path run that call the kernels' wrappers: the
 # captured forward's warm-up and its capture (drive)
 WRAPPER_RUNS = 2
+
+# phase 3k: phase 3a's yolov5s-640 INT8 graph behind InferenceServer
+# (parallel/serving.py) under Options(quant_mode="fast"), max_batch 8, a 5 ms
+# window: one CompiledGraph and CUDA graph per bucket. Seeded uint8 frames of
+# three camera sizes, letterboxed to 640 by native.letterbox, scaled by 1/255
+# and INT8-quantized on the input's grid; requests in bursts of 8, 3 and 1
+# (buckets 8, 4 and 1), SERVER_ROUNDS times; each answer decoded on the host
+# (tm_yolov5.py's threshold and NMS IoU), the SERVER_TOPK highest scores
+# kept before NMS
+SERVER_BUCKETS = (1, 2, 4, 8)
+SERVER_FRAME_SIZES = ((480, 640), (720, 1280), (640, 640))
+SERVER_BURSTS = (8, 3, 1)
+SERVER_ROUNDS = 2
+SERVER_WAIT_MS = 5.0
+SERVER_TOPK = 1000
+SERVER_CONF, SERVER_IOU = 0.25, 0.45
+# phase 3l: phase 3g's RetinaFace (b1) and MobileFaceNet (b8) under FACE-T
+# as a four-stage Pipeline (utils/pipeline.py), each stage on its own thread:
+# pre (native.preprocess_batch onto the detector's grid, mean 127.5, scale
+# 1/128), detect, crop (faces from the score maps as tm_face_pipeline.py's
+# decode_retinaface finds them: a box of 4 strides at each position whose
+# face probability exceeds FACE_SCORE, at most MAX_FACES, else its centred
+# box; native.letterbox to 112, preprocess_batch onto the embedder's grid,
+# padded to MAX_FACES) and embed, over FACE_FRAMES seeded 480x640 frames
+FACE_FRAMES = 16
+FACE_FRAME_HW = (480, 640)
+FACE_SCORE = 0.5
+MAX_FACES = 8
+FACE_MEAN, FACE_SCALE = 127.5, 1 / 128
+# phase 3m: every detector of models/detect_zoo*.py and darknet_zoo's
+# yolov4-tiny at its builder's default size, batch 1 (the builders'
+# torch modules seeded by torch.manual_seed(0)); MinMax from one seeded image,
+# INT8 (nanodet UINT8, as tests/test_detect_zoo.py quantizes it), default
+# Options. Per net: the models module, the builder, the scheme, the dequantized
+# cosine gate against the fp32 engine (tests/test_detect_zoo.py's: 0.95,
+# UltraFace 0.85), and the NMS IoU of its example (None: it calls none)
+ZOO_NETS = {
+    "fastpose": ("detect_zoo", "build_fastpose_graph", "int8", 0.95, None),
+    "nanodet": ("detect_zoo", "build_nanodet_graph", "uint8", 0.95, 0.6),
+    "ultraface": ("detect_zoo", "build_ultraface_graph", "int8", 0.85, 0.5),
+    "hrnet": ("detect_zoo", "build_hrnet_graph", "int8", 0.95, None),
+    "yolact": ("detect_zoo", "build_yolact_graph", "int8", 0.95, None),
+    "openpose": ("detect_zoo", "build_openpose_graph", "int8", 0.95, None),
+    "efficientdet": ("detect_zoo", "build_efficientdet_graph", "int8", 0.95, None),
+    "landmark": ("detect_zoo", "build_landmark_graph", "int8", 0.95, None),
+    "yolox": ("detect_zoo2", "build_yolox_graph", "int8", 0.95, 0.45),
+    "scrfd": ("detect_zoo2", "build_scrfd_graph", "int8", 0.95, 0.45),
+    "movenet": ("detect_zoo2", "build_movenet_graph", "int8", 0.95, None),
+    "nanodet-plus": ("detect_zoo3", "build_nanodet_plus_graph", "int8", 0.95, 0.6),
+    "picodet": ("detect_zoo3", "build_picodet_graph", "int8", 0.95, 0.5),
+    "yolov4-tiny": ("darknet_zoo", "build_yolov4_tiny_graph", "int8", 0.95, 0.45),
+}
+INT32_MAX = 2**31 - 1
 
 
 def build_resnet50_graph(ir, img=224, classes=1000, seed=0, widths=RESNET50_WIDTHS,
@@ -2150,7 +2204,8 @@ def run_face_pipeline(torch, tt, qmath, counters, ir, profile):
     FACE_TIERS (run_quant_tier); prints the face pipeline's detect ms,
     embed ms and frames/s = 1000 / (detect + embed) under FACE-S and
     FACE-T, captured and eager. Returns the launches by kernel summed over
-    the tiers' main-path runs."""
+    the tiers' main-path runs, the two quantized graphs by net (phase 3l
+    serves them) and the captured frames/s by tier."""
     t0 = time.time()
     nets = {"retinaface": build_retinaface_mnet_graph(ir),
             "mobilefacenet": build_mobilefacenet_graph(ir)}
@@ -2164,6 +2219,7 @@ def run_face_pipeline(torch, tt, qmath, counters, ir, profile):
         fp32[net] = eager(torch, tt.compile_graph(g, tt.Options(precision="fp32", batch_size=big)),
                           torch.from_numpy(images[net]).cuda())
     log(f"  face set-up (build graphs, calibrate, fp32 references): {time.time() - t0:.1f} s")
+    fps = {}
     for tier, (extra, gate, per_net) in FACE_TIERS.items():
         ms = {}
         for net, (per_forward, batch) in per_net.items():
@@ -2175,10 +2231,11 @@ def run_face_pipeline(torch, tt, qmath, counters, ir, profile):
                 total[name] += n
         if len(ms) == 2:
             (dc, de), (ec, ee) = ms["retinaface"], ms["mobilefacenet"]
+            fps[tier] = 1e3 / (dc + ec)
             log(f"phase 3 face pipeline {tier}: detect (retinaface b1) {dc:.3f} ms, embed "
                 f"(mobilefacenet b8) {ec:.3f} ms, {1e3 / (dc + ec):.1f} frames/s captured; eager "
                 f"{de:.3f} + {ee:.3f} ms, {1e3 / (de + ee):.1f} frames/s")
-    return total
+    return total, quantized, fps
 
 
 def check_nodes_against_cpu(torch, tt, qg, opts, cg, xq, what):
@@ -2587,6 +2644,431 @@ def check_extra_lowerings(torch, tt, ir) -> None:
         f"(largest gap: {worst}); Generic refused on both")
 
 
+def decode_v5_head(out, anchors, stride, conf_th):
+    """examples/tm_yolov5.py:decode_v5_head, vectorised: one dequantized
+    head [3 * (5 + nc), g, g] -> [N, 6] (x0, y0, x1, y1, score, class), the
+    positions whose objectness exceeds conf_th and whose best class score
+    reaches it, in the example's order (anchor, row, column)."""
+    ch, gh, gw = out.shape
+    p = 1 / (1 + np.exp(-out.reshape(3, ch // 3, gh, gw)))
+    scores = p[:, 4:5] * p[:, 5:]
+    c = scores.argmax(1)
+    score = np.take_along_axis(scores, c[:, None], 1)[:, 0]
+    a, y, x = np.nonzero((p[:, 4] > conf_th) & (score >= conf_th))
+    aw, ah = (np.asarray(anchors, np.float32)[a, i] for i in (0, 1))
+    bx = (2 * p[a, 0, y, x] - 0.5 + x) * stride
+    by = (2 * p[a, 1, y, x] - 0.5 + y) * stride
+    bw = (2 * p[a, 2, y, x]) ** 2 * aw
+    bh = (2 * p[a, 3, y, x]) ** 2 * ah
+    return np.stack([bx - bw / 2, by - bh / 2, bx + bw / 2, by + bh / 2, score[a, y, x],
+                     c[a, y, x]], 1).astype(np.float32).reshape(-1, 6)
+
+
+def check_nms(native, what, boxes, scores, iou):
+    """native.nms against the port's numpy NMS on the same boxes: the same
+    indices required. Returns the kept count."""
+    keep = native.nms(boxes, scores, iou)
+    plain = native._nms_np(np.ascontiguousarray(boxes, np.float32),
+                           np.ascontiguousarray(scores, np.float32), iou, len(scores))
+    if not np.array_equal(keep, plain):
+        raise AssertionError(f"{what}: native NMS kept {keep[:10]}, numpy {plain[:10]}")
+    return len(keep)
+
+
+def decode_yolov5(native, qmath, heads, outs):
+    """One request's three int8 heads -> its detections after class-aware
+    NMS (tm_yolo.py:nms's per-class offset), the top SERVER_TOPK scores
+    kept before it; native.nms held to the numpy NMS."""
+    from tengine_tpu_torch.models.yolov5 import YOLOV5_ANCHORS, YOLOV5_STRIDES
+
+    maps = sorted(((qmath.dequantize_np(o[0].astype(np.float32), t.quant), t)
+                   for t, o in zip(heads, outs)), key=lambda m: -m[0].shape[1])
+    dets = np.concatenate([decode_v5_head(m, YOLOV5_ANCHORS[i], YOLOV5_STRIDES[i], SERVER_CONF)
+                           for i, (m, _) in enumerate(maps)])
+    dets = dets[np.argsort(-dets[:, 4], kind="stable")[:SERVER_TOPK]]
+    span = float(dets[:, :4].max(initial=0.0)) + 1.0
+    n = check_nms(native, "yolov5s request", dets[:, :4] + dets[:, 5:6] * span, dets[:, 4],
+                  SERVER_IOU)
+    return len(dets), n
+
+
+def run_server(torch, tt, qmath, native, counters, qg):
+    """Phase 3k: qg (phase 3a's yolov5s-640 INT8 graph) behind
+    InferenceServer. Each bucket gets one untimed round (its compile, its
+    first call's warm-up forward and capture), its stem-kernel launches
+    counted; then SERVER_ROUNDS x SERVER_BURSTS requests, each burst
+    submitted at once and awaited, are timed. Checks: every request
+    answered; fewer batches than requests; buckets 8, 4 and 1 served; the
+    stem kernel launched WRAPPER_RUNS times in each bucket and nowhere
+    else; every answer equal at 0 LSB to its frame through the bucket-1
+    CompiledGraph; each answer decoded, native.nms = the numpy NMS. Prints
+    the server's latency percentiles over the timed requests, requests/s
+    and each bucket's param bytes of its own. Returns the launches by
+    kernel."""
+    from tengine_tpu_torch.parallel.serving import InferenceServer
+
+    t0 = time.time()
+    t_in = qg.tensors[qg.input_tensors[0]]
+    img = t_in.shape[2]
+    rng = np.random.default_rng(0)
+    n_timed = SERVER_ROUNDS * sum(SERVER_BURSTS)
+    frames = [rng.integers(0, 256, (*SERVER_FRAME_SIZES[i % len(SERVER_FRAME_SIZES)], 3),
+                           dtype=np.uint8) for i in range(n_timed)]
+    xs = []
+    for f in frames:
+        boxed = native.letterbox(f, img, img)
+        x = np.ascontiguousarray((boxed.astype(np.float32) / 255.0).transpose(2, 0, 1)[None])
+        xs.append(qmath.quantize_np(x, t_in.quant, t_in.dtype))
+    server = InferenceServer(qg, tt.Options(quant_mode="fast"), max_batch=max(SERVER_BUCKETS),
+                             max_wait_ms=SERVER_WAIT_MS)
+    for c in counters.values():
+        c.launches = 0
+    served = dict.fromkeys(SERVER_BUCKETS, 0)
+    per_bucket = {}
+    server.start()
+    try:
+        for b in sorted(SERVER_BUCKETS, reverse=True):  # one untimed round a bucket
+            t1 = time.time()
+            before = counters["stem_qconv"].launches
+            for f in [server.submit(x) for x in xs[:b]]:
+                f.result(timeout=600)
+            per_bucket[b] = counters["stem_qconv"].launches - before
+            log(f"  server warm-up, bucket {b}: compile, capture and first batch "
+                f"{time.time() - t1:.1f} s, stem launches {per_bucket[b]}")
+        if sorted(server._compiled) != sorted(SERVER_BUCKETS):
+            raise AssertionError(f"server: warm-up compiled buckets {sorted(server._compiled)}")
+        runs = {b: cg.run for b, cg in server._compiled.items()}
+        for b, cg in server._compiled.items():  # which bucket serves each batch
+            cg.run = lambda *a, b=b: served.__setitem__(b, served[b] + 1) or runs[b](*a)
+        server._latencies.clear()  # latency_stats over the timed requests only
+        stats0 = dict(server.stats)
+        answers, i = [], 0
+        t1 = time.perf_counter()
+        for _ in range(SERVER_ROUNDS):
+            for burst in SERVER_BURSTS:
+                futures = [server.submit(x) for x in xs[i:i + burst]]
+                answers += [f.result(timeout=600) for f in futures]
+                i += burst
+        wall = time.perf_counter() - t1
+        latency = server.latency_stats()
+        stats = {k: server.stats[k] - stats0[k] for k in stats0}
+    finally:
+        server.stop()
+    launches = {name: c.launches for name, c in counters.items()}
+    want = dict.fromkeys(counters, 0) | {"stem_qconv": WRAPPER_RUNS * len(SERVER_BUCKETS)}
+    if launches != want or any(n != WRAPPER_RUNS for n in per_bucket.values()):
+        raise AssertionError(f"server: launches {launches} ({per_bucket} by bucket), "
+                             f"expected {want}")
+    if (len(answers) != n_timed or stats["requests"] != n_timed
+            or not stats["batches"] < stats["requests"]):
+        raise AssertionError(f"server: {len(answers)} answers, stats {stats}")
+    if not all(served[b] for b in (8, 4, 1)):
+        raise AssertionError(f"server: batches by bucket {served}")
+    heads = [qg.tensors[t] for t in qg.output_tensors]
+    found = kept = 0
+    for x, answer in zip(xs, answers):
+        for a, b in zip(answer, runs[1](x), strict=True):
+            if a.shape != b.shape or a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError("server: an answer differs from its frame at batch 1")
+        n_dets, n_kept = decode_yolov5(native, qmath, heads, answer)
+        found, kept = found + n_dets, kept + n_kept
+    seen, own = set(), {}
+    for b, cg in server._compiled.items():  # compile order: 8, 4, 2, 1
+        tensors = {t.data_ptr(): t.numel() * t.element_size() for t in cg.params.values()}
+        own[b] = sum(n for ptr, n in tensors.items() if ptr not in seen)
+        seen |= set(tensors)
+    log(f"phase 3 main path: yolov5s-{img} int8 served by InferenceServer(max_batch="
+        f"{max(SERVER_BUCKETS)}, max_wait_ms={SERVER_WAIT_MS}): {n_timed} timed requests in "
+        f"{stats['batches']} batches (padded rows {stats['padded']}), batches by bucket "
+        f"{served}, {n_timed / wall:.1f} requests/s over {wall * 1e3:.1f} ms; latency_stats "
+        f"{json.dumps(latency)}; stem launches by bucket {per_bucket}; param bytes of its own "
+        f"by bucket (compile order) {own}; every answer = batch 1 at 0 LSB; decoded "
+        f"{found} boxes (top {SERVER_TOPK} a request), {kept} after NMS, native = numpy NMS "
+        f"[{gpu_name_and_power_limit()}] [{time.time() - t0:.1f} s]")
+    return launches
+
+
+def find_faces(qmath, heads, outs, det_hw):
+    """tm_face_pipeline.py:decode_retinaface on the port's RetinaFace
+    heads: each cls-prob head (stride 32, 16, 8; channels [anchors:] the
+    face class) gives a box of 4 strides at each position whose face
+    probability exceeds FACE_SCORE, level by level in row order, at most
+    MAX_FACES; none gives the example's centred box. Boxes in the
+    detector's input pixels."""
+    boxes = []
+    for i, stride in zip((0, 3, 6), (32, 16, 8)):
+        prob = qmath.dequantize_np(outs[i][0].astype(np.float32), heads[i].quant)
+        face = prob[RETINAFACE_ANCHORS:].max(0)
+        for y, x in zip(*np.nonzero(face > FACE_SCORE)):
+            boxes.append((x * stride, y * stride, (x + 4) * stride, (y + 4) * stride,
+                          float(face[y, x])))
+    dh, dw = det_hw
+    return boxes[:MAX_FACES] or [(dw // 4, dh // 4, 3 * dw // 4, 3 * dh // 4, 1.0)]
+
+
+def run_face_pipeline_threads(torch, tt, qmath, native, counters, graphs, face_fps):
+    """Phase 3l: phase 3g's two UINT8 graphs under FACE-T (RetinaFace b1,
+    MobileFaceNet b8) as a Pipeline: source -> pre -> detect -> crop ->
+    embed, each stage on its own thread. The two CompiledGraphs are new:
+    their first calls capture inside the stage threads, beside each other.
+    Then the same four stages called in turn on the main thread, timed,
+    and the pipeline once more, timed. Every frame's embeddings in both
+    pipeline runs equal the sequential ones at 0 LSB; qconv1x1's launches
+    are those of the two captures. Returns the launches by kernel."""
+    from tengine_tpu_torch.utils.pipeline import Pipeline
+
+    t0 = time.time()
+    det_g, emb_g = graphs["retinaface"], graphs["mobilefacenet"]
+    extra = FACE_TIERS["FACE-T"][0]
+    det = tt.compile_graph(det_g, tt.Options(quant_mode="fast", batch_size=1, **extra))
+    emb = tt.compile_graph(emb_g, tt.Options(quant_mode="fast", batch_size=MAX_FACES, **extra))
+    det_in, emb_in = (g.tensors[g.input_tensors[0]] for g in (det_g, emb_g))
+    det_hw, emb_hw = tuple(det_in.shape[2:]), tuple(emb_in.shape[2:])
+    det_heads = [det.graph.tensors[t] for t in det.output_ids]
+    quant = {n: (float(np.asarray(t.quant.scales).ravel()[0]),
+                 int(np.asarray(t.quant.zero_points).ravel()[0])) for n, t in
+             (("det", det_in), ("emb", emb_in))}
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, (*FACE_FRAME_HW, 3), dtype=np.uint8) for _ in range(FACE_FRAMES)]
+    mean, scale = [FACE_MEAN] * 3, [FACE_SCALE] * 3
+
+    def pre(item):
+        i, frame = item
+        return i, frame, native.preprocess_batch([frame], *det_hw, mean, scale,
+                                                 quant=quant["det"], n_threads=1)
+
+    def detect(item):
+        i, frame, x = item
+        return i, frame, det.run(x)
+
+    def crop(item):
+        i, frame, outs = item
+        sy, sx = frame.shape[0] / det_hw[0], frame.shape[1] / det_hw[1]
+        crops = []
+        for x0, y0, x1, y1, _ in find_faces(qmath, det_heads, outs, det_hw):
+            fx0, fy0, fx1, fy1 = int(x0 * sx), int(y0 * sy), int(x1 * sx), int(y1 * sy)
+            c = frame[max(fy0, 0):max(fy1, 1), max(fx0, 0):max(fx1, 1)]
+            if c.size:
+                crops.append(native.letterbox(c, *emb_hw))
+        batch = np.full((MAX_FACES, 3, *emb_hw), quant["emb"][1], np.uint8)
+        if crops:
+            batch[:len(crops)] = native.preprocess_batch(crops, *emb_hw, mean, scale,
+                                                         quant=quant["emb"], n_threads=1)
+        return i, batch, len(crops)
+
+    def embed(item):
+        i, batch, n = item
+        return i, [o[:n] for o in emb.run(batch)]
+
+    stages = (pre, detect, crop, embed)
+
+    def pipelined():
+        p = Pipeline()
+        edge = p.source(enumerate(frames))
+        for fn in stages:
+            edge = p.node(fn, edge, name=fn.__name__)
+        t1 = time.perf_counter()
+        out = p.run_to_list(edge, timeout=600)
+        return sorted(out, key=lambda r: r[0]), time.perf_counter() - t1
+
+    for c in counters.values():
+        c.launches = 0
+    first, _ = pipelined()  # the captures run in the detect and embed threads
+    launches = {name: c.launches for name, c in counters.items()}
+    per_forward = {net: FACE_TIERS["FACE-T"][2][net][0]["qconv1x1"]
+                   for net in ("retinaface", "mobilefacenet")}
+    want = dict.fromkeys(counters, 0) | {"qconv1x1": WRAPPER_RUNS * sum(per_forward.values())}
+    if launches != want or len(det._graphs) != 1 or len(emb._graphs) != 1:
+        raise AssertionError(f"face pipeline: launches {launches}, expected {want}")
+    t1 = time.perf_counter()
+    sequential = []
+    for item in enumerate(frames):
+        for fn in stages:
+            item = fn(item)
+        sequential.append(item)
+    seq_s = time.perf_counter() - t1
+    second, pipe_s = pipelined()
+    faces = 0
+    for run in (first, second):
+        if len(run) != FACE_FRAMES:
+            raise AssertionError(f"face pipeline: {len(run)} frames out of {FACE_FRAMES}")
+        for (i, got), (j, want_e) in zip(run, sequential):
+            if i != j or any(a.shape != b.shape or not np.array_equal(a, b)
+                             for a, b in zip(got, want_e, strict=True)):
+                raise AssertionError(f"face pipeline: frame {j}'s embeddings differ from the "
+                                     "sequential run")
+    faces = sum(len(e[0]) for _, e in sequential)
+    log(f"phase 3 face pipeline on Pipeline (FACE-T, {FACE_FRAMES} frames "
+        f"{FACE_FRAME_HW[0]}x{FACE_FRAME_HW[1]}, {faces} faces embedded): pipelined "
+        f"{FACE_FRAMES / pipe_s:.1f} frames/s, the four stages in turn on one thread "
+        f"{FACE_FRAMES / seq_s:.1f} frames/s, phase 3g's FACE-T detect + embed "
+        f"{face_fps['FACE-T']:.1f} frames/s; both pipeline runs = sequential at 0 LSB; "
+        f"qconv1x1 launches {launches['qconv1x1']} (the two captures, in the stage "
+        f"threads) [{gpu_name_and_power_limit()}] [{time.time() - t0:.1f} s]")
+    return launches
+
+
+def saturated_convs(g, tid):
+    """The convolutions nearest above tensor tid (through any other nodes)
+    whose int32 bias holds +-(2^31 - 1): the quantizer saturated a bias
+    that did not fit (ROADMAP §3)."""
+    found, stack, seen = [], [tid], set()
+    while stack:
+        t = stack.pop()
+        if t in seen or g.tensors[t].producer is None:
+            continue
+        seen.add(t)
+        node = g.nodes[g.tensors[t].producer]
+        if node.op != "Convolution":
+            stack.extend(node.inputs)
+        elif len(node.inputs) > 2 and (
+                np.abs(g.tensors[node.inputs[2]].data.astype(np.int64)) == INT32_MAX).any():
+            found.append(node.name)
+    return found
+
+
+def check_chain_kernels(torch, cg, x, what, chains):
+    """Every qblock_chain launch of one eager forward of cg held against
+    its plain version on the same inputs (at most 1 LSB, 0 expected); the
+    launches checked must be `chains`. Like check_path_kernels, these come
+    after the counts were read."""
+    import tengine_tpu_torch.ops.fused as fused
+    from tengine_tpu_torch.ops.cuda.qblock import qblock_chain_plain
+
+    original, seen = fused.qblock_chain, []
+
+    def checked(x_, block_args, blocks, relaxed=False, tile=None):
+        out = original(x_, block_args, blocks, relaxed=relaxed, tile=tile)
+        seen.append(max_lsb(torch, out, qblock_chain_plain(x_, block_args, blocks,
+                                                           relaxed=relaxed),
+                            f"{what} qblock_chain {tuple(out.shape)}"))
+        return out
+
+    fused.qblock_chain = checked
+    try:
+        eager(torch, cg, x)
+    finally:
+        fused.qblock_chain = original
+    if len(seen) != chains:
+        raise AssertionError(f"{what}: {len(seen)} chain launches checked, expected {chains}")
+
+
+def zoo_decode(name, mod, g, outs, img_hw):
+    """The net's host decode on its dequantized outputs: (detections for
+    NMS [N, >= 5] or None, a summary)."""
+    h, w = img_hw
+    if name in ("fastpose", "hrnet"):
+        kps, scores = mod.decode_pose_heatmaps(outs[0])
+        return None, f"keypoints {kps.shape}"
+    if name == "nanodet":
+        return mod.decode_nanodet(outs, score_threshold=0.35), ""
+    if name == "ultraface":
+        priors = mod.ultraface_priors(h, w)
+        dets = mod.decode_ultraface(*mod.flatten_ultraface(outs), priors, score_threshold=0.7)
+        px = dets.copy()
+        px[:, :4] *= np.asarray([w, h, w, h], np.float32)
+        return px, ""
+    if name == "yolact":
+        coeffs = np.random.default_rng(1).standard_normal((5, outs[0].shape[1])).astype(np.float32)
+        return None, f"masks {mod.assemble_yolact_masks(outs[0][0], coeffs).shape}"
+    if name == "yolox":
+        return mod.decode_yolox(outs, score_threshold=0.3), ""
+    if name == "scrfd":
+        boxes, kps = mod.decode_scrfd(outs, h, score_threshold=0.5)
+        return boxes, f"keypoints {kps.shape}"
+    if name == "movenet":
+        kps, scores = mod.decode_movenet(*outs, img=h)
+        return None, f"keypoints {kps.shape}"
+    if name == "nanodet-plus":
+        return mod.decode_nanodet_plus(outs[0].reshape(1, -1, 80 + 32), h,
+                                       score_threshold=0.35), ""
+    if name == "picodet":
+        return mod.decode_picodet(outs, h, score_threshold=0.35), ""
+    if name == "yolov4-tiny":
+        params = [n.params for n in g.nodes if n.op == "Dropout" and "classes" in n.params]
+        return mod.decode_darknet_yolo(outs, params, h, 0.25), ""
+    return None, "no host decoder"
+
+
+def run_zoo(torch, tt, qmath, native, counters, profile):
+    """Phase 3m: each net of ZOO_NETS at batch 1, its builder's default
+    size: quantized on the card from one seeded image, compiled under
+    default Options, driven as drive does (captured = eager at 0 LSB; under
+    default Options no conv of these nets meets a kernel's gate, and
+    quant_relaxed's chain pass gives the nets with bottlenecks of c_mid >=
+    256 FusedResBlockChain nodes: their qblock_chain launches exact, each
+    held to its plain version); each head's dequantized cosine against the fp32
+    engine above the net's gate, except a head below a conv whose int32
+    bias the quantizer saturated (saturated_convs; ROADMAP §3), whose
+    cosine is printed; the heads within 1 LSB of the port's CPU run; the
+    host decoder on the dequantized heads, native.nms = the numpy NMS where
+    the example calls NMS. Returns the launches by kernel summed over the
+    nets' main-path runs."""
+    import importlib
+
+    t0 = time.time()
+    rows = []
+    total = dict.fromkeys(counters, 0)
+    for name, (module, builder, scheme, gate, iou) in ZOO_NETS.items():
+        t1 = time.time()
+        mod = importlib.import_module(f"tengine_tpu_torch.models.{module}")
+        torch.manual_seed(0)
+        built = getattr(mod, builder)()
+        g = built[1] if isinstance(built, tuple) else built
+        shape = g.tensors[g.input_tensors[0]].shape
+        x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+        qg = tt.quantize_graph(g, [x], scheme=scheme, algorithm="minmax")
+        t_in = qg.tensors[qg.input_tensors[0]]
+        xq = qmath.quantize_np(x, t_in.quant, t_in.dtype)
+        fouts = eager(torch, tt.compile_graph(g, tt.Options(precision="fp32")),
+                      torch.from_numpy(x).cuda())
+        cg = tt.compile_graph(qg, tt.Options())
+        x_dev = torch.from_numpy(xq).cuda()
+        outs, batch_ms, launches, _ = drive(torch, cg, x_dev, counters, f"{name} {scheme} b1",
+                                            profile=False)
+        chains = sum(n.op == "FusedResBlockChain" for n in cg.graph.nodes)
+        per_forward = derived_launches(cg, None) | ({"qblock_chain": chains} if chains else {})
+        want = dict.fromkeys(counters, 0) | {k: WRAPPER_RUNS * n for k, n in per_forward.items()}
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected {want}")
+        if chains:
+            check_chain_kernels(torch, cg, x_dev, name, chains)
+        for k, n in launches.items():
+            total[k] += n
+        heads = [qg.tensors[t] for t in qg.output_tensors]
+        cosines, exempt = [], {}
+        for t, q, f in zip(heads, outs, fouts, strict=True):
+            a = qmath.dequantize_np(q.cpu().numpy().astype(np.float32), t.quant).ravel()
+            b = f.double().cpu().numpy().ravel()
+            cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-12))
+            cosines.append(round(cos, 5))
+            sat = saturated_convs(qg, t.idx)
+            if sat:
+                exempt[t.name] = sat
+            elif not cos > gate:
+                raise AssertionError(f"{name} head {t.name}: cosine {cos:.5f} <= {gate}")
+        couts = tt.compile_graph(qg, tt.Options(), device="cpu").run(xq)
+        check_within_lsb(f"{name} card vs CPU", outs, couts, heads)
+        deq = [qmath.dequantize_np(o.cpu().numpy().astype(np.float32), t.quant)
+               for t, o in zip(heads, outs)]
+        dets, summary = zoo_decode(name, mod, g, deq, shape[2:])
+        if dets is not None:
+            summary = f"{len(dets)} detections"
+            if iou is not None and len(dets):
+                summary += f", {check_nms(native, name, dets[:, :4], dets[:, 4], iou)} after NMS"
+        ms = float(np.median(batch_ms))
+        rows.append((name, ms))
+        log(f"phase 3 zoo: {name} {tuple(shape)} {scheme}: captured {ms:.3f} ms/batch, "
+            f"{cg.cost_analysis()['launches']} device launches a forward, kernels a forward "
+            f"{per_forward or 'none'}, heads' cosine vs fp32 "
+            f"{cosines} (gate {gate}; exempt, below a saturated int32 bias: {exempt or 'none'}), "
+            f"card = CPU within 1 LSB, decode: {summary} [{time.time() - t1:.1f} s]")
+        del cg
+    log(f"phase 3 zoo: captured ms/batch {dict(rows)} [{gpu_name_and_power_limit()}] "
+        f"[{time.time() - t0:.1f} s]")
+    return total
+
+
 def main(argv) -> int:
     import torch
 
@@ -2595,6 +3077,7 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
     import tengine_tpu_torch as tt
+    from tengine_tpu_torch import native
     from tengine_tpu_torch.models.darknet_zoo import build_yolofastest_graph, build_yolov3_graph
     from tengine_tpu_torch.models.yolov5 import build_yolov5s_graph
     from tengine_tpu_torch.ops import qmath
@@ -2611,10 +3094,15 @@ def main(argv) -> int:
     gpu = gpu_name_and_power_limit()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)} [{gpu}]")
 
-    # 1. build
+    # 1. build: the kernels (one nvcc each) and, beside them, the host library
     t0 = time.time()
+    host = threading.Thread(target=native.available)
+    host.start()
     build.build_all()
-    log(f"phase 1 build: {time.time() - t0:.1f} s")
+    host.join()
+    if not native.available():
+        raise AssertionError("the native host library did not build (g++)")
+    log(f"phase 1 build: {time.time() - t0:.1f} s ({native.library_path().name} beside the kernels)")
 
     # 2. kernels against their plain versions
     t0 = time.time()
@@ -2807,7 +3295,9 @@ def main(argv) -> int:
     # MobileFaceNet UINT8 b8 on the fast lowering (FACE-S) and on qconv1x1
     # (FACE-T), MobileFaceNet b32 with dw_qconv too (FACE-U)
     t0 = time.time()
-    for name, n in run_face_pipeline(torch, tt, qmath, counters, ir, profile).items():
+    face_launches, face_graphs, face_fps = run_face_pipeline(torch, tt, qmath, counters, ir,
+                                                             profile)
+    for name, n in face_launches.items():
         entries[name]["launches"] += n
     log(f"  face tiers in all: {time.time() - t0:.1f} s")
 
@@ -2850,6 +3340,26 @@ def main(argv) -> int:
     outs_s2d, cg_s2d = run_s2d_tier(torch, tt, counters, qg5, x5, outs5, profile)
     check_extra_lowerings(torch, tt, ir)
     log(f"  crnn / unet / s2d tiers and the extra lowerings in all: {time.time() - t0:.1f} s")
+
+    # 3k. main path: phase 3a's yolov5s-640 INT8 graph behind the
+    # continuous-batching server, buckets 1, 2, 4 and 8
+    t0 = time.time()
+    entries["stem_qconv"]["launches"] += run_server(torch, tt, qmath, native, counters,
+                                                    qg5)["stem_qconv"]
+    log(f"  server in all: {time.time() - t0:.1f} s")
+
+    # 3l. main path: the face pipeline (FACE-T) on Pipeline, a thread a stage
+    t0 = time.time()
+    for name, n in run_face_pipeline_threads(torch, tt, qmath, native, counters, face_graphs,
+                                             face_fps).items():
+        entries[name]["launches"] += n
+    log(f"  face pipeline on threads in all: {time.time() - t0:.1f} s")
+
+    # 3m. the detector zoo under default Options, batch 1
+    t0 = time.time()
+    for name, n in run_zoo(torch, tt, qmath, native, counters, profile).items():
+        entries[name]["launches"] += n
+    log(f"  zoo in all: {time.time() - t0:.1f} s")
 
     # 4. correctness: fp32 engine on the card, and the port's CPU run
     t0 = time.time()

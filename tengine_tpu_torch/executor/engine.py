@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -47,6 +48,10 @@ from ..ops.registry import LowerCtx, select_kernel
 from ..utils.config import Options
 
 META = torch.device("meta")
+
+# At most one CUDA-graph capture is underway in the process at a time
+# (CompiledGraph._capture says why).
+_CAPTURE_LOCK = threading.Lock()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -193,6 +198,14 @@ class CompiledGraph:
             tuple(shape[1:] for _, shape, _ in _input_spec(graph, options)): (fn, params)}
         self._graphs: Dict[tuple, _Captured] = {}
         self._cost: Optional[Dict[str, Any]] = None
+        # __call__ from any number of threads: the lock covers the size and
+        # signature lookups, a capture, the copy into the static inputs, the
+        # replay and the output clones; _done marks on the card the end of
+        # the last call's clones, which the next call's stream waits for
+        # (two callers may run on two streams)
+        self._lock = threading.Lock()
+        self._done: Optional[Any] = None  # torch.cuda.Event
+        self._stream: Optional[Any] = None  # torch.cuda.Stream: warm-up and capture
 
     def __call__(self, *inputs) -> Tuple[torch.Tensor, ...]:
         """Run on the engine's device (numpy arrays and tensors elsewhere
@@ -212,23 +225,35 @@ class CompiledGraph:
         the size (a pooling divisor, resize indices, a zero-point
         correction, priors) are prepared for it at its first call, by the
         prepare pass into a ParamStore of its own (the weights are shared),
-        with the kernels selected at compile time."""
+        with the kernels selected at compile time.
+
+        Any number of threads may call one CompiledGraph, or several, at
+        once: calls of one CompiledGraph take its lock in turn, and a
+        capture runs beside other threads' replays and eager forwards."""
         xs = [x if isinstance(x, torch.Tensor) else torch.as_tensor(np.ascontiguousarray(x))
               for x in inputs]
-        fn, params = self._for_size(xs)
+        with self._lock:
+            fn, params = self._for_size(xs)
         if self.device.type != "cuda" or self.options.debug_nans:
             with torch.inference_mode():
                 return fn(params, *(x.to(self.device) for x in xs))
         sig = tuple((tuple(x.shape), x.dtype) for x in xs)
-        cap = self._graphs.get(sig)
-        if cap is None:
-            cap = self._graphs[sig] = self._capture(fn, params, xs)
-        else:
-            for buf, x in zip(cap.inputs, xs):
-                if buf is not x:  # a donated buffer passed again needs no copy
-                    buf.copy_(x)
-        cap.graph.replay()
-        return tuple(o.clone() for o in cap.outputs)
+        with self._lock:
+            stream = torch.cuda.current_stream(self.device)
+            if self._done is not None:
+                stream.wait_event(self._done)
+            cap = self._graphs.get(sig)
+            if cap is None:
+                cap = self._graphs[sig] = self._capture(fn, params, xs)
+            else:
+                for buf, x in zip(cap.inputs, xs):
+                    if buf is not x:  # a donated buffer passed again needs no copy
+                        buf.copy_(x)
+            cap.graph.replay()
+            outs = tuple(o.clone() for o in cap.outputs)
+            self._done = torch.cuda.Event()
+            self._done.record(stream)
+            return outs
 
     def _for_size(self, xs: List[torch.Tensor]) -> Tuple[Callable, Dict[str, torch.Tensor]]:
         """The forward and params for the inputs' sizes past the batch
@@ -243,24 +268,44 @@ class CompiledGraph:
         return self._sized[size]
 
     def _capture(self, fn: Callable, params, xs: List[torch.Tensor]) -> _Captured:
-        """Warm the forward up once on a side stream (the kernels' build,
-        cuDNN's set-up and the allocator's first allocations stay outside
-        the graph), then capture it. The static inputs are copies, or with
-        Options.donate_input the caller's own device tensors."""
+        """Warm the forward up once on this CompiledGraph's own side stream
+        (the kernels' build, cuDNN's set-up and the allocator's first
+        allocations stay outside the graph), then capture it on that stream.
+        The static inputs are copies, or with Options.donate_input the
+        caller's own device tensors.
+
+        Other threads keep running while a capture is underway, so the
+        capture is thread-local on a private stream rather than under a
+        lock that every call would take: in CUDA's default (global) capture
+        mode, another thread's allocation, synchronisation or upload fails
+        the capture or its own call, and a lock around every replay and
+        eager forward would serialise all device work of the process. In
+        thread-local mode only the capturing thread is held to capture's
+        rules; the private stream (torch hands out non-blocking streams)
+        takes no implicit dependency on other threads' work, and the
+        allocator routes only this stream's allocations to the graph's
+        pool. Captures themselves still run one at a time
+        (_CAPTURE_LOCK): torch.cuda.graph synchronises the device and
+        empties the allocator's cache as it begins, which must not happen
+        while another capture is underway."""
         dev = self.device
         donate = self.options.donate_input
         static = [x if donate and x.device == dev else x.to(dev, copy=True) for x in xs]
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side), torch.inference_mode():
-            fn(params, *static)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.inference_mode(), torch.cuda.graph(graph):
-                outs = fn(params, *static)
-        except Exception as e:
-            raise RuntimeError(_capture_failure(e)) from e
+        with _CAPTURE_LOCK:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(dev)
+            side = self._stream
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side), torch.inference_mode():
+                fn(params, *static)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.inference_mode(), torch.cuda.graph(
+                        graph, stream=side, capture_error_mode="thread_local"):
+                    outs = fn(params, *static)
+            except Exception as e:
+                raise RuntimeError(_capture_failure(e)) from e
         return _Captured(static, graph, outs)
 
     @property
@@ -576,11 +621,15 @@ def _graph_quantized(graph: Graph) -> bool:
 
 
 def compile_graph(
-    graph: Graph, options: Optional[Options] = None, device=None
+    graph: Graph, options: Optional[Options] = None, device=None,
+    share: Optional[CompiledGraph] = None,
 ) -> CompiledGraph:
     """prerun_graph_multithread analog: passes, prepare, device params.
 
-    The pass pipeline is the JAX engine's, in its order."""
+    The pass pipeline is the JAX engine's, in its order. `share`: a
+    CompiledGraph on the same device (of the same graph under other
+    Options, e.g. another batch size) whose device params are taken
+    wherever a param here is equal to its, instead of a second copy."""
     device = resolve_device(device)
     options = options or Options.from_env()
     fast_quant = (
@@ -643,7 +692,9 @@ def compile_graph(
     for tid in output_ids:
         graph.tensors[tid].shape = list(env[tid].shape)
 
-    params = store.upload(device)
+    if share is not None and share.device != device:
+        raise ValueError(f"share= is on {share.device}, this graph compiles for {device}")
+    params = store.upload(device, share=share.forward_fn.store if share is not None else None)
     return CompiledGraph(graph, options, forward, params, input_ids, output_ids, device)
 
 

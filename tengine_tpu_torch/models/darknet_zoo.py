@@ -1,15 +1,15 @@
 """Darknet-family models built from .cfg architecture descriptions through
-the darknet front-end — the reference's yolov3 test model arrives the same
-way (tests/models/test_model_yolov3.cpp via convert_tool -f darknet).
+the darknet front-end — the reference's yolov3/v4-tiny/yolofastest test
+models arrive the same way (tests/models/test_model_yolov4_tiny.cpp via
+convert_tool -f darknet).
 
-The cfg text describes the published architecture (layer/filter facts);
-weights are seeded random like the reference's weight-stripped benchmark
-tmfiles.
+The cfg texts below describe the published architectures (layer/filter
+facts); weights are seeded random like the reference's weight-stripped
+benchmark tmfiles.
 
-PyTorch port: the YOLOv3 and YOLO-Fastest graphs of
-tengine_tpu/models/darknet_zoo.py, copied so that both packages build the
-same IR from the same seed. yolov4-tiny and decode_darknet_yolo are not
-ported yet.
+PyTorch port: a copy of tengine_tpu/models/darknet_zoo.py, through the
+port's darknet front-end, so that both packages build the same IR from the
+same seed.
 """
 
 from __future__ import annotations
@@ -17,11 +17,256 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = [
-    "build_yolofastest_graph",
+    "YOLOV4_TINY_CFG",
+    "build_yolov4_tiny_graph",
     "build_yolov3_graph",
-    "yolofastest_cfg",
+    "build_yolofastest_graph",
     "yolov3_cfg",
+    "yolofastest_cfg",
+    "decode_darknet_yolo",
 ]
+
+# yolov4-tiny: CSP blocks with grouped routes, leaky-relu, two YOLO heads
+# (strides 32 and 16). Layer indices in [route] sections follow darknet's
+# counting (every section after [net] is one layer).
+YOLOV4_TINY_CFG = """
+[net]
+width=416
+height=416
+channels=3
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=64
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=64
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[route]
+layers=-1
+groups=2
+group_id=1
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[route]
+layers=-1,-2
+
+[convolutional]
+batch_normalize=1
+filters=64
+size=1
+stride=1
+pad=1
+activation=leaky
+
+[route]
+layers=-6,-1
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=128
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[route]
+layers=-1
+groups=2
+group_id=1
+
+[convolutional]
+batch_normalize=1
+filters=64
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=64
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[route]
+layers=-1,-2
+
+[convolutional]
+batch_normalize=1
+filters=128
+size=1
+stride=1
+pad=1
+activation=leaky
+
+[route]
+layers=-6,-1
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=256
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[route]
+layers=-1
+groups=2
+group_id=1
+
+[convolutional]
+batch_normalize=1
+filters=128
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=128
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[route]
+layers=-1,-2
+
+[convolutional]
+batch_normalize=1
+filters=256
+size=1
+stride=1
+pad=1
+activation=leaky
+
+[route]
+layers=-6,-1
+
+[maxpool]
+size=2
+stride=2
+
+[convolutional]
+batch_normalize=1
+filters=512
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=256
+size=1
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=512
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+size=1
+stride=1
+pad=1
+filters=255
+activation=linear
+
+[yolo]
+mask=3,4,5
+anchors=10,14, 23,27, 37,58, 81,82, 135,169, 344,319
+classes=80
+num=6
+
+[route]
+layers=-4
+
+[convolutional]
+batch_normalize=1
+filters=128
+size=1
+stride=1
+pad=1
+activation=leaky
+
+[upsample]
+stride=2
+
+[route]
+layers=-1,23
+
+[convolutional]
+batch_normalize=1
+filters=256
+size=3
+stride=1
+pad=1
+activation=leaky
+
+[convolutional]
+size=1
+stride=1
+pad=1
+filters=255
+activation=linear
+
+[yolo]
+mask=1,2,3
+anchors=10,14, 23,27, 37,58, 81,82, 135,169, 344,319
+classes=80
+num=6
+"""
 
 
 def _seed_weights(g, seed: int = 0):
@@ -35,6 +280,16 @@ def _seed_weights(g, seed: int = 0):
                 t.data.dtype if t.data.dtype.kind == "f" else np.float32
             )
     return g
+
+
+def build_yolov4_tiny_graph(img: int = 416, seed: int = 0):
+    """yolov4-tiny IR via the darknet front-end, seeded random weights."""
+    from ..convert.darknet_frontend import from_darknet
+
+    cfg = YOLOV4_TINY_CFG.replace("width=416", f"width={img}").replace(
+        f"height=416", f"height={img}"
+    )
+    return _seed_weights(from_darknet(cfg, None, name="yolov4-tiny"), seed)
 
 
 # ---------------------------------------------------------------------------
@@ -163,3 +418,37 @@ def build_yolofastest_graph(img: int = 320, classes: int = 80, seed: int = 0):
     return _seed_weights(
         from_darknet(yolofastest_cfg(img, classes), None, name="yolofastest"), seed
     )
+
+
+def decode_darknet_yolo(outputs, yolo_params, img: int, score_threshold=0.25):
+    """Decode darknet yolo head maps [N, A*(5+C), h, w] -> [M, 6]
+    (x0,y0,x1,y1,score,cls) — the host-side decode the reference's
+    tm_yolov4_tiny example performs after run_graph."""
+    dets = []
+    for out, p in zip(outputs, yolo_params):
+        anchors = p["anchors"]
+        mask = p["mask"]
+        classes = p["classes"]
+        n, c, h, w = out.shape
+        a = len(mask)
+        o = out.reshape(a, 5 + classes, h, w)
+        xy = 1 / (1 + np.exp(-o[:, 0:2]))
+        wh = np.exp(np.clip(o[:, 2:4], -10, 10))
+        obj = 1 / (1 + np.exp(-o[:, 4]))
+        cls = 1 / (1 + np.exp(-o[:, 5:]))
+        stride = img // w
+        for ai, m in enumerate(mask):
+            aw, ah = anchors[2 * m], anchors[2 * m + 1]
+            for y in range(h):
+                for x in range(w):
+                    score = float(obj[ai, y, x] * cls[ai, :, y, x].max())
+                    if score < score_threshold:
+                        continue
+                    cx = (x + xy[ai, 0, y, x]) * stride
+                    cy = (y + xy[ai, 1, y, x]) * stride
+                    bw = wh[ai, 0, y, x] * aw
+                    bh = wh[ai, 1, y, x] * ah
+                    dets.append([cx - bw / 2, cy - bh / 2, cx + bw / 2,
+                                 cy + bh / 2, score,
+                                 int(cls[ai, :, y, x].argmax())])
+    return np.asarray(dets, np.float32).reshape(-1, 6)

@@ -1,7 +1,8 @@
 """tmfile (TM2) importer: binary blob -> tengine_tpu_torch.graph.ir.Graph.
 
-PyTorch port of tengine_tpu/serializer/tm2/reader.py: the pure-Python
-parser only (the native tm2_parser.cc path is not ported yet).
+PyTorch port of tengine_tpu/serializer/tm2/reader.py: the native parser
+(native/tm2_parser.cc) by default, the pure-Python one as its fallback and
+oracle (load_tm_bytes_py).
 
 Layout spec: Tengine's `source/serializer/tmfile/tm2_format.h`.
 Loading pipeline mirrors the reference serializer
@@ -14,11 +15,13 @@ matching `tm2_serializer.c:241-246`.
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ... import native
 from ...graph.ir import DType, Graph, Layout, QuantParam, Tensor, TensorType
 from .format import OP_TYPE_TO_NAME, TM2_NOT_SET
 
@@ -443,10 +446,189 @@ def load_tmfile(path: str, fill_missing_weights: str = "zero") -> Graph:
     return load_tm_bytes(data, name=path, fill_missing_weights=fill_missing_weights)
 
 
-
 def load_tm_bytes(data: bytes, name: str = "", fill_missing_weights: str = "zero") -> Graph:
-    """Parse tmfile bytes with the pure-Python parser (load_tm_bytes_py)."""
+    """Dispatch to the native C++ parser (tm2_parser.cc) when available —
+    the default, like the reference's native serializer — with this module's
+    pure-Python parser as fallback and cross-validation oracle
+    (disable native with TT_NATIVE_PARSER=0)."""
+    if os.environ.get("TT_NATIVE_PARSER", "1") != "0":
+        wire = native.tm2_parse(data)
+        if wire is not None:
+            return _graph_from_wire(wire, data, name, fill_missing_weights)
     return load_tm_bytes_py(data, name, fill_missing_weights)
+
+
+# --- wire-format decode (native parser output; see tm2_parser.cc header) ---
+
+
+class _Wire:
+    def __init__(self, buf: bytes):
+        self.buf = buf
+        self.pos = 0
+
+    def u32(self) -> int:
+        (v,) = struct.unpack_from("<I", self.buf, self.pos)
+        self.pos += 4
+        return v
+
+    def i32(self) -> int:
+        (v,) = struct.unpack_from("<i", self.buf, self.pos)
+        self.pos += 4
+        return v
+
+    def f32(self) -> float:
+        (v,) = struct.unpack_from("<f", self.buf, self.pos)
+        self.pos += 4
+        return v
+
+    def str_(self) -> str:
+        n = self.u32()
+        raw = self.buf[self.pos : self.pos + n]
+        self.pos += (n + 3) & ~3
+        return raw.decode("utf-8", "replace")
+
+    def vec(self, fmt: str) -> List:
+        n = self.u32()
+        vals = list(struct.unpack_from(f"<{n}{fmt}", self.buf, self.pos))
+        self.pos += 4 * n
+        return vals
+
+
+def _graph_from_wire(
+    wire: bytes, data: bytes, name: str, fill_missing_weights: str
+) -> Graph:
+    b = Blob(data)  # for zero-copy const views
+    w = _Wire(wire)
+    magic = wire[:4]
+    if magic != b"TTW1":
+        raise ValueError("bad native wire magic")
+    w.pos = 4
+    graph_layout = w.i32()
+    model_layout = w.i32()
+    orig_format = w.i32()
+    model_name = w.str_()
+
+    g = Graph(
+        name=model_name or name,
+        layout=Layout(graph_layout),
+        model_layout=Layout(model_layout),
+        source_format=str(orig_format),
+    )
+    g.inputs = w.vec("I")
+    g.outputs = w.vec("I")
+    graph_inputs, graph_outputs = g.inputs, g.outputs
+    g.inputs, g.outputs = [], []  # set after nodes exist (order preserved)
+
+    rng = np.random.default_rng(0)
+    n_tensors = w.u32()
+    for _ in range(n_tensors):
+        tensor_id = w.u32()
+        dtype = w.i32()
+        ttype = w.i32()
+        tname = w.str_()
+        dims = w.vec("i")
+        nq = w.u32()
+        quant = None
+        if nq:
+            zps, scales, widths = [], [], []
+            for _ in range(nq):
+                zps.append(w.i32())
+                scales.append(w.f32())
+                widths.append(w.i32())
+            if nq == 1:
+                quant = QuantParam.per_tensor(scales[0], zps[0], widths[0])
+            else:
+                quant = QuantParam(
+                    scales=np.asarray(scales, np.float32),
+                    zero_points=np.asarray(zps, np.int32),
+                    width=widths[0],
+                )
+        has_buf = w.u32()
+        buf_size = w.u32()
+        buf_off = w.u32()
+
+        t = g.add_tensor(
+            name=tname,
+            dtype=DType(dtype),
+            shape=dims,
+            tensor_type=TensorType(ttype),
+            quant=quant,
+        )
+        if t.idx != tensor_id:
+            raise ValueError(f"non-sequential tensor id {tensor_id}")
+        if has_buf:
+            nbytes = t.elem_num * t.dtype.size
+            if buf_off == TM2_NOT_SET:
+                t.data = _fill_missing(t, fill_missing_weights, rng)
+            else:
+                if nbytes > buf_size:
+                    raise ValueError(
+                        f"const tensor {t.name}: model buffer too small "
+                        f"({buf_size} < {nbytes})"
+                    )
+                t.data = b.ndarray(buf_off, nbytes, t.dtype.np).reshape(
+                    t.shape or (t.elem_num,)
+                )
+
+    n_nodes = w.u32()
+    for _ in range(n_nodes):
+        node_id = w.u32()
+        op_type = w.u32()
+        nname = w.str_()
+        nin = w.vec("I")
+        nout = w.vec("I")
+        n_params = w.u32()
+        params: Dict[str, Any] = {}
+        for _ in range(n_params):
+            key = w.str_()
+            kind = w.u32()
+            if kind == 0:
+                params[key] = w.i32()
+            elif kind == 1:
+                params[key] = w.f32()
+            elif kind == 2:
+                params[key] = bool(w.i32())
+            elif kind == 3:
+                params[key] = w.vec("i")
+            elif kind == 4:
+                params[key] = w.vec("f")
+            elif kind == 5:
+                params[key] = w.str_()
+            elif kind == 6:
+                n_anchors = w.u32()
+                flat = struct.unpack_from(f"<{n_anchors * 4}f", w.buf, w.pos)
+                w.pos += 16 * n_anchors
+                params[key] = [list(flat[i * 4 : (i + 1) * 4]) for i in range(n_anchors)]
+            elif kind == 7:
+                params[key] = w.u32()
+            else:
+                raise ValueError(f"bad wire param kind {kind}")
+        op_name = OP_TYPE_TO_NAME.get(op_type)
+        if op_name is None:
+            raise ValueError(f"unknown TM2 op type {op_type}")
+        n = g.add_node(op=op_name, name=nname, inputs=nin, outputs=nout, params=params)
+        if n.idx != node_id:
+            raise ValueError(f"non-sequential node id {node_id}")
+
+    g.inputs = graph_inputs
+    g.outputs = graph_outputs
+    return g
+
+
+def _fill_missing(t, fill_missing_weights: str, rng) -> np.ndarray:
+    """Weight-stripped benchmark file handling (tm2_serializer.c:241-246)."""
+    if fill_missing_weights == "random":
+        if t.dtype in (DType.FP32, DType.FP16):
+            arr = (rng.standard_normal(t.elem_num) * 0.05).astype(t.dtype.np)
+            if len(t.shape) <= 1:
+                arr = np.abs(arr) + np.asarray(0.01, t.dtype.np)
+        else:
+            info = np.iinfo(t.dtype.np)
+            arr = rng.integers(
+                max(info.min, -8), min(info.max, 8) + 1, t.elem_num
+            ).astype(t.dtype.np)
+        return arr.reshape(t.shape or (t.elem_num,))
+    return np.zeros(t.shape or (t.elem_num,), t.dtype.np)
 
 
 def load_tm_bytes_py(data: bytes, name: str = "", fill_missing_weights: str = "zero") -> Graph:

@@ -217,6 +217,54 @@ def test_only_the_batch_dimension_may_change(monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
+def test_many_threads_prepare_a_new_size_once(monkeypatch):
+    """Eight threads call one CompiledGraph at once with batches of the
+    compiled image size and of a new one, the interpreter switching threads
+    every few microseconds: each output equals the sequential call's, and
+    the new size is prepared once (CompiledGraph's lock)."""
+    import sys
+    import threading
+    import time
+
+    cg, xq = compiled("yolov3-fp32", monkeypatch, "cpu")
+    inputs = [xq[:1], np.ascontiguousarray(xq[:1, :, :32, :32])]
+    want = [pt.compile_graph(cg.graph, cg.options, device="cpu").run(x) for x in inputs]
+    import tengine_tpu_torch.executor.engine as engine
+
+    prepared = []
+    meta_pass = engine.meta_pass
+
+    def slow_meta_pass(*args, **kwargs):  # a wide window for a second prepare
+        prepared.append(1)
+        time.sleep(0.2)
+        return meta_pass(*args, **kwargs)
+
+    monkeypatch.setattr(engine, "meta_pass", slow_meta_pass)
+    results, errors = {}, []
+
+    def call(i):
+        try:
+            results[i] = cg.run(inputs[i % 2])
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert len(prepared) == 1 and len(cg._sized) == 2
+    for i, outs in results.items():
+        for a, b in zip(outs, want[i % 2], strict=True):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_a_failing_node_is_named():
     """An error in the forward carries the node it came from, as a note on
     the exception (its type unchanged); a failed capture reports the note

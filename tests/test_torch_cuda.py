@@ -902,3 +902,150 @@ def test_dw_kernel_shifted_int8_on_card(case):
     want = port_dw(inp, "cuda", kernel=False)
     assert got.dtype == want.dtype == np.int8 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
+
+
+# --- the compiled forward and the server from several threads -------------
+
+
+def _in_threads(fns, timeout=600):
+    """Run each fn on its own thread; their results in order. Re-raises the
+    first error; every thread must end within the timeout."""
+    import threading
+
+    results, errors = [None] * len(fns), []
+
+    def run(i, fn):
+        try:
+            results[i] = fn()
+        except BaseException as e:  # re-raised on the calling thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, fn)) for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    assert not any(t.is_alive() for t in threads), "a thread did not end"
+    if errors:
+        raise errors[0]
+    return results
+
+
+def _yolov3_small(case, monkeypatch):
+    """yolov3 img 64 batch 2 under tests/test_torch_compiled.py's case."""
+    from test_torch_compiled import compiled
+
+    cg, xq = compiled(case, monkeypatch, "cuda")
+    return cg, [torch.from_numpy(xq).cuda(), torch.from_numpy(np.ascontiguousarray(xq[::-1])).cuda()]
+
+
+def _eager(cg, x):
+    with torch.inference_mode():
+        return [o.cpu() for o in cg.forward_fn(cg.params, x)]
+
+
+def _assert_equal(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.cpu(), b.cpu()), int((a.cpu().int() - b.cpu().int()).abs().max())
+
+
+CALLS = 12  # calls a thread makes
+
+
+@pytest.mark.cuda
+def test_two_threads_call_one_compiled_graph_on_card(monkeypatch):
+    """Two threads call one CompiledGraph on two inputs of one signature,
+    the first calls of both racing to capture it: every output equals the
+    sequential run at 0 LSB, and one graph is captured."""
+    _need_card()
+    cg, xs = _yolov3_small("yolov3-A", monkeypatch)
+    want = [_eager(cg, x) for x in xs]  # = the captured forward (test_torch_compiled.py)
+    got = _in_threads([lambda x=x: [[o.cpu() for o in cg(x)] for _ in range(CALLS)]
+                       for x in xs])
+    assert len(cg._graphs) == 1
+    for outs, w in zip(got, want):
+        for o in outs:
+            _assert_equal(o, w)
+
+
+@pytest.mark.cuda
+def test_two_threads_call_two_compiled_graphs_on_card(monkeypatch):
+    """Two threads, each on its own CompiledGraph (tiers A and B), capture
+    and replay beside each other: every output equals the sequential run."""
+    _need_card()
+    cg_a, xs = _yolov3_small("yolov3-A", monkeypatch)
+    cg_b, _ = _yolov3_small("yolov3-B", monkeypatch)
+    want = [_eager(cg_a, xs[0]), _eager(cg_b, xs[1])]
+    got = _in_threads([lambda: [[o.cpu() for o in cg_a(xs[0])] for _ in range(CALLS)],
+                       lambda: [[o.cpu() for o in cg_b(xs[1])] for _ in range(CALLS)]])
+    for outs, w in zip(got, want):
+        for o in outs:
+            _assert_equal(o, w)
+
+
+@pytest.mark.cuda
+def test_a_capture_beside_another_threads_replays_on_card(monkeypatch):
+    """One thread replays a captured graph in a loop while another thread
+    captures a second CompiledGraph (its first call) and replays it: the
+    capture succeeds and every output of both equals the sequential run."""
+    import threading
+
+    _need_card()
+    cg_a, xs = _yolov3_small("yolov3-A", monkeypatch)
+    cg_b, _ = _yolov3_small("yolov3-B", monkeypatch)
+    want_a, want_b = _eager(cg_a, xs[0]), _eager(cg_b, xs[1])
+    _assert_equal(cg_a(xs[0]), want_a)  # captured before the threads start
+    replaying, captured = threading.Event(), threading.Event()
+
+    def replay():
+        outs = []
+        while not captured.is_set() or len(outs) < CALLS:
+            outs.append([o.cpu() for o in cg_a(xs[0])])
+            replaying.set()
+        return outs
+
+    def capture():
+        assert replaying.wait(300)
+        try:
+            return [[o.cpu() for o in cg_b(xs[1])] for _ in range(CALLS)]
+        finally:
+            captured.set()
+
+    outs_a, outs_b = _in_threads([replay, capture])
+    assert len(cg_b._graphs) == 1 and len(outs_a) >= CALLS
+    for o in outs_a:
+        _assert_equal(o, want_a)
+    for o in outs_b:
+        _assert_equal(o, want_b)
+
+
+@pytest.mark.cuda
+def test_server_on_card_answers_as_batch_1(monkeypatch):
+    """InferenceServer on the card (yolov3 img 64, tier A's Options): 12
+    requests, each answer equal at 0 LSB to the batch-1 CompiledGraph's."""
+    from test_torch_compiled import CASES, quantized
+
+    import tengine_tpu_torch as pt
+    from tengine_tpu_torch.ops import qmath
+    from tengine_tpu_torch.parallel.serving import InferenceServer
+
+    _need_card()
+    qg, x = quantized("yolov3", "int8")
+    t_in = qg.tensors[qg.input_tensors[0]]
+    rng = np.random.default_rng(5)
+    frames = [qmath.quantize_np(rng.standard_normal((1, *x.shape[1:])).astype(np.float32),
+                                t_in.quant, t_in.dtype) for _ in range(12)]
+    opts = dict(quant_mode="fast", **CASES["yolov3-A"][3])
+    server = InferenceServer(qg, pt.Options(**opts), max_batch=8, max_wait_ms=20.0)
+    one = pt.compile_graph(qg, pt.Options(**opts, batch_size=1))
+    server.start()
+    try:
+        answers = [f.result(timeout=600) for f in [server.submit(f) for f in frames]]
+    finally:
+        server.stop()
+    assert server.stats["requests"] == 12 and server.stats["batches"] < 12
+    for f, got in zip(frames, answers):
+        for a, b in zip(got, one.run(f), strict=True):
+            np.testing.assert_array_equal(a, b)

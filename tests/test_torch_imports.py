@@ -38,7 +38,11 @@ def test_port_imports_no_jax():
             "tengine_tpu_torch.convert.darknet_frontend",
             "tengine_tpu_torch.models.darknet_zoo", "tengine_tpu_torch.api",
             "tengine_tpu_torch.executor.debug", "tengine_tpu_torch.ops.detection",
-            "tengine_tpu_torch.serializer.tm2.writer"} <= set(mods)
+            "tengine_tpu_torch.serializer.tm2.writer", "tengine_tpu_torch.native",
+            "tengine_tpu_torch.utils.data", "tengine_tpu_torch.utils.pipeline",
+            "tengine_tpu_torch.parallel.serving", "tengine_tpu_torch.models.detect_zoo",
+            "tengine_tpu_torch.models.detect_zoo2", "tengine_tpu_torch.models.detect_zoo3",
+            "tengine_tpu_torch.models.zoo"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -89,7 +93,18 @@ def test_entry_points_need_a_card_by_default():
     x = np.ones((1, 3, 8, 8), np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tt.quantize_graph(g, [x], scheme="int8")
+    from tengine_tpu_torch.parallel.serving import InferenceServer
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceServer(g)
     # the same calls run when the caller names the CPU
+    server = InferenceServer(g, device="cpu")
+    server.start()
+    try:
+        (served,) = server(x)
+    finally:
+        server.stop()
+    np.testing.assert_array_equal(served, np.full((1, 4, 8, 8), 3.0, np.float32))
     (out,) = tt.compile_graph(g, device="cpu").run(x)
     np.testing.assert_array_equal(out, np.full((1, 4, 8, 8), 3.0, np.float32))
     assert tt.quantize_graph(g, [x], scheme="int8", device="cpu") is not None
@@ -219,13 +234,19 @@ def _stem_graph(img=320):
 def test_unported_settings_raise(monkeypatch):
     """The settings that raised NotImplementedError while their modules
     were not ported now run, each held to the JAX package: stem_s2d, EQ,
-    the native-int8 plan, the dw route and the chain kernel."""
+    the native-int8 plan, the dw route and the chain kernel. The server's
+    mesh is not ported yet (ROADMAP queue 1 item 12b) and raises."""
     import tengine_tpu as jt
     from tengine_tpu.quantize.quantizer import quantize_graph as jax_quantize
 
     import tengine_tpu_torch as tt
     from tengine_tpu_torch.ops import qmath
     from tengine_tpu_torch.serializer.tm2.writer import graph_to_tm_bytes
+
+    from tengine_tpu_torch.parallel.serving import InferenceServer
+
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        InferenceServer(_tiny_float_graph(), mesh=object(), device="cpu")
 
     monkeypatch.setenv("TT_DW_PALLAS", "1")
     calib = [np.random.default_rng(0).standard_normal((1, 3, 8, 8)).astype(np.float32)]
