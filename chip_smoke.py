@@ -208,6 +208,27 @@ Phases, in order; any failure raises and the exit code is not 0:
                Then each of the 19 lowerings of ops/lowering_extra.py on a
                one-node graph, run captured on the card and held to the
                port's CPU run (extra_op_cases; RPN at per_nms_topn 300).
+               Then the front ends (phase 3n, run_frontends):
+               mobilenet-v1-224 written by this script's own encoders as
+               ONNX, Caffe (prototxt + caffemodel), ncnn (param + bin),
+               MXNet (symbol JSON + params), a frozen TF GraphDef and a
+               TFLite flatbuffer (TF and TFLite with TF-SAME pads), each
+               imported by `python -m tengine_tpu_torch.tools.convert_tool
+               ... --optimize` in a subprocess (the six started together)
+               and read back with load_model; fp32 at batch 8 against a
+               plain torch forward of the same weights and pads (cosine
+               >= 0.99999, max |d| <= 1e-3 of the logits' scale); then
+                 ONNX-U  the ONNX import UINT8 MinMax under SSD-U's set at
+                         batch 32: 13 dw_qconv, 13 qconv1x1; equal at 0
+                         LSB to the in-code graph run alike
+                 TFL-D   the full-int8 TFLite file (the fp32 TFLite
+                         import's UINT8 grids shifted by -128, per-channel
+                         int8 weights, int32 biases), no calibration,
+                         default Options at batch 8
+                 TFL-U   the same at batch 32 under SSD-U's set: 13
+                         dw_qconv, the pointwise convs on the fast lowering
+                         (shifted INT8);
+               each checked by run_quant_tier.
                Every launch of qgemm_requant (yolov3 B, ResNet-50 H,
                VIT-T), qconv1x1, qconv_direct and dw_qconv in one eager
                forward of a tier that launches one is held against its
@@ -272,6 +293,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -531,6 +553,26 @@ ZOO_NETS = {
     "yolov4-tiny": ("darknet_zoo", "build_yolov4_tiny_graph", "int8", 0.95, 0.45),
 }
 INT32_MAX = 2**31 - 1
+# phase 3n: mobilenet-v1-224 (build_mobilenet_v1_graph, seed-0 weights)
+# written in the six formats of the port's front ends and imported through
+# its convert tool. TF and TFLite pad TF-SAME, as TensorFlow's published
+# mobilenet_v1 does; the other four carry the graph's explicit pads. fp32 at
+# FRONTEND_BATCH; then per quantized tier: the Options, TT_DW_PALLAS while
+# compile_graph runs (None: unset), the launches per forward, and the batch.
+# ONNX-U: the ONNX import UINT8 MinMax under SSD-U's set (13 dw_qconv, 13
+# qconv1x1); TFL-D, TFL-U: the full-int8 TFLite import under default
+# Options and under SSD-U's set, whose shifted INT8 keeps the pointwise
+# convs off qconv1x1
+FRONTEND_FORMATS = ("onnx", "caffe", "ncnn", "mxnet", "tf", "tflite")
+SAME_PAD_FORMATS = ("tf", "tflite")
+FRONTEND_BATCH, FRONTEND_U_BATCH = 8, 32
+FRONTEND_TIERS = {
+    "ONNX-U": (dict(quant_mode="fast", quant_bf16_storage=False), "1",
+               {"dw_qconv": 13, "qconv1x1": 13}, FRONTEND_U_BATCH),
+    "TFL-D": (dict(quant_mode="fast"), None, {}, FRONTEND_BATCH),
+    "TFL-U": (dict(quant_mode="fast", quant_bf16_storage=False), "1", {"dw_qconv": 13},
+              FRONTEND_U_BATCH),
+}
 
 
 def build_resnet50_graph(ir, img=224, classes=1000, seed=0, widths=RESNET50_WIDTHS,
@@ -1032,6 +1074,706 @@ def build_shufflenet_v2_graph(ir, img=224, classes=1000, seed=0, stem=SHUFFLENET
     bt = m.const("fc.b", m.rng.standard_normal(classes) * 0.05)
     return m.finish([m.node("FullyConnected", "fc", [t, wt, bt], [n, classes, 1, 1],
                             dict(num_output=classes))])
+
+
+# ---------------------------------------------------------------------------
+# Phase 3n: mobilenet-v1 written in the six source formats of the port's
+# front ends (tengine_tpu_torch/convert/) by encoders of this script's own,
+# with struct and numpy only: the card's machine has no onnx, caffe, ncnn,
+# mxnet, tensorflow, protobuf or flatbuffers package. Each writes the layer
+# list of build_mobilenet_v1_graph's float graph (mobilenet_layers).
+# ---------------------------------------------------------------------------
+
+
+def mobilenet_layers(g):
+    """build_mobilenet_v1_graph's float graph as a layer list, and its input
+    shape: ("conv", name, OIHW weight, bias, stride, pad, group), each
+    followed by a ReLU; ("gap", name); ("fc", name, [O, C] weight, bias)."""
+    layers = []
+    for n in g.toposorted():
+        p = n.params
+        if n.op == "Convolution":
+            if p["activation"] != 0 or p["kernel_h"] != p["kernel_w"]:
+                raise ValueError(f"{n.name}: not a square conv with a ReLU")
+            layers.append(("conv", n.name, g.tensors[n.inputs[1]].data,
+                           g.tensors[n.inputs[2]].data, p["stride_h"], p["pad_h0"], p["group"]))
+        elif n.op == "Pooling":
+            layers.append(("gap", n.name))
+        elif n.op == "FullyConnected":
+            layers.append(("fc", n.name, g.tensors[n.inputs[1]].data, g.tensors[n.inputs[2]].data))
+    return layers, list(g.tensors[g.input_tensors[0]].shape)
+
+
+# --- protocol buffers (the wire format: a varint key field << 3 | wire type,
+# then a varint, 4 bytes, or a varint length and the bytes) ---
+
+
+def _pb_varint(v: int) -> bytes:
+    out, v = bytearray(), v & (2**64 - 1)
+    while True:
+        b, v = v & 0x7F, v >> 7
+        out.append(b | 0x80 if v else b)
+        if not v:
+            return bytes(out)
+
+
+def _pb_ld(field: int, payload: bytes) -> bytes:
+    return _pb_varint(field << 3 | 2) + _pb_varint(len(payload)) + payload
+
+
+def _pb_str(field: int, s: str) -> bytes:
+    return _pb_ld(field, s.encode())
+
+
+def _pb_int(field: int, v: int) -> bytes:
+    return _pb_varint(field << 3) + _pb_varint(int(v))
+
+
+def _pb_f32(field: int, v: float) -> bytes:
+    return _pb_varint(field << 3 | 5) + struct.pack("<f", v)
+
+
+def _pb_packed(field: int, vals) -> bytes:
+    return _pb_ld(field, b"".join(_pb_varint(int(v)) for v in vals))
+
+
+def encode_onnx(layers, shape):
+    """An ONNX ModelProto (onnx.proto3: ModelProto ir_version=1 graph=7
+    opset_import=8; GraphProto node=1 name=2 initializer=5 input=11
+    output=12; NodeProto input=1 output=2 name=3 op_type=4 attribute=5;
+    AttributeProto name=1 f=2 i=3 ints=8 type=20; TensorProto dims=1
+    data_type=2 name=8 raw_data=9): Conv + Relu, GlobalAveragePool,
+    Flatten, Gemm."""
+    def attr(name, val):
+        out = _pb_str(1, name)
+        if isinstance(val, list):
+            return out + _pb_packed(8, val) + _pb_int(20, 7)
+        if isinstance(val, float):
+            return out + _pb_f32(2, val) + _pb_int(20, 1)
+        return out + _pb_int(3, val) + _pb_int(20, 2)
+
+    def node(op, ins, outs, name, **attrs):
+        return (b"".join(_pb_str(1, i) for i in ins) + b"".join(_pb_str(2, o) for o in outs)
+                + _pb_str(3, name) + _pb_str(4, op)
+                + b"".join(_pb_ld(5, attr(k, v)) for k, v in attrs.items()))
+
+    def tensor(name, arr):
+        arr = np.ascontiguousarray(arr, np.float32)
+        return _pb_packed(1, arr.shape) + _pb_int(2, 1) + _pb_str(8, name) + _pb_ld(9, arr.tobytes())
+
+    def value_info(name, dims):  # ValueInfoProto name=1 type=2: TypeProto.tensor_type=1
+        dims_pb = b"".join(_pb_ld(1, _pb_int(1, d)) for d in dims)  # Dimension dim_value=1
+        return _pb_str(1, name) + _pb_ld(2, _pb_ld(1, _pb_int(1, 1) + _pb_ld(2, dims_pb)))
+
+    nodes, inits, x = [], [], "data"
+    for layer in layers:
+        if layer[0] == "conv":
+            _, name, w, b, s, pad, group = layer
+            k = int(w.shape[2])
+            nodes.append(node("Conv", [x, f"{name}.w", f"{name}.b"], [name], name,
+                              kernel_shape=[k, k], pads=[pad] * 4, strides=[s, s], group=group,
+                              dilations=[1, 1]))
+            nodes.append(node("Relu", [name], [f"{name}.relu"], f"{name}/relu"))
+            inits += [tensor(f"{name}.w", w), tensor(f"{name}.b", b)]
+            x = f"{name}.relu"
+        elif layer[0] == "gap":
+            nodes.append(node("GlobalAveragePool", [x], [layer[1]], layer[1]))
+            nodes.append(node("Flatten", [layer[1]], [f"{layer[1]}.flat"], f"{layer[1]}/flat",
+                              axis=1))
+            x = f"{layer[1]}.flat"
+        else:
+            _, name, w, b = layer
+            nodes.append(node("Gemm", [x, f"{name}.w", f"{name}.b"], [name], name, transB=1,
+                              alpha=1.0, beta=1.0))
+            inits += [tensor(f"{name}.w", w), tensor(f"{name}.b", b)]
+            x = name
+    graph = (b"".join(_pb_ld(1, n) for n in nodes) + _pb_str(2, "mobilenet-v1")
+             + b"".join(_pb_ld(5, t) for t in inits) + _pb_ld(11, value_info("data", shape))
+             + _pb_ld(12, value_info(x, [shape[0], len(layers[-1][3])])))
+    model = _pb_int(1, 8) + _pb_ld(7, graph) + _pb_ld(8, _pb_str(1, "") + _pb_int(2, 13))
+    return {"model.onnx": model}, ["-m", "model.onnx"]
+
+
+def encode_caffe(layers, shape):
+    """A Caffe deploy prototxt (Convolution with group, in-place ReLU,
+    Pooling AVE global_pooling, InnerProduct) and its caffemodel
+    (caffe.proto: NetParameter layer=100; LayerParameter name=1 blobs=7;
+    BlobProto data=5 shape=7; BlobShape dim=1)."""
+    def blob(arr):
+        arr = np.ascontiguousarray(arr, np.float32)
+        return _pb_ld(7, _pb_packed(1, arr.shape)) + _pb_ld(5, arr.tobytes())
+
+    lines = ['name: "mobilenet-v1"', 'input: "data"',
+             "input_shape { " + " ".join(f"dim: {d}" for d in shape) + " }"]
+    model, x = [], "data"
+    for layer in layers:
+        name = layer[1]
+        if layer[0] == "conv":
+            _, _, w, b, s, pad, group = layer
+            lines.append(f'layer {{ name: "{name}" type: "Convolution" bottom: "{x}" top: "{name}" '
+                         f"convolution_param {{ num_output: {w.shape[0]} kernel_size: {w.shape[2]} "
+                         f"stride: {s} pad: {pad} group: {group} bias_term: true }} }}")
+            lines.append(f'layer {{ name: "{name}/relu" type: "ReLU" bottom: "{name}" '
+                         f'top: "{name}" }}')
+        elif layer[0] == "gap":
+            lines.append(f'layer {{ name: "{name}" type: "Pooling" bottom: "{x}" top: "{name}" '
+                         "pooling_param { pool: AVE global_pooling: true } }")
+        else:
+            w, b = layer[2], layer[3]
+            lines.append(f'layer {{ name: "{name}" type: "InnerProduct" bottom: "{x}" '
+                         f'top: "{name}" inner_product_param {{ num_output: {w.shape[0]} }} }}')
+        if layer[0] != "gap":
+            model.append(_pb_ld(100, _pb_str(1, name) + _pb_ld(7, blob(layer[2]))
+                                + _pb_ld(7, blob(layer[3]))))
+        x = name
+    files = {"deploy.prototxt": "\n".join(lines) + "\n", "weights.caffemodel": b"".join(model)}
+    return files, ["-m", "deploy.prototxt", "-w", "weights.caffemodel"]
+
+
+def encode_ncnn(layers, shape):
+    """An ncnn .param (magic 7767517; Convolution / ConvolutionDepthWise with
+    the fused ReLU 9=1, Pooling global average 0=1 4=1, InnerProduct) and
+    .bin (each weight after a u32 tag 0: fp32; each bias raw)."""
+    lines, blobs, x = [f"Input data 0 1 data 0={shape[3]} 1={shape[2]} 2={shape[1]}"], [], "data"
+    tag = struct.pack("<I", 0)
+    for layer in layers:
+        name = layer[1]
+        if layer[0] == "conv":
+            _, _, w, b, s, pad, group = layer
+            kind, extra = ("ConvolutionDepthWise", f" 7={group}") if group > 1 else ("Convolution", "")
+            lines.append(f"{kind} {name} 1 1 {x} {name} 0={w.shape[0]} 1={w.shape[2]} 3={s} "
+                         f"4={pad} 5=1 6={w.size}{extra} 9=1")
+        elif layer[0] == "gap":
+            lines.append(f"Pooling {name} 1 1 {x} {name} 0=1 4=1")
+        else:
+            w = layer[2]
+            lines.append(f"InnerProduct {name} 1 1 {x} {name} 0={w.shape[0]} 1=1 2={w.size}")
+        if layer[0] != "gap":
+            blobs += [tag + np.ascontiguousarray(layer[2], np.float32).tobytes(),
+                      np.ascontiguousarray(layer[3], np.float32).tobytes()]
+        x = name
+    text = f"7767517\n{len(lines)} {len(lines)}\n" + "\n".join(lines) + "\n"
+    return {"model.param": text, "model.bin": b"".join(blobs)}, ["-m", "model.param", "-w", "model.bin"]
+
+
+def encode_mxnet(layers, shape):
+    """An MXNet symbol JSON (Convolution, Activation relu, Pooling global avg,
+    Flatten, FullyConnected) and .params (NDArray save file: u64 magic,
+    reserved and count; per array the V2 flag 0xF993FAC8, ndim, int64
+    dims, dev_type, dev_id, type_flag 0 = fp32 and the data; then the
+    names, arg:-prefixed)."""
+    nodes, params = [{"op": "null", "name": "data", "attrs": {}, "inputs": []}], {}
+
+    def add(op, name, inputs=(), **attrs):
+        nodes.append({"op": op, "name": name, "attrs": {k: str(v) for k, v in attrs.items()},
+                      "inputs": [[i, 0, 0] for i in inputs]})
+        return len(nodes) - 1
+
+    def weights(name, w, b):
+        params[f"arg:{name}_weight"], params[f"arg:{name}_bias"] = w, b
+        return add("null", f"{name}_weight"), add("null", f"{name}_bias")
+
+    x = 0
+    for layer in layers:
+        name = layer[1]
+        if layer[0] == "conv":
+            _, _, w, b, s, pad, group = layer
+            k = int(w.shape[2])
+            wi, bi = weights(name, w, b)
+            c = add("Convolution", name, [x, wi, bi], kernel=f"({k}, {k})", stride=f"({s}, {s})",
+                    pad=f"({pad}, {pad})", num_filter=w.shape[0], num_group=group, no_bias=False)
+            x = add("Activation", f"{name}_relu", [c], act_type="relu")
+        elif layer[0] == "gap":
+            x = add("Pooling", name, [x], global_pool=True, pool_type="avg", kernel="(1, 1)")
+            x = add("Flatten", f"{name}_flat", [x])
+        else:
+            wi, bi = weights(name, layer[2], layer[3])
+            x = add("FullyConnected", name, [x, wi, bi], num_hidden=layer[2].shape[0])
+    sym = {"nodes": nodes, "arg_nodes": [i for i, n in enumerate(nodes) if n["op"] == "null"],
+           "heads": [[x, 0, 0]]}
+    blob = struct.pack("<QQQ", 0x112, 0, len(params))
+    for arr in params.values():
+        arr = np.ascontiguousarray(arr, np.float32)
+        blob += struct.pack("<II", 0xF993FAC8, arr.ndim) + struct.pack(f"<{arr.ndim}q", *arr.shape)
+        blob += struct.pack("<III", 1, 0, 0) + arr.tobytes()
+    blob += struct.pack("<Q", len(params))
+    for name in params:
+        blob += struct.pack("<Q", len(name)) + name.encode()
+    files = {"model-symbol.json": json.dumps(sym), "model-0000.params": blob}
+    return files, ["-m", "model-symbol.json", "-w", "model-0000.params"]
+
+
+def encode_tf_graphdef(layers, shape):
+    """A frozen TF GraphDef, NHWC, convs with TF-SAME padding as TensorFlow's
+    published mobilenet_v1 (graph.proto: GraphDef node=1 versions=4;
+    node_def.proto: NodeDef name=1 op=2 input=3 attr=5, a map of entries
+    key=1 value=2; attr_value.proto: AttrValue list=1 s=2 b=5 type=6 shape=7
+    tensor=8, ListValue i=3; tensor.proto: TensorProto dtype=1
+    tensor_shape=2 tensor_content=4; tensor_shape.proto: dim=2, Dim size=1;
+    types.proto: DT_FLOAT 1, DT_INT32 3). Conv2D / DepthwiseConv2dNative +
+    BiasAdd + Relu, Mean over H and W, MatMul + BiasAdd."""
+    def shape_pb(dims):
+        return b"".join(_pb_ld(2, _pb_int(1, d)) for d in dims)
+
+    def tensor(arr):
+        dt = {np.dtype(np.float32): 1, np.dtype(np.int32): 3}[arr.dtype]
+        return _pb_ld(8, _pb_int(1, dt) + _pb_ld(2, shape_pb(arr.shape))
+                      + _pb_ld(4, np.ascontiguousarray(arr).tobytes()))
+
+    def dtype(t):
+        return _pb_int(6, t)
+
+    def ints(v):
+        return _pb_ld(1, _pb_packed(3, v))
+
+    def text(s):
+        return _pb_ld(2, s.encode())
+
+    def flag(v):
+        return _pb_int(5, int(v))
+
+    def node(name, op, ins, **attrs):
+        body = _pb_str(1, name) + _pb_str(2, op) + b"".join(_pb_str(3, i) for i in ins)
+        body += b"".join(_pb_ld(5, _pb_str(1, k) + _pb_ld(2, attrs[k])) for k in sorted(attrs))
+        return _pb_ld(1, body)
+
+    def const(name, arr):
+        return node(name, "Const", [], dtype=dtype(1 if arr.dtype == np.float32 else 3),
+                    value=tensor(arr))
+
+    n, c, h, w = shape
+    out = [node("input", "Placeholder", [], dtype=dtype(1), shape=_pb_ld(7, shape_pb([n, h, w, c])))]
+    x = "input"
+    for layer in layers:
+        name = layer[1]
+        if layer[0] == "conv":
+            _, _, wt, b, s, _, group = layer
+            op, hw = (("Conv2D", wt.transpose(2, 3, 1, 0)) if group == 1  # OIHW -> HWIO
+                      else ("DepthwiseConv2dNative", wt.transpose(2, 3, 0, 1)))  # -> [k, k, C, 1]
+            out.append(const(f"{name}/weights", np.ascontiguousarray(hw, np.float32)))
+            out.append(node(f"{name}/conv", op, [x, f"{name}/weights"], T=dtype(1),
+                            strides=ints([1, s, s, 1]), padding=text("SAME"),
+                            data_format=text("NHWC"), dilations=ints([1, 1, 1, 1])))
+            out.append(const(f"{name}/biases", np.asarray(b, np.float32)))
+            out.append(node(f"{name}/bias", "BiasAdd", [f"{name}/conv", f"{name}/biases"],
+                            T=dtype(1), data_format=text("NHWC")))
+            out.append(node(name, "Relu", [f"{name}/bias"], T=dtype(1)))
+        elif layer[0] == "gap":
+            out.append(const(f"{name}/axes", np.asarray([1, 2], np.int32)))
+            out.append(node(name, "Mean", [x, f"{name}/axes"], T=dtype(1), Tidx=dtype(3),
+                            keep_dims=flag(False)))
+        else:
+            _, _, wt, b = layer
+            out.append(const(f"{name}/weights", np.ascontiguousarray(wt.T, np.float32)))
+            out.append(node(f"{name}/matmul", "MatMul", [x, f"{name}/weights"], T=dtype(1),
+                            transpose_a=flag(False), transpose_b=flag(False)))
+            out.append(const(f"{name}/biases", np.asarray(b, np.float32)))
+            out.append(node(name, "BiasAdd", [f"{name}/matmul", f"{name}/biases"], T=dtype(1),
+                            data_format=text("NHWC")))
+        x = name
+    gd = b"".join(out) + _pb_ld(4, _pb_int(1, 1))  # versions: VersionDef producer=1
+    return {"frozen.pb": gd}, ["-m", "frozen.pb"]
+
+
+# --- FlatBuffers (the TFLite file), written front to back: a table is its
+# vtable (u16 size, u16 table size, a u16 field offset a slot) then its soffset
+# (i32, back to the vtable) and its fields; a table, vector or string a field
+# refers to comes after it (a uoffset is unsigned and points forward) ---
+
+
+# the objects _fb_build writes: ("table", {slot: value}) where a value is a
+# scalar (struct format, value) or another object; ("vec", struct format,
+# values or raw bytes, alignment of the elements); ("tables", [table, ...]);
+# ("str", text)
+_FB_REFS = ("table", "vec", "tables", "str")
+
+
+def _fb_table(fields):
+    return ("table", fields)
+
+
+def _fb_vec(fmt, values, align=4):
+    return ("vec", fmt, values, align)
+
+
+def _fb_build(root, ident: bytes) -> bytes:
+    """The FlatBuffer of `root` (a table), with file identifier `ident`."""
+    buf = bytearray(b"\0\0\0\0" + ident)
+
+    def align(n, extra=0):
+        while (len(buf) + extra) % n:
+            buf.append(0)
+
+    def patch(at, target):
+        struct.pack_into("<I", buf, at, target - at)
+
+    def write(obj) -> int:
+        kind = obj[0]
+        if kind == "str":
+            align(4)
+            pos, data = len(buf), obj[1].encode()
+            buf.extend(struct.pack("<I", len(data)) + data + b"\0")
+            return pos
+        if kind == "vec":
+            _, fmt, values, el_align = obj
+            align(max(4, el_align), extra=4)
+            pos = len(buf)
+            if isinstance(values, bytes):
+                buf.extend(struct.pack("<I", len(values)) + values)
+            else:
+                buf.extend(struct.pack(f"<I{len(values)}{fmt}", len(values), *values))
+            return pos
+        if kind == "tables":
+            align(4)
+            pos = len(buf)
+            buf.extend(struct.pack("<I", len(obj[1])) + b"\0" * (4 * len(obj[1])))
+            for i, t in enumerate(obj[1]):
+                patch(pos + 4 + 4 * i, write(t))
+            return pos
+        fields = obj[1]
+        n_slots = max(fields) + 1 if fields else 0
+        layout, off = {}, 4
+        for slot in sorted(fields):
+            size = 4 if fields[slot][0] in _FB_REFS else struct.calcsize("<" + fields[slot][0])
+            off = (off + size - 1) // size * size
+            layout[slot] = (off, size)
+            off += size
+        vt = struct.pack(f"<HH{n_slots}H", 4 + 2 * n_slots, off,
+                         *[layout[s][0] if s in layout else 0 for s in range(n_slots)])
+        align(4, extra=len(vt))
+        vt_pos = len(buf)
+        buf.extend(vt)
+        pos = len(buf)
+        buf.extend(struct.pack("<i", pos - vt_pos) + b"\0" * (off - 4))
+        refs = []
+        for slot, (o, size) in layout.items():
+            v = fields[slot]
+            if v[0] in _FB_REFS:
+                refs.append((pos + o, v))
+            else:
+                struct.pack_into("<" + v[0], buf, pos + o, v[1])
+        for at, child in refs:
+            patch(at, write(child))
+        return pos
+
+    patch(0, write(root))
+    return bytes(buf)
+
+
+# schema.fbs: BuiltinOperator codes, the options tables' BuiltinOptions
+# union types, TensorType and ActivationFunctionType values
+_TFL_CONV_2D, _TFL_DEPTHWISE_CONV_2D, _TFL_FULLY_CONNECTED, _TFL_MEAN = 3, 4, 9, 40
+_TFL_OPTS_CONV, _TFL_OPTS_DW, _TFL_OPTS_FC, _TFL_OPTS_REDUCER = 1, 2, 8, 27
+_TFL_FLOAT32, _TFL_INT32, _TFL_INT8 = 0, 2, 9
+_TFL_RELU = 1
+
+
+def encode_tflite(layers, shape, grids=None):
+    """A TFLite flatbuffer (schema.fbs, identifier TFL3), NHWC, convs with
+    SAME padding and a fused RELU, MEAN over H and W, FULLY_CONNECTED.
+    fp32, or with `grids` ({tensor name: (scale, uint8 zero point)}: a
+    calibration's uint8 MinMax grids) TFLite's full-int8 scheme: int8
+    activations on those grids shifted by -128, per-channel symmetric int8
+    weights (quantized_dimension 0, 3 for the depthwise [1, k, k, C]) and
+    int32 biases at s_in * s_w, zero points 0. Tables and slots written:
+    Model version=0 operator_codes=1 subgraphs=2 description=3 buffers=4;
+    SubGraph tensors=0 inputs=1 outputs=2 operators=3 name=4; Tensor shape=0
+    type=1 buffer=2 name=3 quantization=4; QuantizationParameters scale=2
+    zero_point=3 quantized_dimension=6; Buffer data=0; Operator
+    opcode_index=0 inputs=1 outputs=2 builtin_options_type=3
+    builtin_options=4; OperatorCode deprecated_builtin_code=0 version=2
+    builtin_code=3; Conv2DOptions padding=0 stride_w=1 stride_h=2
+    fused_activation_function=3; DepthwiseConv2DOptions padding=0
+    stride_w=1 stride_h=2 depth_multiplier=3 fused_activation_function=4;
+    ReducerOptions keep_dims=0; FullyConnectedOptions
+    fused_activation_function=0."""
+    tensors, buffers, ops, codes = [], [_fb_table({})], [], []
+
+    def quant(scales, zps, dim=0):
+        return _fb_table({2: _fb_vec("f", scales), 3: _fb_vec("q", zps, 8), 6: ("i", dim)})
+
+    def act_grid(name):
+        s, zp = grids[name]
+        return quant([s], [zp - 128])
+
+    def add_tensor(name, dims, ttype, data=None, q=None):
+        fields = {0: _fb_vec("i", dims), 1: ("b", ttype), 2: ("I", 0), 3: ("str", name)}
+        if data is not None:
+            fields[2] = ("I", len(buffers))
+            buffers.append(_fb_table({0: _fb_vec("B", np.ascontiguousarray(data).tobytes(), 16)}))
+        if q is not None:
+            fields[4] = q
+        tensors.append(_fb_table(fields))
+        return len(tensors) - 1
+
+    def activation(name, dims):
+        if grids is None:
+            return add_tensor(name, dims, _TFL_FLOAT32)
+        return add_tensor(name, dims, _TFL_INT8, q=act_grid(name))
+
+    def add_op(code, ins, outs, opts_type, opts):
+        if code not in codes:
+            codes.append(code)
+        ops.append(_fb_table({0: ("I", codes.index(code)), 1: _fb_vec("i", ins),
+                              2: _fb_vec("i", outs), 3: ("B", opts_type), 4: _fb_table(opts)}))
+
+    def weights(name, w, dims, axis, s_in):
+        """The weight tensor (fp32, or per-channel int8 along `axis`) and
+        its bias (fp32, or int32 at s_in * s_w)."""
+        w_src, b = w
+        if grids is None:
+            return (add_tensor(f"{name}/weights", dims, _TFL_FLOAT32,
+                               np.asarray(w_src, np.float32)),
+                    add_tensor(f"{name}/biases", [len(b)], _TFL_FLOAT32, np.asarray(b, np.float32)))
+        red = tuple(i for i in range(w_src.ndim) if i != axis)
+        s_w = np.maximum(np.abs(w_src).max(axis=red), 1e-12).astype(np.float64) / 127
+        bshape = [-1 if i == axis else 1 for i in range(w_src.ndim)]
+        wq = np.clip(np.round(w_src / s_w.reshape(bshape)), -127, 127).astype(np.int8)
+        s_b = s_in * s_w
+        bq = np.round(np.asarray(b, np.float64) / s_b).astype(np.int32)
+        n = len(s_w)
+        return (add_tensor(f"{name}/weights", dims, _TFL_INT8, wq,
+                           quant(s_w.astype(np.float32).tolist(), [0] * n, axis)),
+                add_tensor(f"{name}/biases", [n], _TFL_INT32, bq,
+                           quant(s_b.astype(np.float32).tolist(), [0] * n)))
+
+    n, c, h, w = shape
+    x = activation("input", [n, h, w, c])
+    x_name, cur = "input", [n, h, w, c]
+    for layer in layers:
+        name = layer[1]
+        s_in = grids[x_name][0] if grids is not None else None
+        if layer[0] == "conv":
+            _, _, wt, b, s, _, group = layer
+            o, k = int(wt.shape[0]), int(wt.shape[2])
+            oh, ow = -(-cur[1] // s), -(-cur[2] // s)  # SAME
+            if group == 1:
+                wi, bi = weights(name, (wt.transpose(0, 2, 3, 1), b), [o, k, k, cur[3]], 0, s_in)
+                code, opts_type = _TFL_CONV_2D, _TFL_OPTS_CONV
+                opts = {0: ("b", 0), 1: ("i", s), 2: ("i", s), 3: ("b", _TFL_RELU)}
+            else:
+                wi, bi = weights(name, (wt.transpose(1, 2, 3, 0), b), [1, k, k, o], 3, s_in)
+                code, opts_type = _TFL_DEPTHWISE_CONV_2D, _TFL_OPTS_DW
+                opts = {0: ("b", 0), 1: ("i", s), 2: ("i", s), 3: ("i", 1), 4: ("b", _TFL_RELU)}
+            cur = [n, oh, ow, o]
+            y = activation(name, cur)
+            add_op(code, [x, wi, bi], [y], opts_type, opts)
+        elif layer[0] == "gap":
+            axes = add_tensor(f"{name}/axes", [2], _TFL_INT32, np.asarray([1, 2], np.int32))
+            cur = [n, cur[3]]
+            y = activation(name, cur)
+            add_op(_TFL_MEAN, [x, axes], [y], _TFL_OPTS_REDUCER, {0: ("B", 0)})
+        else:
+            _, _, wt, b = layer
+            wi, bi = weights(name, (wt, b), list(wt.shape), 0, s_in)
+            cur = [n, int(wt.shape[0])]
+            y = activation(name, cur)
+            add_op(_TFL_FULLY_CONNECTED, [x, wi, bi], [y], _TFL_OPTS_FC, {0: ("b", 0)})
+        x, x_name = y, name
+    subgraph = _fb_table({0: ("tables", tensors), 1: _fb_vec("i", [0]), 2: _fb_vec("i", [x]),
+                          3: ("tables", ops), 4: ("str", "main")})
+    model = _fb_table({
+        0: ("I", 3),
+        1: ("tables", [_fb_table({0: ("b", min(cd, 127)), 2: ("i", 1), 3: ("i", cd)})
+                       for cd in codes]),
+        2: ("tables", [subgraph]), 3: ("str", "chip_smoke"), 4: ("tables", buffers)})
+    name = "model_int8.tflite" if grids is not None else "model.tflite"
+    return {name: _fb_build(model, b"TFL3")}, ["-m", name]
+
+
+FRONTEND_ENCODERS = {"onnx": encode_onnx, "caffe": encode_caffe, "ncnn": encode_ncnn,
+                     "mxnet": encode_mxnet, "tf": encode_tf_graphdef, "tflite": encode_tflite}
+
+
+def convert_models(tmp: Path, models, shape):
+    """Each encoded model through the port's convert tool (python -m
+    tengine_tpu_torch.tools.convert_tool -f FMT ... --optimize -o
+    FMT.tmfile), one subprocess a format, all started together from the
+    repository's root; each must exit 0. Returns {format: (tmfile path,
+    seconds)}."""
+    procs = {}
+    for fmt, (files, args) in models.items():
+        d = tmp / fmt
+        d.mkdir(parents=True, exist_ok=True)
+        for name, data in files.items():
+            (d / name).write_bytes(data.encode() if isinstance(data, str) else data)
+        args = [str(d / a) if a in files else a for a in args]
+        cmd = [sys.executable, "-m", "tengine_tpu_torch.tools.convert_tool",
+               "-f", "tflite" if fmt.startswith("tflite") else fmt, *args,
+               "--input-shape", ",".join(map(str, shape)), "--optimize",
+               "-o", str(d / f"{fmt}.tmfile")]
+        procs[fmt] = (subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True), time.perf_counter())
+    out = {}
+    for fmt, (proc, t0) in procs.items():
+        text, _ = proc.communicate(timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"convert_tool -f {fmt} exited {proc.returncode}: {text[-2000:]}")
+        log(f"  {fmt}: convert_tool {seconds:.2f} s: {' | '.join(text.strip().splitlines())}")
+        out[fmt] = (tmp / fmt / f"{fmt}.tmfile", seconds)
+    return out
+
+
+def plain_mobilenet(torch, layers, x, same):
+    """The layer list's forward in plain torch (F.conv2d, F.relu, mean,
+    F.linear) on NCHW x: each conv padded as build_mobilenet_v1_graph pads
+    it, or TF-SAME (the pad total max(0, (out - 1) * s + k - in), its
+    smaller half before) where `same`. Returns [N, classes] logits."""
+    import torch.nn.functional as F
+
+    for layer in layers:
+        if layer[0] == "conv":
+            _, _, w, b, s, pad, group = layer
+            wt, bt = torch.from_numpy(w).to(x.device), torch.from_numpy(b).to(x.device)
+            k = w.shape[2]
+            if same:
+                tot = [max(0, (-(-size // s) - 1) * s + k - size) for size in x.shape[2:]]
+                x = F.pad(x, (tot[1] // 2, tot[1] - tot[1] // 2, tot[0] // 2, tot[0] - tot[0] // 2))
+                pad = 0
+            x = F.relu(F.conv2d(x, wt, bt, stride=s, padding=pad, groups=group))
+        elif layer[0] == "gap":
+            x = x.mean((2, 3))
+        else:
+            x = F.linear(x, torch.from_numpy(layer[2]).to(x.device),
+                         torch.from_numpy(layer[3]).to(x.device))
+    return x
+
+
+def tflite_grids(qg):
+    """{tensor name: (scale, zero point)} of a quantized graph's activations
+    (its input's and every node output's)."""
+    return {t.name: (float(np.asarray(t.quant.scales).reshape(-1)[0]),
+                     int(np.asarray(t.quant.zero_points).reshape(-1)[0]))
+            for t in qg.tensors if t.data is None and t.quant is not None}
+
+
+def check_fp32_import(what, out, want):
+    """An imported graph's fp32 logits against the plain forward's: cosine
+    >= 0.99999 and max |d| <= 1e-3 of the plain logits' largest magnitude."""
+    a, b = out.reshape(want.shape).double(), want.double()
+    cos = float((a * b).sum() / (a.norm() * b.norm() + 1e-30))
+    err, scale = float((a - b).abs().max()), float(b.abs().max())
+    log(f"  {what}: cosine {cos:.8f}, max |d| {err:.3e} (logits' scale {scale:.3f})")
+    if not (cos >= 0.99999 and err <= 1e-3 * scale):
+        raise AssertionError(f"{what}: cosine {cos}, max |d| {err} against the plain forward")
+
+
+def run_frontends(torch, tt, qmath, ir, counters, default, profile):
+    """Phase 3n: mobilenet-v1-224 (build_mobilenet_v1_graph, seed-0 weights)
+    written in each of the six formats by this script's encoders, imported
+    through the port's convert tool (convert_models) and read back with
+    tt.load_model; each graph's 27 convs must carry the fused ReLU that
+    --optimize folds in. fp32: each format at batch 8 against
+    plain_mobilenet with its pads (cosine >= 0.99999, max |d| <= 1e-3 of
+    the logits' scale; TF32 off). Then, checked by run_quant_tier (the
+    routes derived from the IR, captured = eager at 0 LSB, every kernel
+    launch against its plain version, the dequantized logits' cosine
+    against the fp32 import's > 0.99, batch-1 rows, card = CPU within
+    1 LSB):
+      ONNX-U  the ONNX import, quantize_graph UINT8 MinMax on the card
+              from images[:1], under FRONTEND_TIERS["ONNX-U"]: 13 dw_qconv
+              and 13 qconv1x1; its outputs equal, at 0 LSB, those of the
+              in-code graph put through the same optimize, quantizer and
+              Options;
+      TFL-D / TFL-U  the full-int8 TFLite file that encode_tflite writes on
+              the UINT8 MinMax grids of the fp32 TFLite import (calibrated
+              likewise), imported with no calibration: default Options at
+              batch 8 (no kernel), and at batch 32 13 dw_qconv and no
+              qconv1x1 (the pointwise convs' shifted INT8 input keeps them
+              on the fast lowering).
+    Prints each import's seconds and the quantized tiers' ms per batch
+    beside tiers K and L. Returns the launches by kernel."""
+    from tengine_tpu_torch.graph.passes import optimize
+
+    t1 = time.time()
+    g = build_mobilenet_v1_graph(ir)
+    layers, shape = mobilenet_layers(g)
+    images = np.random.default_rng(0).standard_normal(
+        (FRONTEND_U_BATCH, 3, shape[2], shape[3])).astype(np.float32)
+    x_dev = torch.from_numpy(images).cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = dict.fromkeys(counters, 0)
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        models = {fmt: FRONTEND_ENCODERS[fmt](layers, shape) for fmt in FRONTEND_FORMATS}
+        log(f"  mobilenet-v1-{shape[2]} encoded in {len(models)} formats: {time.time() - t1:.1f} s")
+        tms = convert_models(tmp, models, shape)
+        log("phase 3n import seconds (convert_tool --optimize, the six at once): "
+            + ", ".join(f"{fmt} {s:.2f}" for fmt, (_, s) in tms.items()))
+        graphs = {fmt: tt.load_model(str(path)) for fmt, (path, _) in tms.items()}
+        for fmt, gi in graphs.items():
+            convs = [n for n in gi.nodes if n.op == "Convolution"]
+            if len(convs) != 27 or any(n.params["activation"] != 0 for n in convs) or any(
+                    n.op in ("ReLu", "BatchNormalization") for n in gi.nodes):
+                raise AssertionError(f"{fmt}: the import is not mobilenet-v1 with fused ReLUs")
+
+        fp32_u = {}
+        for fmt, gi in graphs.items():
+            cg = tt.compile_graph(gi, tt.Options(precision="fp32", batch_size=FRONTEND_BATCH))
+            (out,) = eager(torch, cg, x_dev[:FRONTEND_BATCH])
+            want = plain_mobilenet(torch, layers, x_dev[:FRONTEND_BATCH],
+                                   same=fmt in SAME_PAD_FORMATS)
+            check_fp32_import(f"{fmt} import fp32 b{FRONTEND_BATCH} vs plain torch", out, want)
+            if fmt in ("onnx", "tflite"):
+                cg = tt.compile_graph(gi, tt.Options(precision="fp32",
+                                                     batch_size=FRONTEND_U_BATCH))
+                fp32_u[fmt] = eager(torch, cg, x_dev)
+            del cg
+
+        opts, gate, per_forward, batch = FRONTEND_TIERS["ONNX-U"]
+        q_onnx = tt.quantize_graph(graphs["onnx"], [images[:1]], scheme="uint8",
+                                   algorithm="minmax")
+        sink = []
+        got, *rows["ONNX-U"] = run_quant_tier(
+            torch, tt, qmath, counters, f"mobilenet-v1-{shape[2]} onnx import uint8 b{batch} tier ONNX-U",
+            q_onnx, fp32_u["onnx"], images, dict(opts, batch_size=batch), gate, per_forward,
+            batch, 0, profile, outs_sink=sink)
+        launches = {k: launches[k] + got[k] for k in launches}
+        g_ref = build_mobilenet_v1_graph(ir)
+        optimize(g_ref)
+        q_ref = tt.quantize_graph(g_ref, [images[:1]], scheme="uint8", algorithm="minmax")
+        t_in, t_ref = (q.tensors[q.input_tensors[0]] for q in (q_onnx, q_ref))
+        if not (np.array_equal(t_in.quant.scales, t_ref.quant.scales)
+                and np.array_equal(t_in.quant.zero_points, t_ref.quant.zero_points)):
+            raise AssertionError("onnx import and in-code graph: the input grids differ")
+        with dw_gate(gate):
+            cg_ref = tt.compile_graph(q_ref, tt.Options(**dict(opts, batch_size=batch)))
+        xq = torch.from_numpy(qmath.quantize_np(images, t_in.quant, t_in.dtype)).cuda()
+        (ref_out,) = eager(torch, cg_ref, xq)
+        d = (sink[0][0].reshape(batch, -1).int() - ref_out.reshape(batch, -1).int()).abs()
+        log(f"  ONNX-U vs the in-code graph (optimize, quantize, compile alike): max |d| "
+            f"{int(d.max())} LSB over {d.numel()} logits")
+        if int(d.max()) != 0:
+            raise AssertionError("ONNX-U: the onnx import parts from the in-code graph")
+        del cg_ref, sink
+
+        grids = tflite_grids(tt.quantize_graph(graphs["tflite"], [images[:1]], scheme="uint8",
+                                               algorithm="minmax"))
+        ((path, seconds),) = convert_models(
+            tmp, {"tflite-int8": encode_tflite(layers, shape, grids)}, shape).values()
+        g8 = tt.load_model(str(path))
+        bare = [t.name for t in g8.tensors if t.quant is None]
+        if bare or not any(t.dtype == ir.DType.INT8 for t in g8.tensors):
+            raise AssertionError(f"tflite int8 import: tensors without a grid {bare[:5]}")
+        log(f"  tflite full-int8 import: {seconds:.2f} s, no calibration")
+        for tier in ("TFL-D", "TFL-U"):
+            opts, gate, per_forward, batch = FRONTEND_TIERS[tier]
+            got, *rows[tier] = run_quant_tier(
+                torch, tt, qmath, counters,
+                f"mobilenet-v1-{shape[2]} tflite full-int8 import b{batch} tier {tier}", g8,
+                fp32_u["tflite"], images, dict(opts, batch_size=batch), gate, per_forward, batch,
+                0, profile, out_dtype=torch.int8)
+            launches = {k: launches[k] + got[k] for k in launches}
+    log("phase 3n ms/batch captured, eager: " + ", ".join(
+        f"{tier} {cap:.3f}, {eag:.3f}" for tier, (cap, eag) in rows.items())
+        + "; beside mobilenet-v1-224 uint8 b128 " + ", ".join(
+            f"{tier} {default[tier][6][0]:.3f}, {default[tier][6][1]:.3f}" for tier in ("K", "L"))
+        + f" [{gpu_name_and_power_limit()}]")
+    return launches
 
 
 def log(msg: str) -> None:
@@ -1901,7 +2643,7 @@ def run_default_tiers(torch, tt, qmath, counters, graphs, images, profile):
     drive does, its routes and storage plan checked from the compiled graph
     and its launch counts exact. Returns {tier: (what phase 4 reads of the
     CompiledGraph, outputs, opts, TT_DW_PALLAS, quantized graph, quantized
-    input)}."""
+    input, captured and eager ms per batch)}."""
     qgs, out = {}, {}
     for tier, spec in DEFAULT_TIERS.items():
         net, scheme, algorithm, extra, gate, plan, per_forward, batch = spec
@@ -1931,13 +2673,14 @@ def run_default_tiers(torch, tt, qmath, counters, graphs, images, profile):
             raise AssertionError(f"{net} {scheme} {tier}: convs by route {got_routes}, expected "
                                  f"{want_routes}; native-int8 plan {took_plan}, {len(shifted)} "
                                  f"shifted tensors")
-        outs, batch_ms, launches, _ = drive(torch, cg, x_dev, counters,
-                                         f"{net}-224 {scheme} b{batch} tier {tier}", profile)
+        outs, batch_ms, launches, eager_ms = drive(torch, cg, x_dev, counters,
+                                                f"{net}-224 {scheme} b{batch} tier {tier}", profile)
         want = dict.fromkeys(counters, 0) | {
             name: WRAPPER_RUNS * n for name, n in per_forward.items()}
         if launches != want:
             raise AssertionError(f"{net} {scheme} {tier}: launches {launches}, expected {want}")
-        out[tier] = (keep(cg), outs, opts, gate, qg, xq)
+        out[tier] = (keep(cg), outs, opts, gate, qg, xq,
+                     (float(np.median(batch_ms)), float(np.median(eager_ms))))
         del cg
         log(f"phase 3 main path: {net}-224 {scheme} ({algorithm}) batch {batch} tier "
             f"{tier} Options({opts}) TT_DW_PALLAS={gate}: native-int8 plan {took_plan} "
@@ -1956,7 +2699,7 @@ def check_default_tiers(torch, tt, default, fp32, resnet_r):
     def logits(cg):
         return [cg.graph.tensors[t] for t in cg.output_ids]
 
-    for tier, (cg, outs, opts, gate, qg, xq) in default.items():
+    for tier, (cg, outs, opts, gate, qg, xq, _) in default.items():
         net, scheme, batch = DEFAULT_TIERS[tier][0], DEFAULT_TIERS[tier][1], DEFAULT_TIERS[tier][7]
         heads = logits(cg)
         out_dtype = torch.uint8 if scheme == "uint8" else torch.int8
@@ -2115,19 +2858,27 @@ def derived_launches(cg, gate):
     with the dw gate on (TT_DW_PALLAS=1, batch >= 32) a 3x3 or 5x5
     depthwise conv with C % 32 == 0 to dw_qconv. Counted over the convs
     that took the kernels' lowerings, which must be all of those; with
-    pallas_qgemm on that tier, every FC goes to qgemm_requant."""
+    pallas_qgemm on that tier, every FC goes to qgemm_requant. An INT8
+    input with a zero point (a shifted grid: a TFLite full-int8 import's)
+    keeps a group-1 conv and an FC off those kernels."""
+    def shifted(n):
+        t = cg.graph.tensors[n.inputs[0]]
+        return (t.dtype.name == "INT8" and t.quant is not None and not t.quant.per_channel
+                and int(np.asarray(t.quant.zero_points).reshape(-1)[0]) != 0)
+
     got = dict.fromkeys(("qconv1x1", "qconv_direct", "qgemm_requant", "dw_qconv"), 0)
     want = dict(got)
     for n in cg.graph.nodes:
         if n.op == "FullyConnected":
-            want["qgemm_requant"] += cg.options.pallas_qgemm and not cg.options.quant_bf16_storage
+            want["qgemm_requant"] += (cg.options.pallas_qgemm and not cg.options.quant_bf16_storage
+                                      and not shifted(n))
             got["qgemm_requant"] += cg.kernels[n.name] == "lower_fc_quant_pallas"
         if n.op != "Convolution":
             continue
         p, route = n.params, cg.kernels[n.name]
         c_in = int(cg.graph.tensors[n.inputs[1]].shape[1])
         k = p["kernel_h"]
-        if p["group"] == 1 and not cg.options.quant_bf16_storage:
+        if p["group"] == 1 and not cg.options.quant_bf16_storage and not shifted(n):
             name = "qconv1x1" if k == 1 else "qconv_direct" if c_in % 128 == 0 else None
         elif p["group"] > 1 and c_in == 1 and gate == "1" and k in (3, 5) and p["group"] % 32 == 0:
             name = "dw_qconv"
@@ -2145,7 +2896,7 @@ def derived_launches(cg, gate):
 
 
 def run_quant_tier(torch, tt, qmath, counters, what, qg, fp32_outs, images, opts, gate,
-                   per_forward, batch, folds, profile):
+                   per_forward, batch, folds, profile, out_dtype=None, outs_sink=None):
     """One tier of a UINT8 net (phases 3g and 3h), checked right after it
     runs so that its CUDA graph can go before the next: compiled with opts
     (TT_DW_PALLAS = gate while it compiles), the convs on the kernels'
@@ -2156,8 +2907,9 @@ def run_quant_tier(torch, tt, qmath, counters, what, qg, fp32_outs, images, opts
     engine > 0.99; the first images at batch 1 equal to their rows in the
     batch; the card against the port's CPU run with the same Options on
     image 0, within 1 LSB. fold_shuffle_gathers must fold `folds` shuffles
-    and leave none. Returns the launches by kernel and the captured and
-    eager ms per batch (medians)."""
+    and leave none. out_dtype: the outputs' dtype (uint8 by default);
+    outs_sink: a list the captured outputs are appended to. Returns the
+    launches by kernel and the captured and eager ms per batch (medians)."""
     from tengine_tpu_torch.graph.passes import fold_shuffle_gathers
 
     t1 = time.time()
@@ -2180,7 +2932,10 @@ def run_quant_tier(torch, tt, qmath, counters, what, qg, fp32_outs, images, opts
     if per_forward:
         check_path_kernels(torch, cg, x, what, per_forward)
     heads = [cg.graph.tensors[t] for t in cg.output_ids]
-    check_heads(torch, what, heads, outs, [f[:batch] for f in fp32_outs], 0.99, torch.uint8)
+    check_heads(torch, what, heads, outs, [f[:batch] for f in fp32_outs], 0.99,
+                out_dtype or torch.uint8)
+    if outs_sink is not None:
+        outs_sink.append(outs)
     for i in range(min(batch, 8) if batch > 1 else 0):
         one = cg(x[i : i + 1])
         if not all(torch.equal(a, b[i : i + 1]) for a, b in zip(one, outs)):
@@ -3360,6 +4115,15 @@ def main(argv) -> int:
     for name, n in run_zoo(torch, tt, qmath, native, counters, profile).items():
         entries[name]["launches"] += n
     log(f"  zoo in all: {time.time() - t0:.1f} s")
+
+    # 3n. the six front ends: mobilenet-v1-224 written as ONNX, Caffe, ncnn,
+    # MXNet, a frozen TF GraphDef and TFLite, imported through the port's
+    # convert tool; fp32 against plain torch, the ONNX import UINT8 and the
+    # full-int8 TFLite import on dw_qconv (and qconv1x1)
+    t0 = time.time()
+    for name, n in run_frontends(torch, tt, qmath, ir, counters, default, profile).items():
+        entries[name]["launches"] += n
+    log(f"  frontends in all: {time.time() - t0:.1f} s")
 
     # 4. correctness: fp32 engine on the card, and the port's CPU run
     t0 = time.time()

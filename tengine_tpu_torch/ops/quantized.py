@@ -73,6 +73,25 @@ def _wscales(quant: QuantParam, out_c: int) -> np.ndarray:
     return s
 
 
+def _zp_w(quant: QuantParam, out_c: int):
+    """A weight grid's zero point: an int for a per-tensor grid, and for a
+    per-channel grid each output channel's own, as an int64 [O, 1, 1, 1]
+    array (it broadcasts over OIHW weights). The JAX package's fast
+    lowerings take a per-channel grid's zero points as 0 (ROADMAP §3)."""
+    zps = np.asarray(quant.zero_points).reshape(-1)
+    if not quant.per_channel:
+        return int(zps[0])
+    return np.broadcast_to(zps.astype(np.int64), (out_c,)).reshape(out_c, 1, 1, 1)
+
+
+def _pc_zero_points(t_w) -> bool:
+    """Per-channel weights with a nonzero zero point (an imported graph's;
+    no quantizer makes them). The integer kernels take one zero point a
+    tensor, so such a conv or FC stays on its fast lowering."""
+    q = t_w.quant
+    return q is not None and q.per_channel and bool(np.any(np.asarray(q.zero_points)))
+
+
 # ---------------------------------------------------------------------------
 # Convolution
 # ---------------------------------------------------------------------------
@@ -131,7 +150,9 @@ def _conv_quant_common(ctx: LowerCtx, x: TArr):
     -zp_in·conv(ones, w)·m.
 
     UINT8 / asymmetric weights: the conv of the shifted values
-    (x - zp_in)·(w - zp_w). The JAX branch feeds them to the conv as bf16
+    (x - zp_in)·(w - zp_w), zp_w each output channel's own for a
+    per-channel grid (the JAX branch takes those as 0, ROADMAP §3). The
+    JAX branch feeds them to the conv as bf16
     (9-bit integers, exact) and sums in f32, which is exact while
     K·255² < 2^24, K <= 258: every conv that takes this branch on the
     YOLO-Fastest path (the stem, K = 27; the depthwise convs, K = 9). The
@@ -173,10 +194,10 @@ def _conv_quant_common(ctx: LowerCtx, x: TArr):
     zp_in = int(np.asarray(in_q.zero_points).reshape(-1)[0])
     s_in = float(np.asarray(in_q.scales).reshape(-1)[0])
     w_scales = _wscales(w_q, out_c)
-    zp_w = int(np.asarray(w_q.zero_points).reshape(-1)[0]) if not w_q.per_channel else 0
+    zp_w = _zp_w(w_q, out_c)
 
     strides = (p["stride_h"], p["stride_w"])
-    if not (t_in.dtype == DType.INT8 and t_w.dtype == DType.INT8 and zp_w == 0):
+    if not (t_in.dtype == DType.INT8 and t_w.dtype == DType.INT8 and not np.any(zp_w)):
         w = ctx.weight(1, lambda a: a.astype(np.float64) - zp_w, tag="oihw_zshift_f64")
         xf = xn.to(torch.float64)
         is_dw = group > 1 and group == out_c and int(t_w.shape[1]) == 1
@@ -335,7 +356,8 @@ def _pallas_qconv_ok(ctx: LowerCtx) -> bool:
     in_c = int(t_w.shape[1])
     k1 = p["kernel_h"] == 1 and p["kernel_w"] == 1
     return (
-        p.get("activation", -1) != ACT_SILU
+        not _pc_zero_points(t_w)
+        and p.get("activation", -1) != ACT_SILU
         and p["group"] == 1
         and p["dilation_h"] == 1
         and p["dilation_w"] == 1
@@ -360,7 +382,8 @@ def _pallas_conv1x1_ok(ctx: LowerCtx) -> bool:
     t_w = ctx.in_tensor(1)
     out_c, in_c = t_w.shape[0], int(np.prod(t_w.shape[1:]))
     return (
-        p.get("activation", -1) != ACT_SILU
+        not _pc_zero_points(t_w)
+        and p.get("activation", -1) != ACT_SILU
         and p["kernel_h"] == 1
         and p["kernel_w"] == 1
         and p["group"] == 1
@@ -391,7 +414,7 @@ def _int_stored(ctx: LowerCtx, t) -> bool:
 def _pallas_dw_ok(ctx: LowerCtx) -> bool:
     """The JAX engine's route to dw_qconv_hwcn (TT_DW_PALLAS gate):
     depthwise k in {3,5}, stride 1/2, batch >= 32, 1-byte stored input and
-    output (_int_stored)."""
+    output (_int_stored); and, in the port alone, TF-SAME pads."""
     if os.environ.get("TT_DW_PALLAS", "0") in ("0", "off", ""):
         return False
     if not _fast_enabled(ctx) or not _no_fused_add(ctx):
@@ -415,7 +438,11 @@ def _pallas_dw_ok(ctx: LowerCtx) -> bool:
         return False
     k, s_ = p["kernel_h"], p["stride_h"]
     pads = [p.get(f"pad_{a}", -1) for a in ("h0", "h1", "w0", "w1")]
-    pad_ok = (
+    # TF-SAME pads (all -1: the TF and TFLite imports') resolve at run time
+    # (_conv_pads) to pads inside the kernel's envelope at every input size
+    # for k in {3, 5}, stride 1 or 2. The JAX gate refuses them: a port-only
+    # route (ROADMAP §3), within 1 LSB of the fast lowering.
+    pad_ok = all(v == -1 for v in pads) or (
         all(v >= 0 for v in pads)
         and pads[1] <= max(0, k - s_ - pads[0]) + (s_ - 1)
         and pads[3] <= max(0, k - s_ - pads[2]) + (s_ - 1)
@@ -461,6 +488,7 @@ def _pallas_stem_ok(ctx: LowerCtx) -> bool:
     pad = p.get("pad_h0", 0)
     return (
         "fused_add_pos" not in p
+        and not _pc_zero_points(t_w)
         and p.get("group", 1) == 1
         and p.get("dilation_h", 1) == 1
         and p.get("dilation_w", 1) == 1
@@ -493,11 +521,7 @@ def lower_conv_quant_pallas_dw(ctx: LowerCtx, x: TArr, *rest: TArr):
     w_scales = _wscales(t_w.quant, out_c)
     s_out = float(np.asarray(t_out.quant.scales).reshape(-1)[0])
     zp_out = int(np.asarray(t_out.quant.zero_points).reshape(-1)[0])
-    zp_w = (
-        0
-        if t_w.quant.per_channel
-        else int(np.asarray(t_w.quant.zero_points).reshape(-1)[0])
-    )
+    zp_w = _zp_w(t_w.quant, out_c)
 
     def w_taps():
         # true tap values w - zp_w, [C, 1, k, k] -> [k*k, Cp] int16
@@ -754,6 +778,7 @@ def _pallas_fc_ok(ctx: LowerCtx) -> bool:
         and ctx.options.pallas_qgemm
         and not ctx.options.quant_bf16_storage
         and not _shifted_s8(ctx)  # int8 path assumes zp = 0
+        and not _pc_zero_points(ctx.in_tensor(1))
     )
 
 
@@ -856,14 +881,8 @@ def lower_fc_quant_fast(ctx: LowerCtx, x: TArr, *rest: TArr):
     xs = as_semantic(x)
     xf = xs.reshape(xs.shape[0], -1).to(torch.float64)
 
-    if (
-        t_in.dtype == DType.INT8
-        and t_w.dtype == DType.INT8
-        and (
-            t_w.quant.per_channel
-            or int(np.asarray(t_w.quant.zero_points).reshape(-1)[0]) == 0
-        )
-    ):
+    zp_w = _zp_w(t_w.quant, out_c)
+    if t_in.dtype == DType.INT8 and t_w.dtype == DType.INT8 and not np.any(zp_w):
         w = ctx.weight(1, lambda a: np.ascontiguousarray(a.T, np.float64), tag="kt_f64")
         acc = (xf @ w).to(torch.float32)
         if zp_in != 0:
@@ -876,9 +895,9 @@ def lower_fc_quant_fast(ctx: LowerCtx, x: TArr, *rest: TArr):
             )
             acc = acc + zc
     else:
-        zp_w = int(np.asarray(t_w.quant.zero_points).reshape(-1)[0])
+        zp_rows = np.reshape(zp_w, (-1, 1))  # [out_c or 1, 1] against [out_c, K]
         w = ctx.weight(
-            1, lambda a: np.ascontiguousarray((a.astype(np.float64) - zp_w).T),
+            1, lambda a: np.ascontiguousarray((a.astype(np.float64) - zp_rows).T),
             tag="kt_zshift_f64",
         )
         acc = ((xf - float(zp_in)) @ w).to(torch.float32)

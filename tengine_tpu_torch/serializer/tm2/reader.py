@@ -612,7 +612,34 @@ def _graph_from_wire(
 
     g.inputs = graph_inputs
     g.outputs = graph_outputs
+    _read_node_attrs(b, g)
     return g
+
+
+def _attr_params(b: Blob, op_name: str, off_attrs: int) -> Dict[str, Any]:
+    """The params a node's attribute list carries (TM2_Attr {offset_s_attrname,
+    offset_s_attrval, attr_type}): an Eltwise's fused activation, which the
+    port's writer records there (writer.py:_w_attrs)."""
+    out: Dict[str, Any] = {}
+    if op_name != "Eltwise" or off_attrs == TM2_NOT_SET:
+        return out
+    for aoff in b.vec_u32(off_attrs):
+        off_name, off_val, _ = b.unpack("IIi", aoff)
+        if b.string(off_name) == "activation":
+            out["activation"] = int(b.string(off_val))
+    return out
+
+
+def _read_node_attrs(b: Blob, g: Graph) -> None:
+    """Add to the graph the params of its nodes' attribute lists (the native
+    parser does not read them)."""
+    root = b.u32(8)
+    (off_subgraphs,) = b.unpack("I", root + 8)
+    soff = b.vec_u32(off_subgraphs)[0]
+    (off_nodes,) = b.unpack("I", soff + 12 + 8)
+    for noff in b.vec_u32(off_nodes):
+        node_id, _, _, _, _, off_attrs = b.unpack("6I", noff)
+        g.nodes[node_id].params.update(_attr_params(b, g.nodes[node_id].op, off_attrs))
 
 
 def _fill_missing(t, fill_missing_weights: str, rng) -> np.ndarray:
@@ -734,6 +761,7 @@ def load_tm_bytes_py(data: bytes, name: str = "", fill_missing_weights: str = "z
         params: Dict[str, Any] = {}
         if off_param != TM2_NOT_SET and op_name in PARAM_PARSERS:
             params = PARAM_PARSERS[op_name](b, off_param)
+        params.update(_attr_params(b, op_name, off_attrs))
         n = g.add_node(
             op=op_name,
             name=b.string(off_nname),

@@ -178,6 +178,20 @@ def _w_unsqueeze(b: Blob, p: Dict[str, Any]) -> int:
     return b.pack("I", off)
 
 
+def _w_attrs(b: Blob, n) -> int:
+    """The node's attribute list (TM2_Node.offset_vo_attrs: TM2_Attr
+    {offset_s_attrname, offset_s_attrval, attr_type}). One attribute is
+    written: an Eltwise's fused activation, which split_concat_conv1x1 moves
+    onto a sum and the Eltwise param record has no field for. The JAX
+    package writes no attributes and its reader skips them, so every other
+    node's bytes are its writer's."""
+    act = n.params.get("activation", -1) if n.op == "Eltwise" else -1
+    if act is None or act < 0:
+        return TM2_NOT_SET
+    off = b.pack("IIi", b.string("activation"), b.string(str(int(act))), 0)
+    return b.vec_u32([off])
+
+
 PARAM_WRITERS = {
     "BatchNormalization": _w_fields(
         "ffi", ["rescale_factor", "eps", "caffe_flavor"], {"rescale_factor": 1.0, "eps": 1e-5}
@@ -358,7 +372,7 @@ def graph_to_tm_bytes(graph: Graph) -> bytes:
         off_out = b.vec_u32(n.outputs)
         off_name = b.string(n.name)
         node_offsets.append(
-            b.pack("6IBxxx", n.idx, off_in, off_out, off_op, off_name, TM2_NOT_SET, 0)
+            b.pack("6IBxxx", n.idx, off_in, off_out, off_op, off_name, _w_attrs(b, n), 0)
         )
 
     # --- subgraph ---

@@ -94,10 +94,24 @@ DECODERS = {
 
 @pytest.mark.parametrize("name", list(NETS))
 def test_builders_build_the_jax_ir(name):
+    """The same IR in both packages, and the JAX writer's tmfile bytes but
+    for the split sums' fused activations (YOLOX's, PicoDet's): the port's
+    writer records those in the node's attribute list, the TM2 Eltwise
+    record having no field for them (ROADMAP §3). With them dropped the
+    bytes are equal; the port's bytes read back with them."""
     _, jg = build(name, 0)
     _, pg = build(name, 1)
     assert_ir_equal(jg, pg)
+    acts = {n.name: n.params["activation"] for n in pg.nodes
+            if n.op == "Eltwise" and n.params.get("activation", -1) >= 0}
+    data = graph_to_tm_bytes(pg)
+    back = pt.load_tm_bytes(data)
+    assert {n.name: n.params.get("activation") for n in back.nodes if n.name in acts} == acts
+    for n in pg.nodes:
+        if n.name in acts:
+            del n.params["activation"]
     assert graph_to_tm_bytes(pg) == jax_bytes(jg)
+    assert (data == jax_bytes(jg)) == (not acts)
 
 
 def test_yolov4_tiny_builds_the_jax_ir():

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every one of its modules pulls in
-neither JAX nor the JAX package, and its entry points run on the card unless
-the caller names the CPU."""
+neither JAX nor the JAX package (nor tensorflow, flatbuffers or protobuf:
+the front ends decode their formats themselves), and its entry points run
+on the card unless the caller names the CPU."""
 
 import subprocess
 import sys
@@ -42,13 +43,14 @@ def test_port_imports_no_jax():
             "tengine_tpu_torch.utils.data", "tengine_tpu_torch.utils.pipeline",
             "tengine_tpu_torch.parallel.serving", "tengine_tpu_torch.models.detect_zoo",
             "tengine_tpu_torch.models.detect_zoo2", "tengine_tpu_torch.models.detect_zoo3",
-            "tengine_tpu_torch.models.zoo"} <= set(mods)
+            "tengine_tpu_torch.models.zoo"} | set(FRONTEND_MODULES) <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "             or k == 'tengine_tpu' or k.startswith('tengine_tpu.'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'tengine_tpu', 'tensorflow', 'flatbuffers')\n"
+        "             or k.startswith('google.protobuf'))\n"
         "print(len(sys.modules))\n"
         "assert not bad, bad\n"
     )
@@ -58,6 +60,47 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert r.returncode == 0, r.stderr
+
+
+# the front ends and the convert tool: none may import jax, the JAX package,
+# tensorflow, flatbuffers or protobuf
+FRONTEND_MODULES = [f"tengine_tpu_torch.convert.{m}" for m in (
+    "onnx_frontend", "caffe_frontend", "ncnn_frontend", "mxnet_frontend", "tf_frontend",
+    "tflite_frontend", "darknet_frontend", "torch_frontend", "_flatbuf")] + [
+    "tengine_tpu_torch.tools.convert_tool"]
+BLOCKED = ("jax", "tengine_tpu", "tensorflow", "flatbuffers", "google.protobuf")
+
+
+def test_frontends_import_and_parse_with_those_packages_blocked():
+    """In a fresh interpreter where importing jax, tengine_tpu, tensorflow,
+    flatbuffers or google.protobuf fails (sys.modules entries set to None),
+    every front end and the convert tool import, and from_tf_graphdef and
+    from_tflite parse chip_smoke.py's encodings of a small mobilenet-v1."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {BLOCKED!r}:\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {FRONTEND_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "from tengine_tpu_torch.graph import ir\n"
+        "from tengine_tpu_torch.convert.tf_frontend import from_tf_graphdef\n"
+        "from tengine_tpu_torch.convert.tflite_frontend import from_tflite\n"
+        "g = chip_smoke.build_mobilenet_v1_graph(ir, img=32, classes=10,\n"
+        "    widths=(8, 16, 32, 32, 64, 64, 128, 128, 128, 128, 128, 128, 256, 256))\n"
+        "layers, shape = chip_smoke.mobilenet_layers(g)\n"
+        "(pb,) = chip_smoke.encode_tf_graphdef(layers, shape)[0].values()\n"
+        "(fb,) = chip_smoke.encode_tflite(layers, shape)[0].values()\n"
+        "for imported in (from_tf_graphdef(pb), from_tflite(fb)):\n"
+        "    assert sum(n.op == 'Convolution' for n in imported.nodes) == 27\n"
+        "print('parsed')\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"}
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0 and "parsed" in r.stdout, r.stderr
 
 
 def _tiny_float_graph():

@@ -304,8 +304,8 @@ def test_uint8_weight_on_shifted_input_takes_the_shifted_branch(monkeypatch):
     read the raw uint8 bytes as int8. Off the plan (the graph of
     tests/test_native_int8.py): within 1 LSB of the ref oracle and equal to
     the JAX engine. Under the plan, on the edge graph, where c3's weight is
-    left UINT8 because an Eltwise reads it too: routes and every output
-    equal to the JAX engine's."""
+    left UINT8 because an Eltwise reads it too: routes equal to the JAX
+    engine's, and c3's and the FC's outputs on the JAX nodes' inputs."""
     rng = np.random.default_rng(11)
     g = jir.Graph(name="mixed")
     c, hw = 32, 8
@@ -332,15 +332,20 @@ def test_uint8_weight_on_shifted_input_takes_the_shifted_branch(monkeypatch):
     blob = graph_to_tm_bytes(build_edge_graph(rng, odd=False))
     xq = _crafted_input(pt.load_tm_bytes(blob))
     on = dict(quant_mode="fast", quant_native="on", batch_size=2)
-    jax_env, jax_routes, output_ids = jax_run_all(blob, on, xq, monkeypatch)
+    jax_env, jax_routes, _ = jax_run_all(blob, on, xq, monkeypatch)
     cg = pt.compile_graph(pt.load_tm_bytes(blob), pt.Options(**on), device="cpu")
     t = {x.name: x for x in cg.graph.tensors}
     assert t["c2_out"].dtype == pir.DType.INT8 and t["w3"].dtype == pir.DType.UINT8
     for name, kernel in cg.kernels.items():
         assert jax_routes[name] == kernel, name
-    env = port_run_all(cg, xq)
-    for tid in (t["c3_out"].idx, output_ids[0]):
-        np.testing.assert_array_equal(env[tid], jax_env[tid])
+    # c1 reads the graph input, so the plan leaves its per-channel UINT8
+    # weight to the fast lowering, which in the JAX package takes those
+    # zero points as 0 (ROADMAP §3) and in the port reads them: each port
+    # node fed the JAX node's inputs, c1 parts from JAX and c3 (the UINT8
+    # weight on the plan's INT8 input) and the FC equal it
+    seen, _ = port_run_forced(blob, on, xq, jax_env, monkeypatch)
+    assert seen["c1"][0] > 1
+    assert seen["c3"] == (0, 0.0) and seen["fc"] == (0, 0.0)
 
 
 def test_default_options_keep_the_relaxed_contract_on_the_wide_net():

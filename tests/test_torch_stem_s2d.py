@@ -175,12 +175,13 @@ def _per_channel_uint8_stem(ir):
 def test_per_channel_zero_points_are_not_copied():
     """Per-channel UINT8 weights with nonzero zero points, under the
     reference lowering (quant_mode="ref", which reads each channel's zero
-    point; the fast lowering takes a per-channel weight's zero points as 0
-    in both engines, ROADMAP §3): the port's rewritten stem equals its
-    plain one at 0 LSB, and the JAX engine's plain one, each inserted tap
-    holding its channel's zero point. The JAX pass writes code 0 there:
-    its rewritten stem parts from its plain one, so that output is not
-    compared."""
+    point in both engines; the JAX fast lowering takes a per-channel
+    weight's zero points as 0, the port's reads them:
+    test_fast_tier_reads_per_channel_zero_points): the port's rewritten
+    stem equals its plain one at 0 LSB, and the JAX engine's plain one,
+    each inserted tap holding its channel's zero point. The JAX pass writes
+    code 0 there: its rewritten stem parts from its plain one, so that
+    output is not compared."""
     from tengine_tpu.graph import ir as jir
 
     from tengine_tpu_torch.graph import ir as pir
@@ -211,3 +212,30 @@ def test_per_channel_zero_points_are_not_copied():
     np.testing.assert_array_equal(outs["jax", False], outs["port", False])
     assert np.abs(outs["jax", True].astype(np.int32)
                   - outs["jax", False].astype(np.int32)).max() > 1
+
+
+def test_fast_tier_reads_per_channel_zero_points():
+    """The same per-channel UINT8 stem under quant_mode="fast": the port's
+    fast lowering subtracts each output channel's own weight zero point
+    (ops/quantized.py:_zp_w), so its fast tier equals its ref tier at 0
+    LSB. The JAX fast lowering takes the zero points as 0 and parts from
+    its own ref tier, which equals the port's (ROADMAP §3: 255 where the ref
+    tier reads 87)."""
+    from tengine_tpu.graph import ir as jir
+
+    from tengine_tpu_torch.graph import ir as pir
+
+    xq = np.random.default_rng(4).integers(0, 256, (1, 3, 32, 32)).astype(np.uint8)
+    port, jax = {}, {}
+    for mode in ("ref", "fast"):
+        port[mode] = pt.compile_graph(_per_channel_uint8_stem(pir), pt.Options(quant_mode=mode),
+                                      device="cpu").run(xq)[0].astype(np.int32)
+        jax[mode] = np.asarray(jt.compile_graph(_per_channel_uint8_stem(jir),
+                                                jt.Options(quant_mode=mode)).run(xq)[0],
+                               np.int32)
+    np.testing.assert_array_equal(port["fast"], port["ref"])
+    np.testing.assert_array_equal(jax["ref"], port["ref"])
+    d = np.abs(jax["fast"] - port["ref"])
+    print(f"JAX fast tier against the ref tier: max |d| {d.max()} LSB, {(d > 1).mean():.3f} "
+          "beyond 1")
+    assert d.max() > 1 and ((jax["fast"] == 255) & (port["ref"] == 87)).any()
