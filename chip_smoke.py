@@ -229,8 +229,20 @@ Phases, in order; any failure raises and the exit code is not 0:
                          dw_qconv, the pointwise convs on the fast lowering
                          (shifted INT8);
                each checked by run_quant_tier.
+               Then the C ABI (phase 3o, run_capi): phase 3a's graph
+               written as a tmfile; tengine_tpu_torch/native/capi_example.c,
+               built with gcc against the port's C ABI library, starts the
+               interpreter and runs it on the card (no device request) at
+               batch 1 (3 images) and batch 8 (3 batches), printing each
+               run_graph call's host ms; the same file through ctypes in
+               this process; every head of both equal at 0 LSB to a
+               CompiledGraph of the file; a conv -> C custom kernel ->
+               conv graph built through the construction calls, captured
+               with the kernel's run() as a host node, on two inputs
+               against the CPU.
                Every launch of qgemm_requant (yolov3 B, ResNet-50 H,
-               VIT-T), qconv1x1, qconv_direct and dw_qconv in one eager
+               VIT-T), qconv1x1, qconv_direct, dw_qconv and stem_qconv
+               (yolov5s in 3a and on the C path in 3o) in one eager
                forward of a tier that launches one is held against its
                plain version (check_path_kernels).
                Every kernel's launch count is set to 0 just before each
@@ -573,6 +585,18 @@ FRONTEND_TIERS = {
     "TFL-U": (dict(quant_mode="fast", quant_bf16_storage=False), "1", {"dw_qconv": 13},
               FRONTEND_U_BATCH),
 }
+
+# phase 3o: phase 3a's yolov5s-640 INT8 graph written by the port's TM2
+# writer and driven through the port's C ABI (native/c_api_shim.c) under
+# default Options, as an embedder drives it: a C program
+# (tengine_tpu_torch/native/capi_example.c, gcc at run time) that starts the
+# interpreter runs CAPI_B1_RUNS images at batch 1, then CAPI_BATCHED_RUNS
+# batches of CAPI_BATCH; the same file in this process through ctypes
+# (attach mode). Then a conv -> C custom kernel (y = 2x) -> conv graph of
+# CK_SHAPE fp32, built through the construction calls and captured on the
+# card with the kernel's run() as a host node, run on two inputs
+CAPI_B1_RUNS, CAPI_BATCH, CAPI_BATCHED_RUNS = 3, 8, 3
+CK_SHAPE = (1, 32, 112, 112)
 
 
 def build_resnet50_graph(ir, img=224, classes=1000, seed=0, widths=RESNET50_WIDTHS,
@@ -2749,17 +2773,18 @@ def check_rows(what, got, want, min_valid=10):
 
 
 def check_path_kernels(torch, cg, x, what, per_forward):
-    """Every launch of qconv1x1, qconv_direct, qgemm_requant and dw_qconv in
-    one eager forward of cg (the main path's shapes and data) held against
-    its plain version on the same inputs: at most 1 LSB (0 expected), and
-    the launches checked those of per_forward ({kernel: launches}). These
-    launches come after drive has read the counts, so they count for no
-    tier."""
+    """Every launch of qconv1x1, qconv_direct, qgemm_requant, dw_qconv and
+    stem_qconv in one eager forward of cg (the main path's shapes and data)
+    held against its plain version on the same inputs: at most 1 LSB (0
+    expected), and the launches checked those of per_forward ({kernel:
+    launches}). These launches come after drive has read the counts, so
+    they count for no tier. Returns {kernel: [launches, max LSB]}."""
     import tengine_tpu_torch.ops.quantized as quantized
-    from tengine_tpu_torch.ops.cuda import dw_conv, qconv, qgemm
+    from tengine_tpu_torch.ops.cuda import dw_conv, qconv, qgemm, stem_conv
 
     pairs = {"qconv1x1": qconv.qconv1x1_plain, "qconv_direct": qconv.qconv_direct_plain,
-             "qgemm_requant": qgemm.qgemm_requant_plain, "dw_qconv": dw_conv.dw_qconv_plain}
+             "qgemm_requant": qgemm.qgemm_requant_plain, "dw_qconv": dw_conv.dw_qconv_plain,
+             "stem_qconv": stem_conv.stem_qconv_plain}
     seen = {name: [0, 0] for name in pairs}
 
     def checked(name, fn, plain):
@@ -3824,6 +3849,346 @@ def run_zoo(torch, tt, qmath, native, counters, profile):
     return total
 
 
+# --- the C ABI (phase 3o) ---------------------------------------------------
+
+_V, _I, _S = "void_p", "int", "char_p"
+# name -> (restype, argtypes) of the C ABI functions called through ctypes,
+# as c_api.h declares them (ctypes type names)
+CAPI_SIGNATURES = {
+    "init_tengine": (_I, []),
+    "get_tengine_version": (_S, []),
+    "create_graph": (_V, [_V, _S, _S]),
+    "destroy_graph": (_I, [_V]),
+    "prerun_graph": (_I, [_V]),
+    "run_graph": (_I, [_V, _I]),
+    "get_graph_input_tensor": (_V, [_V, _I, _I]),
+    "get_graph_output_tensor": (_V, [_V, _I, _I]),
+    "get_graph_output_node_number": (_I, [_V]),
+    "get_graph_node": (_V, [_V, _S]),
+    "get_tensor_shape": (_I, [_V, "int*", _I]),
+    "set_tensor_shape": (_I, [_V, "int*", _I]),
+    "get_tensor_buffer_size": (_I, [_V]),
+    "get_tensor_buffer": (_V, [_V]),
+    "set_tensor_buffer": (_I, [_V, _V, _I]),
+    "set_tensor_quant_param": (_I, [_V, "float*", "int*", _I]),
+    "create_context": (_V, [_S, _I]),
+    "set_context_device": (_I, [_V, _S, _V, "size_t"]),
+    "create_graph_node": (_V, [_V, _S, _S]),
+    "create_graph_tensor": (_V, [_V, _S, _I]),
+    "set_node_input_tensor": (_I, [_V, _I, _V]),
+    "set_node_output_tensor": (_I, [_V, _I, _V, _I]),
+    "set_node_attr_int": (_I, [_V, _S, "int*"]),
+    "set_graph_input_node": (_I, [_V, "char_p*", _I]),
+    "set_graph_output_node": (_I, [_V, "char_p*", _I]),
+    "set_custom_kernel": (_I, [_V, _S, _V]),
+    "load_tengine_plugin": (_I, [_S, _S, _S]),
+    "unload_tengine_plugin": (_I, [_S, _S]),
+    "set_default_device": (_I, [_S]),
+    "set_graph_layout": (_I, [_V, _I]),
+}
+
+
+def capi_attach(path):
+    """A C ABI library (the port's or the JAX package's) loaded into this
+    process (attach mode: it shares this interpreter), its functions typed
+    by CAPI_SIGNATURES, init_tengine called."""
+    import ctypes
+
+    def ctype(name):
+        if name.endswith("*"):
+            return ctypes.POINTER(ctype(name[:-1]))
+        return getattr(ctypes, f"c_{name}")
+
+    lib = ctypes.CDLL(str(path))
+    for name, (restype, argtypes) in CAPI_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctype(restype), [ctype(a) for a in argtypes]
+    if lib.init_tengine() != 0:
+        raise AssertionError(f"init_tengine failed in {path}")
+    return lib
+
+
+def capi_output(lib, g, k=0) -> bytes:
+    """Output k of graph g, read through get_tensor_buffer."""
+    import ctypes
+
+    t = lib.get_graph_output_tensor(g, k, 0)
+    return ctypes.string_at(lib.get_tensor_buffer(t), lib.get_tensor_buffer_size(t))
+
+
+def capi_build_graph(lib, ctx, nodes, tensors):
+    """Build a graph through the C API's construction calls: tensors
+    {name: (TENGINE_DT code, shape, TENSOR_TYPE, data or None, (scale, zp)
+    or None)}, nodes [(name, op, inputs, outputs, {attr: int})]; the InputOp
+    nodes are the graph's inputs, the last node its output. Returns the
+    graph handle."""
+    import ctypes
+
+    g = lib.create_graph(ctx, None, None)
+    if not g:
+        raise AssertionError("create_graph(ctx, NULL, NULL) failed")
+    handles, types = {}, {}
+
+    def ok(rc, what):
+        if rc != 0:
+            raise AssertionError(f"{what} returned {rc}")
+
+    for name, (code, shape, ttype, _, quant) in tensors.items():
+        handles[name] = t = lib.create_graph_tensor(g, name.encode(), code)
+        types[name] = ttype
+        if shape:
+            ok(lib.set_tensor_shape(t, (ctypes.c_int * len(shape))(*shape), len(shape)),
+               f"set_tensor_shape {name}")
+        if quant is not None:
+            ok(lib.set_tensor_quant_param(t, (ctypes.c_float * 1)(quant[0]),
+                                          (ctypes.c_int * 1)(quant[1]), 1), f"quant {name}")
+    for name, op, ins, outs, attrs in nodes:
+        n = lib.create_graph_node(g, name.encode(), op.encode())
+        for i, t in enumerate(ins):
+            ok(lib.set_node_input_tensor(n, i, handles[t]), f"{name} input {i}")
+        for i, t in enumerate(outs):
+            ok(lib.set_node_output_tensor(n, i, handles[t], types[t]), f"{name} output {i}")
+        for k, v in attrs.items():
+            ok(lib.set_node_attr_int(n, k.encode(), ctypes.byref(ctypes.c_int(v))), f"{name}.{k}")
+    for fn, names in ((lib.set_graph_input_node, [n[0] for n in nodes if n[1] == "InputOp"]),
+                      (lib.set_graph_output_node, [nodes[-1][0]])):
+        ok(fn(g, (ctypes.c_char_p * len(names))(*[n.encode() for n in names]), len(names)),
+           "set_graph_input_node / set_graph_output_node")
+    for name, (_, _, _, data, _) in tensors.items():
+        if data is not None:
+            data = np.ascontiguousarray(data)
+            ok(lib.set_tensor_buffer(handles[name], data.ctypes.data, data.nbytes),
+               f"set_tensor_buffer {name}")
+    return g
+
+
+def build_c_example(shim: Path, out: Path, shared: bool) -> Path:
+    """tengine_tpu_torch/native/capi_example.c built with gcc against the C
+    ABI library `shim`: the embedding program, or (shared) a library that
+    gives example_double_ops(), the y = 2x custom kernel."""
+    src = Path(__file__).resolve().parent / "tengine_tpu_torch" / "native" / "capi_example.c"
+    cmd = ["gcc", "-O2", "-Wall", *(["-fPIC", "-shared"] if shared else []), str(src),
+           str(shim), f"-Wl,-rpath,{shim.parent}", "-o", str(out)]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise AssertionError(f"gcc failed on capi_example.c:\n{r.stdout}{r.stderr}")
+    return out
+
+
+def ck_graph_spec(rng, shape=CK_SHAPE):
+    """conv 3x3 -> the C custom kernel (a ReLu node named "double", y = 2x)
+    -> conv 3x3, fp32, channels kept: capi_build_graph's nodes and tensors,
+    weights from rng."""
+    n, c, h, w = shape
+    conv = dict(kernel_h=3, kernel_w=3, stride_h=1, stride_w=1, dilation_h=1, dilation_w=1,
+                pad_h0=1, pad_h1=1, pad_w0=1, pad_w1=1, group=1, input_channel=c,
+                output_channel=c, activation=-1)
+    tensors = {"x": (0, list(shape), 3, None, None)}
+    nodes = [("input", "InputOp", [], ["x"], {})]
+    src = "x"
+    for i in (1, 2):
+        wt = (rng.standard_normal((c, c, 3, 3)) / np.sqrt(9 * c)).astype(np.float32)
+        bt = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        tensors |= {f"w{i}": (0, [c, c, 3, 3], 2, wt, None), f"b{i}": (0, [c], 2, bt, None),
+                    f"y{i}": (0, [], 1, None, None)}
+        nodes += [(f"w{i}", "Const", [], [f"w{i}"], {}), (f"b{i}", "Const", [], [f"b{i}"], {}),
+                  (f"conv{i}", "Convolution", [src, f"w{i}", f"b{i}"], [f"y{i}"], conv)]
+        if i == 1:
+            tensors["d"] = (0, [], 1, None, None)
+            nodes.append(("double", "ReLu", ["y1"], ["d"], {}))
+            src = "d"
+    return nodes, tensors
+
+
+def run_ck_graph(lib, ctx, ops, spec, xs):
+    """Build the custom-kernel graph through the C API on ctx (None: no
+    device request), set the kernel ops on its "double" node, prerun once
+    and run it on each input in turn. Returns the graph and the outputs."""
+    g = capi_build_graph(lib, ctx, *spec)
+    if lib.set_custom_kernel(lib.get_graph_node(g, b"double"), b"CUDA", ops) != 0:
+        raise AssertionError("set_custom_kernel failed")
+    t_in = lib.get_graph_input_tensor(g, 0, 0)
+    if lib.prerun_graph(g) != 0:
+        raise AssertionError("prerun_graph of the custom-kernel graph failed")
+    outs = []
+    for x in xs:
+        if lib.set_tensor_buffer(t_in, x.ctypes.data, x.nbytes) != 0 or lib.run_graph(g, 1) != 0:
+            raise AssertionError("run_graph of the custom-kernel graph failed")
+        outs.append(np.frombuffer(capi_output(lib, g), np.float32).copy())
+    return g, outs
+
+
+def run_capi(torch, tt, native, counters, qg5, xq5):
+    """Phase 3o: the C ABI on the card. Phase 3a's yolov5s-640 INT8 graph,
+    written with the port's TM2 writer to a temporary tmfile, under default
+    Options:
+      embed   where this python has a shared libpython: capi_example.c,
+              built with gcc against the port's C ABI library, starts the
+              interpreter (PYTHONPATH: the checkout and this python's
+              site-packages) and, with no device request, runs on the card
+              CAPI_B1_RUNS images at batch 1 and CAPI_BATCHED_RUNS batches of
+              CAPI_BATCH, printing each run_graph call's host ms; every head
+              of every run equal at 0 LSB to this process's CompiledGraph of
+              the same file on the same input. Without a shared libpython the
+              phase says so and runs attach mode alone.
+      attach  the same file through ctypes.CDLL of the library in this
+              process, the same runs: heads equal to the CompiledGraph's at 0
+              LSB, the launch counts (set to 0 before, read after) exactly
+              stem_qconv's WRAPPER_RUNS a captured batch size, and every
+              stem_qconv launch of one eager forward of the C path's
+              CompiledGraph at batch CAPI_BATCH equal to stem_qconv_plain at
+              0 LSB (check_path_kernels).
+    Then the conv -> C custom kernel -> conv graph (ck_graph_spec), built
+    through the construction calls with example_double_ops() from
+    capi_example.c built as a library: with no device request on the card,
+    captured, run on two inputs; with a "CPU" context on the CPU on the same
+    two. Each card output within 1e-4 of the CPU's largest |value| (the two
+    devices sum each conv's 288 products in other orders, TF32 off); the
+    host node launched WRAPPER_RUNS times (the warm-up forward and the
+    capture), its run() called once in the warm-up and once a replay; the
+    C path's CompiledGraph holds one captured CUDA graph. Prints run_graph's
+    ms beside CompiledGraph.__call__'s captured ms at each batch. Returns
+    the launches by kernel."""
+    import ctypes
+    import site
+
+    from tengine_tpu_torch import capi_bridge
+    from tengine_tpu_torch.ops.cuda.host_node import custom_kernel, staging
+
+    t1 = time.time()
+    repo = Path(__file__).resolve().parent
+    libpython = native.shared_libpython()
+    shim = native.build_capi()
+    log(f"phase 3o: C ABI {shim.name}; shared libpython: "
+        + (str(libpython) if libpython else "none, so a C program cannot start this python: "
+           "embed mode cannot run here, attach mode only"))
+    batches = {1: [xq5[i : i + 1] for i in range(CAPI_B1_RUNS)],
+               CAPI_BATCH: [xq5[:CAPI_BATCH]] * CAPI_BATCHED_RUNS}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tmfile = tmp / "yolov5s-640-int8.tmfile"
+        tt.save_tmfile(qg5, str(tmfile))
+        images = tmp / "images.bin"
+        np.ascontiguousarray(xq5[:CAPI_BATCH]).tofile(images)
+
+        run_ms = {}
+        if libpython is not None:
+            exe = build_c_example(shim, tmp / "capi_example", shared=False)
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(repo), *site.getsitepackages()]))
+            torch.cuda.empty_cache()
+            t2 = time.time()
+            r = subprocess.run(
+                [str(exe), str(tmfile), str(images), str(CAPI_B1_RUNS), str(CAPI_BATCH),
+                 str(CAPI_BATCHED_RUNS), str(tmp / "heads")],
+                capture_output=True, text=True, env=env, timeout=300)
+            if r.returncode != 0 or "capi_example ok" not in r.stdout:
+                raise AssertionError(f"capi_example exited {r.returncode}:\n{r.stdout}\n"
+                                     f"{r.stderr[-4000:]}")
+            for b in batches:
+                run_ms[b] = [float(line.rsplit(" ", 2)[1]) for line in r.stdout.splitlines()
+                             if line.startswith(f"run_graph b{b} #")]
+            log(f"  3o embed: {r.stdout.splitlines()[0]}; run_graph host ms {run_ms} "
+                f"(the first at each batch: warm-up + capture) [{time.time() - t2:.1f} s]")
+
+        # this process's CompiledGraph of the same file: the reference, and
+        # the captured ms at each batch
+        cg = tt.compile_graph(tt.load_tmfile(str(tmfile)), tt.Options.from_env())
+        ref, captured_ms = {}, {}
+        for b, xs in batches.items():
+            ref[b] = [cg(torch.from_numpy(x).cuda()) for x in xs]
+            x_dev = torch.from_numpy(xs[0]).cuda()
+            captured_ms[b] = float(np.median([timed_ms(torch, lambda: cg(x_dev)) for _ in range(3)]))
+        del cg
+
+        def check_heads_equal(what, got, want):
+            for k, (a, w) in enumerate(zip(got, want, strict=True)):
+                a = torch.from_numpy(np.frombuffer(a, w.cpu().numpy().dtype)
+                                     .reshape(tuple(w.shape)).copy())
+                if not torch.equal(a, w.cpu()):
+                    d = int((a.int() - w.cpu().int()).abs().max())
+                    raise AssertionError(f"3o {what} head {k}: {d} LSB from the CompiledGraph")
+
+        if libpython is not None:
+            for b, xs in batches.items():
+                for i in range(len(xs)):
+                    heads = [(tmp / f"heads_b{b}_r{i}_{k}.bin").read_bytes()
+                             for k in range(len(ref[b][i]))]
+                    check_heads_equal(f"embed b{b} run {i}", heads, ref[b][i])
+
+        lib = capi_attach(shim)
+        for c in counters.values():
+            c.launches = 0
+        g = lib.create_graph(None, b"tengine", str(tmfile).encode())
+        t_in = lib.get_graph_input_tensor(g, 0, 0)
+        n_out = lib.get_graph_output_node_number(g)
+        attach_ms = {}
+        for b, xs in batches.items():
+            dims = (ctypes.c_int * 4)(b, *xs[0].shape[1:])
+            if lib.set_tensor_shape(t_in, dims, 4) != 0 or lib.prerun_graph(g) != 0:
+                raise AssertionError(f"3o attach: prerun_graph at batch {b} failed")
+            attach_ms[b] = []
+            for i, x in enumerate(xs):
+                x = np.ascontiguousarray(x)
+                t2 = time.perf_counter()
+                if lib.set_tensor_buffer(t_in, x.ctypes.data, x.nbytes) != 0 or lib.run_graph(g, 1):
+                    raise AssertionError(f"3o attach: run {i} at batch {b} failed")
+                attach_ms[b].append(round((time.perf_counter() - t2) * 1e3, 3))
+                check_heads_equal(f"attach b{b} run {i}", [capi_output(lib, g, k)
+                                                           for k in range(n_out)], ref[b][i])
+        launches = {name: c.launches for name, c in counters.items()}
+        want = dict.fromkeys(counters, 0) | {"stem_qconv": WRAPPER_RUNS * len(batches)}
+        if launches != want:
+            raise AssertionError(f"3o attach: launches {launches}, expected {want}")
+        seen = check_path_kernels(torch, capi_bridge._graphs[g]._compiled,
+                                  torch.from_numpy(batches[CAPI_BATCH][0]).cuda(),
+                                  f"3o C path b{CAPI_BATCH}", {"stem_qconv": 1})
+        if seen["stem_qconv"][1] != 0:
+            raise AssertionError("3o: stem_qconv differs from stem_qconv_plain on the C path")
+        lib.destroy_graph(g)
+        log(f"  3o attach: run_graph host ms {attach_ms}, heads = the CompiledGraph's at 0 LSB, "
+            f"launches {launches}")
+        log(f"phase 3o: yolov5s-640 int8 through the C ABI, run_graph host ms "
+            f"({'embed' if run_ms else 'attach'}): "
+            + ", ".join(f"b{b} {v}" for b, v in (run_ms or attach_ms).items())
+            + "; CompiledGraph.__call__ captured ms (CUDA events): "
+            + ", ".join(f"b{b} {v:.3f}" for b, v in captured_ms.items())
+            + f" [{gpu_name_and_power_limit()}]")
+
+        # a graph built from C with a C custom kernel, captured on the card
+        example = ctypes.CDLL(str(build_c_example(shim, tmp / "libcapi_example.so", shared=True)))
+        example.example_double_ops.restype = ctypes.c_void_p
+        ops = example.example_double_ops()
+        rng = np.random.default_rng(7)
+        spec = ck_graph_spec(rng)
+        xs = [rng.standard_normal(CK_SHAPE).astype(np.float32) for _ in range(2)]
+        custom_kernel.launches = 0
+        g_card, card = run_ck_graph(lib, None, ops, spec, xs)
+        host_launches = custom_kernel.launches
+        ctx = lib.create_context(b"cpu", 1)
+        if lib.set_context_device(ctx, b"CPU", None, 0) != 0:
+            raise AssertionError("set_context_device(ctx, \"CPU\") failed")
+        g_cpu, cpu = run_ck_graph(lib, ctx, ops, spec, xs)
+        errs = [float(np.abs(a - b).max()) for a, b in zip(card, cpu)]
+        scale = max(float(np.abs(b).max()) for b in cpu)
+        graph = capi_bridge._graphs[g_card]
+        key = next(n.params["_custom_kernel"] for n in graph.ir.nodes if n.name == "double")
+        (st,) = staging(key)
+        sigs = list(graph._compiled._graphs)
+        log(f"  3o custom kernel: conv -> C run() -> conv {CK_SHAPE} fp32 on the card, two "
+            f"inputs: max |card - CPU| {errs} of a scale {scale:.4f}; host node launches "
+            f"{host_launches}, run() calls {st.node.calls} (1 warm-up + 1 a replay), rc "
+            f"{st.node.rc}; the CompiledGraph holds {len(sigs)} captured CUDA graph(s), "
+            f"signature {sigs}")
+        if (max(errs) > 1e-4 * scale or host_launches != WRAPPER_RUNS or st.node.rc != 0
+                or st.node.calls != 1 + len(xs) or len(sigs) != 1
+                or np.array_equal(card[0], card[1])):
+            raise AssertionError("3o: the custom kernel's host node did not run as it should")
+        for h in (g_card, g_cpu):
+            lib.destroy_graph(h)
+    log(f"phase 3o: the C ABI [{time.time() - t1:.1f} s]")
+    return launches
+
+
 def main(argv) -> int:
     import torch
 
@@ -3892,6 +4257,7 @@ def main(argv) -> int:
     if launches != want:
         raise AssertionError(f"yolov5s launches {launches}, expected {want}")
     entries["stem_qconv"]["launches"] = launches["stem_qconv"]
+    check_path_kernels(torch, cg5, x5, f"yolov5s-{img} int8 b{batch}", {"stem_qconv": 1})
     cg5 = keep(cg5)
     log(f"phase 3 main path: yolov5s-{img} int8 batch {batch} [{time.time() - t0:.1f} s]")
 
@@ -4124,6 +4490,14 @@ def main(argv) -> int:
     for name, n in run_frontends(torch, tt, qmath, ir, counters, default, profile).items():
         entries[name]["launches"] += n
     log(f"  frontends in all: {time.time() - t0:.1f} s")
+
+    # 3o. main path: phase 3a's graph through the C ABI, from a C program
+    # that embeds the port and through ctypes here; a C custom kernel as a
+    # host node of the captured forward
+    t0 = time.time()
+    for name, n in run_capi(torch, tt, native, counters, qg5, xq5).items():
+        entries[name]["launches"] += n
+    log(f"  C ABI in all: {time.time() - t0:.1f} s")
 
     # 4. correctness: fp32 engine on the card, and the port's CPU run
     t0 = time.time()

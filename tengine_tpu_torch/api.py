@@ -103,7 +103,12 @@ class Tensor:
 
     @property
     def shape(self) -> List[int]:
-        return list(self._ir.shape)
+        """An output's shape is that of its last run's value: compile_graph
+        may rewrite a clone of the graph (the quantized passes), whose
+        inferred shapes this graph's IR never sees, so after a batch change
+        the IR's would be stale."""
+        out = self._graph._outputs_cache.get(self._idx)
+        return list(out.shape) if out is not None else list(self._ir.shape)
 
     @shape.setter
     def shape(self, dims: Sequence[int]):

@@ -1,5 +1,5 @@
-"""Native (C++) host-side components, built at first use (PyTorch port of
-tengine_tpu/native/__init__.py, without the C ABI shim).
+"""Native (C++) host-side components and the C ABI, built at first use
+(PyTorch port of tengine_tpu/native/__init__.py).
 
 The device path is torch and the port's CUDA kernels; the native layer
 covers the host-side hot paths the reference also keeps native: image
@@ -13,6 +13,10 @@ kernels' libraries): an edited source rebuilds, an unchanged one is reused.
 Every function has a numpy branch, the plain version, so that the package
 works without a toolchain; taking it logs a warning. chip_smoke.py requires
 the native library on the card's machine.
+
+build_capi builds the C ABI (c_api_shim.c, Tengine's c_api.h over
+capi_bridge.py) with gcc into the same directory: the library a C program
+links to embed the port.
 """
 
 from __future__ import annotations
@@ -317,3 +321,61 @@ def tm2_scan_buffers(data: bytes) -> Optional[np.ndarray]:
     if n < 0:
         raise ValueError("native tm2 scan: malformed tmfile")
     return table[:n]
+
+
+CAPI_SOURCE = NATIVE_DIR / "c_api_shim.c"
+_CAPI_LOCK = threading.Lock()
+
+
+def shared_libpython() -> Optional[Path]:
+    """The running interpreter's shared libpython, or None where it has none
+    (a statically linked python: the C ABI then works in attach mode only,
+    loaded into a Python process, whose executable provides the symbols)."""
+    import sysconfig
+
+    if not sysconfig.get_config_var("Py_ENABLE_SHARED"):
+        return None
+    lib = Path(sysconfig.get_config_var("LIBDIR") or "/") / (
+        sysconfig.get_config_var("LDLIBRARY") or "")
+    return lib if lib.is_file() else None
+
+
+def capi_flags() -> list:
+    """gcc's flags for the C ABI: linked with the shared libpython where
+    this python has one (embed mode: a C program links the library and it
+    starts the interpreter), without it otherwise (attach mode only)."""
+    import sysconfig
+
+    flags = ["-O2", "-fPIC", "-shared", f"-I{sysconfig.get_paths()['include']}"]
+    lib = shared_libpython()
+    if lib is not None:
+        flags += [str(lib), f"-Wl,-rpath,{lib.parent}"]
+    return flags
+
+
+def capi_library_path() -> Path:
+    """Where the C ABI goes: named by a digest of the shim's source and the
+    flags."""
+    h = hashlib.sha1(CAPI_SOURCE.read_bytes())
+    h.update(" ".join(capi_flags()).encode())
+    return BUILD_DIR / f"libtengine_tpu_torch_capi-{h.hexdigest()[:12]}.so"
+
+
+def build_capi() -> Path:
+    """Build libtengine_tpu_torch_capi-<digest>.so, the C ABI embedding
+    surface (c_api_shim.c, a drop-in subset of the reference's c_api.h), and
+    return its path. The library is written to a temporary file and
+    renamed, so that concurrent builds race safely. Raises with the
+    compiler's output if gcc fails."""
+    with _CAPI_LOCK:
+        path = capi_library_path()
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            r = subprocess.run(["gcc", str(CAPI_SOURCE), *capi_flags(), "-o", str(tmp)],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"build_capi: gcc failed (exit {r.returncode}):\n"
+                                   f"{r.stdout}{r.stderr}")
+            os.replace(tmp, path)
+        return path

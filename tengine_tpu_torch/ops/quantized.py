@@ -436,7 +436,13 @@ def _pallas_dw_ok(ctx: LowerCtx) -> bool:
     batch = ctx.options.batch_size or (int(t_in.shape[0]) if t_in.shape else 1)
     if batch < 32:
         return False
-    k, s_ = p["kernel_h"], p["stride_h"]
+    # a conv built through the C API carries only the attrs its embedder set
+    # (capi_bridge.set_node_attr): without a kernel size or a stride the
+    # candidate declines, and an absent dilation is Tengine's default, 1. The
+    # JAX gate indexes all of them and raises KeyError (ROADMAP §3).
+    k, s_ = p.get("kernel_h"), p.get("stride_h")
+    if k is None or s_ is None or p.get("kernel_w") is None or p.get("stride_w") is None:
+        return False
     pads = [p.get(f"pad_{a}", -1) for a in ("h0", "h1", "w0", "w1")]
     # TF-SAME pads (all -1: the TF and TFLite imports') resolve at run time
     # (_conv_pads) to pads inside the kernel's envelope at every input size
@@ -452,11 +458,11 @@ def _pallas_dw_ok(ctx: LowerCtx) -> bool:
     return (
         pad_ok
         and p.get("activation", -1) != ACT_SILU
-        and p["kernel_h"] == p["kernel_w"]
+        and k == p["kernel_w"]
         and k in (3, 5)
-        and p["dilation_h"] == 1
-        and p["dilation_w"] == 1
-        and p["stride_h"] == p["stride_w"]
+        and p.get("dilation_h", 1) == 1
+        and p.get("dilation_w", 1) == 1
+        and s_ == p["stride_w"]
         and s_ in (1, 2)
         and _int_stored(ctx, t_in)
         and _int_stored(ctx, t_out)

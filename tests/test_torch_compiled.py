@@ -425,3 +425,46 @@ def test_cost_analysis_counts_launches_on_card(monkeypatch):
     cpu = compiled("yolov3-A", monkeypatch, "cpu")[0].cost_analysis()
     assert ca["launches"] > 69 and cpu["launches"] is None
     assert ca["flops"] == cpu["flops"] > 0
+
+
+@pytest.mark.cuda
+def test_c_custom_kernel_runs_as_a_host_node_of_the_captured_forward(tmp_path):
+    """A conv -> C custom kernel (y = 2x) -> conv graph built through the C
+    API (chip_smoke.py:ck_graph_spec, 1x8x16x16 fp32), on the card with no
+    device request, run on three inputs: captured once (the host node
+    launched by the warm-up forward and the capture), its run() called by
+    the warm-up and by each replay, each output within 1e-4 of the CPU
+    run's scale (the devices sum each conv in other orders, TF32 off)."""
+    import ctypes
+    import shutil
+
+    from chip_smoke import build_c_example, capi_attach, ck_graph_spec, run_ck_graph
+    from tengine_tpu_torch import capi_bridge, native
+    from tengine_tpu_torch.ops.cuda.host_node import custom_kernel, staging
+
+    _need_card()
+    if shutil.which("gcc") is None:
+        pytest.skip("needs gcc to build the C ABI and the custom kernel")
+    shim = native.build_capi()
+    lib = capi_attach(shim)
+    example = ctypes.CDLL(str(build_c_example(shim, tmp_path / "libcapi_example.so",
+                                              shared=True)))
+    example.example_double_ops.restype = ctypes.c_void_p
+    ops = example.example_double_ops()
+    rng = np.random.default_rng(7)
+    shape = (1, 8, 16, 16)
+    spec = ck_graph_spec(rng, shape=shape)
+    xs = [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+    custom_kernel.launches = 0
+    g, card = run_ck_graph(lib, None, ops, spec, xs)
+    graph = capi_bridge._graphs[g]
+    assert len(graph._compiled._graphs) == 1
+    key = next(n.params["_custom_kernel"] for n in graph.ir.nodes if n.name == "double")
+    (st,) = staging(key)
+    assert custom_kernel.launches == 2 and st.node.calls == 1 + len(xs) and st.node.rc == 0
+    ctx = lib.create_context(b"cpu", 1)
+    assert lib.set_context_device(ctx, b"CPU", None, 0) == 0
+    _, cpu = run_ck_graph(lib, ctx, ops, spec, xs)
+    for a, b in zip(card, cpu, strict=True):
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+    assert not np.array_equal(card[0], card[1])

@@ -43,7 +43,8 @@ def test_port_imports_no_jax():
             "tengine_tpu_torch.utils.data", "tengine_tpu_torch.utils.pipeline",
             "tengine_tpu_torch.parallel.serving", "tengine_tpu_torch.models.detect_zoo",
             "tengine_tpu_torch.models.detect_zoo2", "tengine_tpu_torch.models.detect_zoo3",
-            "tengine_tpu_torch.models.zoo"} | set(FRONTEND_MODULES) <= set(mods)
+            "tengine_tpu_torch.models.zoo", "tengine_tpu_torch.capi_bridge",
+            "tengine_tpu_torch.ops.cuda.host_node"} | set(FRONTEND_MODULES) <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -101,6 +102,39 @@ def test_frontends_import_and_parse_with_those_packages_blocked():
         capture_output=True, text=True, timeout=300,
     )
     assert r.returncode == 0 and "parsed" in r.stdout, r.stderr
+
+
+def test_c_abi_builds_and_attaches_with_jax_blocked():
+    """The C ABI with jax and the JAX package blocked (sys.modules entries set
+    to None) in a fresh interpreter: capi_bridge and host_node import,
+    native.build_capi builds the library with gcc, and, loaded into the
+    process, its init_tengine imports tengine_tpu_torch.capi_bridge and
+    set_default_device takes "CPU"."""
+    import shutil
+
+    if shutil.which("gcc") is None:
+        pytest.skip("needs gcc")
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'tengine_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import tengine_tpu_torch.capi_bridge, tengine_tpu_torch.ops.cuda.host_node\n"
+        "from tengine_tpu_torch import native\n"
+        "import chip_smoke\n"
+        "lib = chip_smoke.capi_attach(native.build_capi())\n"
+        "assert lib.set_default_device(b'CPU') == 0\n"
+        "assert lib.get_tengine_version() == tengine_tpu_torch.__version__.encode()\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'tengine_tpu')\n"
+        "             and sys.modules[k] is not None)\n"
+        "assert not bad, bad\n"
+        "print('attached')\n"
+    )
+    env = {"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"}
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0 and "attached" in r.stdout, r.stderr
 
 
 def _tiny_float_graph():
