@@ -240,11 +240,26 @@ Phases, in order; any failure raises and the exit code is not 0:
                conv graph built through the construction calls, captured
                with the kernel's run() as a host node, on two inputs
                against the CPU.
+               Then the mesh (phase 3p, run_mesh), in child processes of
+               this script (no process group outlives the phase here), the
+               graphs passed as tmfile bytes: (a) one rank on NCCL, mesh
+               (1, 1): tier L's graph at b128 through shard_compiled,
+               captured, its launches and logits equal to the unsharded
+               CompiledGraph's and tier L's; phase 3k's requests behind
+               InferenceServer(mesh=global_mesh(tp=1)), every answer equal
+               to 3k's; (b) two ranks on the card on gloo (NCCL takes one
+               rank a card): tier L's graph at b32 on mesh (1, 2), its
+               pointwise convs and FC on channel slices, and (2, 1), 16 rows
+               a rank, eager, both equal to the unsharded forward; phase
+               3k's frames through the multi-host loop, two hosts of one
+               rank, each answer equal to 3k's, an idle second that
+               dispatches nothing.
                Every launch of qgemm_requant (yolov3 B, ResNet-50 H,
                VIT-T), qconv1x1, qconv_direct, dw_qconv and stem_qconv
-               (yolov5s in 3a and on the C path in 3o) in one eager
-               forward of a tier that launches one is held against its
-               plain version (check_path_kernels).
+               (yolov5s in 3a, on the C path in 3o and in 3p(b)'s
+               multi-host loop; dw_qconv in both of 3p(b)'s meshes) in one
+               eager forward of a tier that launches one is held against
+               its plain version (check_path_kernels).
                Every kernel's launch count is set to 0 just before each
                tier's captured run and read just after it; the counts must be
                exact: a wrapper launches its kernel in the warm-up forward
@@ -3484,7 +3499,8 @@ def run_server(torch, tt, qmath, native, counters, qg):
     CompiledGraph; each answer decoded, native.nms = the numpy NMS. Prints
     the server's latency percentiles over the timed requests, requests/s
     and each bucket's param bytes of its own. Returns the launches by
-    kernel."""
+    kernel, the timed requests' quantized frames and their answers (phase
+    3p serves them again on a mesh)."""
     from tengine_tpu_torch.parallel.serving import InferenceServer
 
     t0 = time.time()
@@ -3565,7 +3581,7 @@ def run_server(torch, tt, qmath, native, counters, qg):
         f"by bucket (compile order) {own}; every answer = batch 1 at 0 LSB; decoded "
         f"{found} boxes (top {SERVER_TOPK} a request), {kept} after NMS, native = numpy NMS "
         f"[{gpu_name_and_power_limit()}] [{time.time() - t0:.1f} s]")
-    return launches
+    return launches, xs, answers
 
 
 def find_faces(qmath, heads, outs, det_hw):
@@ -4189,6 +4205,358 @@ def run_capi(torch, tt, native, counters, qg5, xq5):
     return launches
 
 
+# phase 3p: the mesh (parallel/mesh.py, sharding.py, distributed.py, the
+# server's mesh half), run in child processes of this script so that no
+# process group outlives the phase in this one; the graphs pass to them as
+# tmfile bytes (the port's TM2 writer), phase 3k's frames and answers as
+# arrays. (a) one rank on NCCL, mesh (1, 1): tier L's mobilenet-v1-224 UINT8
+# b128 through shard_compiled, captured, against the unsharded CompiledGraph
+# and tier L's logits; phase 3a's yolov5s-640 INT8 graph behind
+# InferenceServer(mesh=global_mesh(tp=1)) under phase 3k's settings, its
+# answers against 3k's. (b) two ranks on the one card on gloo, the backend
+# named (NCCL takes one rank a card): mobilenet-v1-224 UINT8 b32 under tier
+# L's Options at mesh (1, 2) (TP: the pointwise convs' float64 weights and
+# the FC sliced, dw_qconv replicated) and (2, 1) (DP: 16 rows a rank on the
+# b32 plan), eager, the gathers staged through host memory; phase 3k's
+# frames behind the multi-host loop, two hosts of one rank, each submitting
+# its own half in bursts of MESH_LOCAL_BATCH, then MESH_IDLE_S with no work
+MESH_B_BATCH = 32
+MESH_LOCAL_BATCH = 4
+MESH_IDLE_S = 1.0
+MESH_CHILD_TIMEOUT_S = 180
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(entry: str, world: int, args, tmp: Path, timeout_s: float, what: str) -> None:
+    """`entry(argv)` ("module.function" of a module beside this script) in
+    `world` processes, argv = [rank, world, port, *args], on a free port;
+    each one's output goes to a file in tmp and is printed here after,
+    prefixed with `what` and the rank. Fails unless every rank exits 0; at
+    the first failure, or after timeout_s, the rest are killed (a rank left
+    alone would wait in a collective for its peers)."""
+    module, fn = entry.split(".")
+    code = (f"import sys; sys.path.insert(0, sys.argv[1]); import {module}; "
+            f"sys.exit({module}.{fn}(sys.argv[2:]))")
+    port, deadline = free_port(), time.time() + timeout_s
+    logs = [tmp / f"log_{what}_{rank}.txt".replace(" ", "_") for rank in range(world)]
+    procs = []
+    try:
+        for rank, path in enumerate(logs):
+            with open(path, "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code, str(Path(__file__).resolve().parent), str(rank),
+                     str(world), str(port), *map(str, args)],
+                    stdout=out, stderr=subprocess.STDOUT))
+        while any(p.poll() is None for p in procs):
+            if time.time() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, path in enumerate(logs):
+        for line in path.read_text().splitlines():
+            log(f"  [{what} rank {rank}] {line}")
+    rcs = [p.returncode for p in procs]
+    if rcs != [0] * world:
+        raise AssertionError(f"{what}: the ranks exited {rcs} (negative: killed)")
+
+
+def run_mesh(torch, tt, counters, default, qg5, server_xs, server_answers) -> dict:
+    """Phase 3p: part (a) in one child process, then part (b) in two (see
+    MESH_B_BATCH above). A child's non-zero exit, or its timeout, fails the
+    phase. Each child's log is printed here, prefixed; the children's
+    wrapper launches of the mesh path are returned, by kernel."""
+    from tengine_tpu_torch.serializer.tm2.writer import graph_to_tm_bytes
+
+    _, outs_l, _, _, qg_l, xq_l, _ = default["L"]
+    launches = dict.fromkeys(counters, 0)
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        (tmp / "mobilenet.tmfile").write_bytes(graph_to_tm_bytes(qg_l))
+        np.save(tmp / "mobilenet_x.npy", xq_l)
+        np.save(tmp / "mobilenet_L.npy", outs_l[0].cpu().numpy())
+        (tmp / "yolov5s.tmfile").write_bytes(graph_to_tm_bytes(qg5))
+        np.save(tmp / "server_x.npy", np.stack(server_xs))
+        np.savez(tmp / "server_answers.npz",
+                 *[np.concatenate([a[i] for a in server_answers]) for i in range(len(server_answers[0]))])
+        for part, world in (("a", 1), ("b", 2)):
+            t0 = time.time()
+            run_ranks("chip_smoke.mesh_child", world, (d, part), tmp, MESH_CHILD_TIMEOUT_S,
+                      f"3p({part})")
+            for rank in range(world):
+                res = json.loads((tmp / f"result_{part}{rank}.json").read_text())
+                for name, n in res["launches"].items():
+                    launches[name] += n
+            log(f"phase 3 main path: mesh part ({part}), {world} rank(s), backend "
+                f"{'nccl' if part == 'a' else 'gloo'}: [{time.time() - t0:.1f} s]")
+    return launches
+
+
+def mesh_child(argv) -> int:
+    """One rank of phase 3p (run_ranks): `rank world port dir part`.
+    Initializes the process group (part a: NCCL on the card, the default;
+    part b: gloo, named, two hosts of one rank), runs its part, writes its
+    launches to dir/result_<part><rank>.json and destroys the group."""
+    rank, world, port, tmp, part = int(argv[0]), int(argv[1]), argv[2], Path(argv[3]), argv[4]
+    import torch
+
+    import tengine_tpu_torch as tt
+    from tengine_tpu_torch.ops.cuda.dw_conv import dw_qconv
+    from tengine_tpu_torch.ops.cuda.stem_conv import stem_qconv
+    from tengine_tpu_torch.parallel.distributed import init_distributed, shutdown_distributed
+
+    counters = {"dw_qconv": dw_qconv, "stem_qconv": stem_qconv}
+    t0 = time.time()
+    init_distributed(f"localhost:{port}", world, rank, backend=None if part == "a" else "gloo",
+                     ranks_per_host=1)
+    try:
+        launches = (mesh_part_a if part == "a" else mesh_part_b)(torch, tt, counters, rank, tmp)
+    finally:
+        shutdown_distributed()
+    log(f"part ({part}) rank {rank}: {time.time() - t0:.1f} s in the child [{gpu_name_and_power_limit()}]")
+    (tmp / f"result_{part}{rank}.json").write_text(json.dumps({"launches": launches}))
+    return 0
+
+
+def _mesh_inputs(tt, tmp):
+    """Phase 3p's graphs and data, as run_mesh wrote them."""
+    answers = np.load(tmp / "server_answers.npz")
+    return (tt.load_tm_bytes((tmp / "mobilenet.tmfile").read_bytes()),
+            np.load(tmp / "mobilenet_x.npy"), np.load(tmp / "mobilenet_L.npy"),
+            tt.load_tm_bytes((tmp / "yolov5s.tmfile").read_bytes()),
+            np.load(tmp / "server_x.npy"), [answers[k] for k in sorted(answers.files)])
+
+
+def _tier_l(tt, qg, batch):
+    """Tier L's CompiledGraph of qg at `batch`: 13 dw_qconv required."""
+    _, _, _, extra, gate, _, per_forward, _ = DEFAULT_TIERS["L"]
+    with dw_gate(gate):
+        cg = tt.compile_graph(qg, tt.Options(quant_mode="fast", batch_size=batch, **extra))
+    n_dw = list(cg.kernels.values()).count("lower_conv_quant_pallas_dw")
+    if n_dw != per_forward["dw_qconv"]:
+        raise AssertionError(f"mobilenet-v1 tier L at b{batch}: {n_dw} convs on dw_qconv")
+    return cg
+
+
+def _check_answers(what, got, xs_idx, answers) -> None:
+    for i, answer in zip(xs_idx, got):
+        for h, (a, want) in enumerate(zip(answer, answers, strict=True)):
+            if a.shape != (1, *want.shape[1:]) or a.dtype != want.dtype or not np.array_equal(a[0], want[i]):
+                raise AssertionError(f"{what}: request {i} head {h} differs from phase 3k's answer")
+
+
+def mesh_part_a(torch, tt, counters, rank, tmp) -> dict:
+    """Phase 3p(a), one rank on NCCL, mesh (1, 1)."""
+    from tengine_tpu_torch.parallel.distributed import global_mesh
+    from tengine_tpu_torch.parallel.serving import InferenceServer
+    from tengine_tpu_torch.parallel.sharding import ShardedGraph, shard_compiled
+
+    qg, xq, want, qg5, xs, answers = _mesh_inputs(tt, tmp)
+    mesh = global_mesh(tp=1)
+    t0 = time.time()
+    cg = _tier_l(tt, qg, DEFAULT_BATCH)
+    sharded = shard_compiled(cg, mesh)
+    x_dev = torch.from_numpy(xq).cuda()
+    what = f"mobilenet-v1-224 uint8 b{DEFAULT_BATCH} tier L"
+    outs_u, ms_u, launches_u, _ = drive(torch, cg, x_dev, counters, f"{what} unsharded")
+    outs_s, ms_s, launches_s, _ = drive(torch, sharded, x_dev, counters,
+                                        f"{what} shard_compiled on mesh (1, 1), nccl")
+    per_u, per_s = cg.cost_analysis()["launches"], sharded.cost_analysis()["launches"]
+    want_launches = {"dw_qconv": WRAPPER_RUNS * DEFAULT_TIERS["L"][6]["dw_qconv"], "stem_qconv": 0}
+    if launches_u != want_launches or launches_s != want_launches or per_u != per_s:
+        raise AssertionError(f"{what}: wrapper launches {launches_u} unsharded, {launches_s} "
+                             f"sharded; device launches a forward {per_u}, {per_s}")
+    if not (torch.equal(outs_s[0], outs_u[0]) and np.array_equal(outs_s[0].cpu().numpy(), want)):
+        raise AssertionError(f"{what}: the sharded logits differ from the unsharded ones or tier L's")
+    log(f"  {what}: sharded = unsharded = tier L at 0 LSB; captured ms/batch median "
+        f"{float(np.median(ms_s)):.3f} sharded, {float(np.median(ms_u)):.3f} unsharded, the same "
+        f"launches ({per_s} device launches a forward, wrapper launches {launches_s}) "
+        f"[{gpu_name_and_power_limit()}] [{time.time() - t0:.1f} s]")
+    launches = dict(launches_s)
+    del cg, sharded, outs_u, outs_s
+
+    t0 = time.time()
+    server = InferenceServer(qg5, tt.Options(quant_mode="fast"), mesh=mesh,
+                             max_batch=max(SERVER_BUCKETS), max_wait_ms=SERVER_WAIT_MS)
+    for c in counters.values():
+        c.launches = 0
+    server.start()
+    try:
+        for b in sorted(SERVER_BUCKETS, reverse=True):  # one untimed round a bucket
+            for f in [server.submit(x) for x in xs[:b]]:
+                f.result(timeout=600)
+        server._latencies.clear()
+        got, i = [], 0
+        t1 = time.perf_counter()
+        for _ in range(SERVER_ROUNDS):
+            for burst in SERVER_BURSTS:
+                futures = [server.submit(x) for x in xs[i:i + burst]]
+                got += [f.result(timeout=600) for f in futures]
+                i += burst
+        wall = time.perf_counter() - t1
+        latency = server.latency_stats()
+    finally:
+        server.stop()
+    served = {b: type(cg).__name__ for b, cg in server._compiled.items()}
+    stem = counters["stem_qconv"].launches
+    if (sorted(served) != sorted(SERVER_BUCKETS) or set(served.values()) != {ShardedGraph.__name__}
+            or stem != WRAPPER_RUNS * len(SERVER_BUCKETS)):
+        raise AssertionError(f"3p(a) server: buckets {served}, stem launches {stem}")
+    _check_answers("3p(a) server", got, range(len(got)), answers)
+    log(f"  yolov5s-640 int8 behind InferenceServer(mesh=global_mesh(tp=1)), nccl: {len(got)} "
+        f"timed requests, every answer = phase 3k's at 0 LSB, {len(got) / wall:.1f} requests/s; "
+        f"p50 {latency['p50_ms']:.3f} ms, p99 {latency['p99_ms']:.3f} ms; buckets {served}; stem "
+        f"launches {stem} [{gpu_name_and_power_limit()}] [{time.time() - t0:.1f} s]")
+    launches["stem_qconv"] += stem
+    return launches
+
+
+def mesh_part_b(torch, tt, counters, rank, tmp) -> dict:
+    """Phase 3p(b), one of two ranks on the card, gloo."""
+    from tengine_tpu_torch.parallel.distributed import global_mesh
+
+    qg, xq, _, qg5, xs, answers = _mesh_inputs(tt, tmp)
+    t0 = time.time()
+    cg = _tier_l(tt, qg, MESH_B_BATCH)
+    x_dev = torch.from_numpy(xq[:MESH_B_BATCH]).cuda()
+    (want,) = eager(torch, cg, x_dev)
+    eager_ms = [timed_ms(torch, lambda: eager(torch, cg, x_dev)) for _ in range(3)]
+    what = f"mobilenet-v1-224 uint8 b{MESH_B_BATCH} tier L"
+    log(f"  {what} unsharded, eager ms/batch {[round(m, 3) for m in eager_ms]} "
+        f"[{gpu_name_and_power_limit()}]")
+    launches = check_mesh_shapes(torch, cg, x_dev, want, ((1, 2), (2, 1)), counters,
+                                 DEFAULT_TIERS["L"][6], what, rank)
+    log(f"  {what} on two meshes: {time.time() - t0:.1f} s")
+    del cg
+
+    mine = list(range(rank, len(xs), 2))  # this host's own frames
+    launches["stem_qconv"] += serve_multihost(
+        torch, tt, qg5, global_mesh(tp=1), xs, mine, answers, counters,
+        f"yolov5s-640 int8 multi-host loop, host {rank} of 2, tp 1")
+    return launches
+
+
+def check_mesh_shapes(torch, cg, x, want, shapes, counters, per_forward, what, rank) -> dict:
+    """cg through shard_compiled at each (data, model) shape of `shapes`
+    (phase 3p(b); chip_mesh.py across cards): one call of the sharded
+    forward on the global batch x launches each kernel of per_forward its
+    count a forward (WRAPPER_RUNS forwards on NCCL, which captures: the
+    warm-up and the capture; one on gloo, eager, the gathers staged through
+    host memory) and equals `want` at 0 LSB; three timed calls; every kernel
+    launch of one eager forward of this rank's rows held to its plain
+    version. Returns the launches of the first calls, by kernel."""
+    import torch.distributed as dist
+
+    from tengine_tpu_torch.executor.engine import _meta_env
+    from tengine_tpu_torch.parallel.mesh import make_mesh
+    from tengine_tpu_torch.parallel.sharding import TP_GATHER, shard_compiled, sharded_nodes
+
+    backend = dist.get_backend()
+    runs = WRAPPER_RUNS if backend == "nccl" else 1
+    launches = dict.fromkeys(counters, 0)
+    for shape in shapes:
+        sharded = shard_compiled(cg, make_mesh(shape=shape))
+        for c in counters.values():
+            c.launches = 0
+        (got,) = sharded(x)  # the main path's call on this mesh
+        seen = {name: c.launches for name, c in counters.items()}
+        expect = {name: runs * per_forward.get(name, 0) for name in counters}
+        for name, n in seen.items():
+            launches[name] += n
+        if seen != expect or not torch.equal(got, want):
+            raise AssertionError(f"{what} mesh {shape} rank {rank}: launches {seen}, expected "
+                                 f"{expect}; {int((got.int() - want.int()).abs().max())} LSB")
+        ms = [timed_ms(torch, lambda: sharded(x)) for _ in range(3)]
+        rows = x.shape[0] // shape[0]
+        lo = sharded.data_rank * rows
+        check_path_kernels(torch, sharded, x[lo:lo + rows], f"{what} mesh {shape} rank {rank}",
+                           per_forward)
+        env, _ = _meta_env(sharded.graph, sharded.options, sharded.forward_fn.store,
+                           sharded.forward_fn.plan)
+        gathered = sum(  # the gathers' outputs at the global batch, on this data group
+            env[n.outputs[0]].numel() * env[n.outputs[0]].element_size()
+            for n in sharded.graph.nodes if n.op == TP_GATHER) // shape[0]
+        how = "captured" if runs > 1 else "eager, the gathers staged through host memory"
+        log(f"  {what} mesh {shape} rank {rank}, {backend} ({how}): "
+            f"{len(sharded_nodes(cg, shape[1]))} nodes on channel slices, sharded = unsharded "
+            f"at 0 LSB; ms/batch {[round(m, 3) for m in ms]}; the gathers' outputs {gathered} "
+            f"bytes a forward a rank [{gpu_name_and_power_limit()}]")
+        del sharded
+    return launches
+
+
+def serve_multihost(torch, tt, qg5, mesh, xs, mine, answers, counters, what) -> int:
+    """qg5 behind the multi-host loop on `mesh` (phase 3p(b); chip_mesh.py
+    across cards), a local bucket of MESH_LOCAL_BATCH rows: after one
+    untimed request, each host's queue holder submits this host's frames
+    xs[mine] in bursts of MESH_LOCAL_BATCH, and every answer equals
+    `answers` (a list by head, indexed by frame) at 0 LSB; then MESH_IDLE_S
+    with no request dispatches no batch and counts idle rounds. stem_qconv
+    launches once a batch on gloo (eager), WRAPPER_RUNS times on NCCL (the
+    bucket's capture); each launch of one eager forward of the bucket's
+    rank-local program is held to its plain version after. Returns the
+    loop's stem_qconv launches."""
+    import torch.distributed as dist
+
+    from tengine_tpu_torch.parallel.serving import InferenceServer
+
+    t0 = time.time()
+    # this function's barriers, on a gloo group of their own beside the
+    # loop's collectives (an NCCL barrier here could interleave its kernels
+    # with the loop's in another order on each card)
+    sync = dist.new_group(backend="gloo")
+    server = InferenceServer(qg5, tt.Options(quant_mode="fast"), mesh=mesh,
+                             max_batch=MESH_LOCAL_BATCH, max_wait_ms=SERVER_WAIT_MS)
+    leads = mesh.get_local_rank(1) == 0  # holds its TP group's queue
+    for c in counters.values():
+        c.launches = 0
+    server.start()
+    got = []
+    try:
+        # the loop compiles the global bucket as it starts, and the first
+        # forward sets up the card's libraries
+        if leads:
+            server.submit(xs[mine[0]]).result(timeout=600)
+        dist.barrier(group=sync)
+        server._latencies.clear()
+        if leads:
+            for i in range(0, len(mine), MESH_LOCAL_BATCH):
+                futures = [server.submit(xs[j]) for j in mine[i:i + MESH_LOCAL_BATCH]]
+                got += [f.result(timeout=600) for f in futures]
+        dist.barrier(group=sync)  # every host's work is done
+        time.sleep(MESH_IDLE_S / 4)  # the last round's bookkeeping ends on every rank
+        batches = server.stats["batches"]
+        time.sleep(MESH_IDLE_S)
+        stats, latency = dict(server.stats), server.latency_stats()
+    finally:
+        server.stop()
+    stem = counters["stem_qconv"].launches
+    want_stem = WRAPPER_RUNS if dist.get_backend() == "nccl" else batches
+    if stats["batches"] != batches or not stats.get("idle_rounds") or stem != want_stem:
+        raise AssertionError(f"{what}: stats {stats} ({batches} batches before the idle "
+                             f"second), stem launches {stem}, expected {want_stem}")
+    _check_answers(what, got, mine, answers)
+    (cg5,) = server._compiled.values()
+    local = np.concatenate([xs[j] for j in mine[:MESH_LOCAL_BATCH]])
+    check_path_kernels(torch, cg5, torch.from_numpy(local).to(cg5.device), what,
+                       {"stem_qconv": 1})
+    log(f"  {what}, {dist.get_backend()}: {len(got)} own requests, every answer = the "
+        f"unsharded one at 0 LSB; stats {stats}; latency {json.dumps(latency)}; stem launches "
+        f"{stem}; {MESH_IDLE_S} s idle: no batch, {stats['idle_rounds']} idle rounds "
+        f"[{gpu_name_and_power_limit()}] [{time.time() - t0:.1f} s]")
+    return stem
+
+
 def main(argv) -> int:
     import torch
 
@@ -4465,8 +4833,8 @@ def main(argv) -> int:
     # 3k. main path: phase 3a's yolov5s-640 INT8 graph behind the
     # continuous-batching server, buckets 1, 2, 4 and 8
     t0 = time.time()
-    entries["stem_qconv"]["launches"] += run_server(torch, tt, qmath, native, counters,
-                                                    qg5)["stem_qconv"]
+    launches, server_xs, server_answers = run_server(torch, tt, qmath, native, counters, qg5)
+    entries["stem_qconv"]["launches"] += launches["stem_qconv"]
     log(f"  server in all: {time.time() - t0:.1f} s")
 
     # 3l. main path: the face pipeline (FACE-T) on Pipeline, a thread a stage
@@ -4498,6 +4866,16 @@ def main(argv) -> int:
     for name, n in run_capi(torch, tt, native, counters, qg5, xq5).items():
         entries[name]["launches"] += n
     log(f"  C ABI in all: {time.time() - t0:.1f} s")
+
+    # 3p. main path on a mesh, in child processes: one rank on NCCL (tier L's
+    # mobilenet-v1 captured through shard_compiled, phase 3k's requests behind
+    # InferenceServer(mesh=...)), then two ranks on gloo (TP and DP of
+    # mobilenet-v1 b32, phase 3k's frames through the multi-host loop)
+    t0 = time.time()
+    for name, n in run_mesh(torch, tt, counters, default, qg5, server_xs,
+                            server_answers).items():
+        entries[name]["launches"] += n
+    log(f"  mesh in all: {time.time() - t0:.1f} s")
 
     # 4. correctness: fp32 engine on the card, and the port's CPU run
     t0 = time.time()

@@ -234,7 +234,7 @@ class CompiledGraph:
               for x in inputs]
         with self._lock:
             fn, params = self._for_size(xs)
-        if self.device.type != "cuda" or self.options.debug_nans:
+        if not self._captures():
             with torch.inference_mode():
                 return fn(params, *(x.to(self.device) for x in xs))
         sig = tuple((tuple(x.shape), x.dtype) for x in xs)
@@ -254,6 +254,10 @@ class CompiledGraph:
             self._done = torch.cuda.Event()
             self._done.record(stream)
             return outs
+
+    def _captures(self) -> bool:
+        """Whether __call__ runs the forward as a CUDA graph."""
+        return self.device.type == "cuda" and not self.options.debug_nans
 
     def _for_size(self, xs: List[torch.Tensor]) -> Tuple[Callable, Dict[str, torch.Tensor]]:
         """The forward and params for the inputs' sizes past the batch
@@ -343,7 +347,7 @@ class CompiledGraph:
                           unless a capture has run one); None on the CPU.
         """
         if self._cost is None:
-            env, param_bytes = _meta_env(self.graph, self.options, self._fn.store)
+            env, param_bytes = _meta_env(self.graph, self.options, self._fn.store, self._fn.plan)
             flops = moved = 0
             for node in self.graph.nodes:
                 if not node.outputs or node.outputs[0] not in env:
@@ -412,14 +416,17 @@ def _node_flops(graph: Graph, node, env: Dict[int, torch.Tensor]) -> int:
     return 0
 
 
-def _meta_env(graph: Graph, options: Options, store: "ParamStore"):
+def _meta_env(graph: Graph, options: Options, store: "ParamStore",
+              plan: Optional[List["_Step"]] = None):
     """Every tensor of the forward at the compiled input shapes, as meta
     tensors in semantic layout and the dtypes the forward stores, and the
     bytes of the compile-time params: one meta pass over the compiled
-    graph, the params read from `store` (none is computed again)."""
+    graph with the kernels of `plan` (the forward's), the params read from
+    `store` (none is computed again)."""
     meta = ParamStore()
     meta.values = store.values
-    return meta_pass(graph, options, meta), sum(v.nbytes for v in store.values.values())
+    return (meta_pass(graph, options, meta, plan=plan),
+            sum(v.nbytes for v in store.values.values()))
 
 
 def _input_spec(graph: Graph, options: Options) -> List[Tuple[int, Tuple[int, ...], torch.dtype]]:

@@ -138,7 +138,7 @@ def lower_conv(ctx: LowerCtx, x: TArr, *rest: TArr):
     pads = _conv_pads(in_h, in_w, p, kh_eff, kw_eff)
 
     dt = compute_dtype(ctx)
-    w = ctx.weight(1)
+    w = ctx.weight(1, tag="oihw")  # the tag parallel/sharding.py's rule reads
     out = conv2d_nhwc(
         xn.to(dt), w.to(dt), pads, (p["stride_h"], p["stride_w"]),
         (dil_h, dil_w), p["group"],

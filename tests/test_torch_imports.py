@@ -44,7 +44,9 @@ def test_port_imports_no_jax():
             "tengine_tpu_torch.parallel.serving", "tengine_tpu_torch.models.detect_zoo",
             "tengine_tpu_torch.models.detect_zoo2", "tengine_tpu_torch.models.detect_zoo3",
             "tengine_tpu_torch.models.zoo", "tengine_tpu_torch.capi_bridge",
-            "tengine_tpu_torch.ops.cuda.host_node"} | set(FRONTEND_MODULES) <= set(mods)
+            "tengine_tpu_torch.ops.cuda.host_node", "tengine_tpu_torch.parallel.mesh",
+            "tengine_tpu_torch.parallel.sharding",
+            "tengine_tpu_torch.parallel.distributed"} | set(FRONTEND_MODULES) <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -312,7 +314,8 @@ def test_unported_settings_raise(monkeypatch):
     """The settings that raised NotImplementedError while their modules
     were not ported now run, each held to the JAX package: stem_s2d, EQ,
     the native-int8 plan, the dw route and the chain kernel. The server's
-    mesh is not ported yet (ROADMAP queue 1 item 12b) and raises."""
+    mesh (ported since): InferenceServer(mesh=make_mesh(...)) on a world of
+    one answers as the server without a mesh."""
     import tengine_tpu as jt
     from tengine_tpu.quantize.quantizer import quantize_graph as jax_quantize
 
@@ -320,10 +323,28 @@ def test_unported_settings_raise(monkeypatch):
     from tengine_tpu_torch.ops import qmath
     from tengine_tpu_torch.serializer.tm2.writer import graph_to_tm_bytes
 
+    from tengine_tpu_torch.parallel.distributed import init_distributed, shutdown_distributed
+    from tengine_tpu_torch.parallel.mesh import make_mesh
     from tengine_tpu_torch.parallel.serving import InferenceServer
+    from test_torch_multiprocess import free_port
 
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        InferenceServer(_tiny_float_graph(), mesh=object(), device="cpu")
+    xs = np.random.default_rng(1).integers(-4, 5, (3, 3, 8, 8)).astype(np.float32)
+    answers = {}
+    assert init_distributed(f"localhost:{free_port()}", 1, 0, device="cpu")
+    try:
+        for mesh in (None, make_mesh(device="cpu")):
+            server = InferenceServer(_tiny_float_graph(), tt.Options(precision="fp32"), mesh=mesh,
+                                     max_batch=4, max_wait_ms=20.0, device="cpu")
+            server.start()
+            try:
+                answers[mesh is None] = [f.result(timeout=60)[0]
+                                         for f in [server.submit(x) for x in xs]]
+            finally:
+                server.stop()
+    finally:
+        shutdown_distributed()
+    for a, b in zip(answers[True], answers[False]):
+        assert np.array_equal(a, b) and a.shape == (1, 4, 8, 8)
 
     monkeypatch.setenv("TT_DW_PALLAS", "1")
     calib = [np.random.default_rng(0).standard_normal((1, 3, 8, 8)).astype(np.float32)]
