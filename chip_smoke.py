@@ -254,12 +254,30 @@ Phases, in order; any failure raises and the exit code is not 0:
                3k's frames through the multi-host loop, two hosts of one
                rank, each answer equal to 3k's, an idle second that
                dispatches nothing.
+               Then the CLIs (phase 3q, run_clis): tm_benchmark's
+               `-m mobilenetv1 --uint8 -b 128` with TT_DW_PALLAS=1 on the
+               seeded mobilenet-v1-224 tmfile (tier K's route: the tool's
+               Options take no native-int8 plan on a depthwise net, so the
+               dw gate stays shut; its ms within 10% of tier K's);
+               tm_yolov5 -q int8 at 640 in this process (one stem_qconv a
+               forward, its heads within 1 LSB of the CPU run of its graph
+               and of the same command with --device cpu) and as a
+               `python -m` command, which must print the same; the host tool
+               chain: quant_tool -t uint8 --evaluate on mobilenet-v1-224's
+               fp32 tmfile, tm_classification -m on the card = with
+               --device cpu (top-5), align_tool (fast within 1 LSB of ref);
+               every other example at its default size with the scheme of
+               the reference's variant (CLI_EXAMPLES), the -m ones on
+               tmfiles the phase writes; each example's launches derived
+               from its CompiledGraph (check_cli_launches).
                Every launch of qgemm_requant (yolov3 B, ResNet-50 H,
                VIT-T), qconv1x1, qconv_direct, dw_qconv and stem_qconv
-               (yolov5s in 3a, on the C path in 3o and in 3p(b)'s
-               multi-host loop; dw_qconv in both of 3p(b)'s meshes) in one
-               eager forward of a tier that launches one is held against
-               its plain version (check_path_kernels).
+               (yolov5s in 3a, on the C path in 3o, in 3p(b)'s
+               multi-host loop and in 3q's tm_yolov5; dw_qconv in both of
+               3p(b)'s meshes) and qblock_chain (3m's FastPose, 3q's
+               tm_pose) in one eager forward of a tier that launches one
+               is held against its plain version (check_path_kernels,
+               check_chain_kernels).
                Every kernel's launch count is set to 0 just before each
                tier's captured run and read just after it; the counts must be
                exact: a wrapper launches its kernel in the warm-up forward
@@ -320,6 +338,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -4557,6 +4576,316 @@ def serve_multihost(torch, tt, qg5, mesh, xs, mine, answers, counters, what) -> 
     return stem
 
 
+# --- the CLIs (phase 3q) ----------------------------------------------------
+
+# phase 3q: the port's example and tool CLIs (tengine_tpu_torch/examples,
+# tengine_tpu_torch/tools) in this process on the card, each at its default
+# size, quantized with the scheme of the reference's variant of the app (its
+# *_uint8 app, or the -q its usage line names; fp32 where there is none):
+# the arguments beyond the defaults. The -m examples read tmfiles the phase
+# writes ({key}: run_clis's files); tm_classification runs in the host tool
+# chain, tm_yolov5 on its own
+CLI_EXAMPLES = {
+    "tm_efficientdet": ["-q", "uint8"],
+    "tm_hrnet": ["-q", "uint8"],
+    "tm_landmark": ["-q", "uint8"],
+    "tm_nanodet_plus": ["-q", "uint8"],
+    "tm_openpose": ["-q", "uint8"],
+    "tm_picodet": ["-q", "uint8"],
+    "tm_yolact": ["-q", "uint8"],
+    "tm_yolofastest": ["-q", "uint8"],
+    "tm_crnn": [],
+    "tm_movenet": ["-q", "int8"],
+    "tm_nanodet": ["-q", "uint8"],
+    "tm_pose": ["-q", "int8"],
+    "tm_scrfd": ["-q", "uint8"],
+    "tm_segformer": ["-q", "int8"],
+    "tm_ultraface": ["-q", "uint8"],
+    "tm_unet": ["-q", "uint8"],
+    "tm_vit": ["-q", "int8"],
+    "tm_yolov3_full": ["-q", "int8"],
+    "tm_yolov4": ["-q", "int8"],
+    "tm_yolox": ["-q", "int8"],
+    "tm_detection": ["-m", "{ssd_uint8}"],
+    "tm_yolo": ["-m", "{yolov4_tiny}"],
+    "tm_face_pipeline": ["--detector", "{retinaface}", "--embedder", "{mobilefacenet}"],
+}
+CLI_BENCH_BATCH = 128
+CLI_BENCH_TOLERANCE = 0.10  # the benchmark's ms against the same route's captured tier
+
+# a timing in a CLI's printed line ("12.34 ms", "0.5s"), dropped where two
+# runs' lines are compared
+PRINTED_TIMING = re.compile(r"[-+]?\d+(?:\.\d+)?\s*(?:ms\b|s\b)")
+PRINTED_TOKEN = re.compile(r"[-+]?\d+(?:\.\d+)?(?:[eE][-+]?\d+)?|[A-Za-z_][\w\-]*|\S")
+PRINTED_NUMBER = re.compile(r"[-+]?\d+(?:\.\d+)?(?:[eE][-+]?\d+)?")
+
+
+def printed_lines(text):
+    return [PRINTED_TIMING.sub("<time>", line) for line in text.splitlines() if line.strip()]
+
+
+def _same_token(a, b):
+    if a == b:
+        return True
+    if not (PRINTED_NUMBER.fullmatch(a) and PRINTED_NUMBER.fullmatch(b)):
+        return False
+    digits = [len(t.split(".")[1]) if "." in t and "e" not in t.lower() else 0 for t in (a, b)]
+    return digits[0] == digits[1] and abs(float(a) - float(b)) <= 10.0 ** -digits[0] * (1 + 1e-9)
+
+
+def same_line(a, b):
+    ta, tb = PRINTED_TOKEN.findall(a), PRINTED_TOKEN.findall(b)
+    return len(ta) == len(tb) and all(map(_same_token, ta, tb))
+
+
+def printout_mismatch(want_text, got_text, any_order=False):
+    """None when two runs of a CLI printed the same: each timing dropped, the
+    same number of lines, the same words, each number within one unit of
+    its last printed digit (any_order: each line of want_text matches a line
+    of its own in got_text, for detections of equal printed score that NMS
+    takes in the order of their float scores). Else what differs."""
+    want, got = printed_lines(want_text), printed_lines(got_text)
+    if not want or len(want) != len(got):
+        return f"{len(want)} lines against {len(got)}"
+    if not any_order:
+        return next((f"{a!r} against {b!r}" for a, b in zip(want, got) if not same_line(a, b)),
+                    None)
+    left = list(got)
+    for a in want:
+        match = next((i for i, b in enumerate(left) if same_line(a, b)), None)
+        if match is None:
+            return f"{a!r} has no counterpart"
+        del left[match]
+    return None
+
+
+def cli_run(torch, counters, module, args, what, **kw):
+    """main(args) of tengine_tpu_torch.<module> in this process, what it
+    prints captured; every launch count set to 0 just before and read just
+    after. Logs the first and last printed lines and the seconds. Returns
+    (what main returned, the printed text, launches by kernel)."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"tengine_tpu_torch.{module}")
+    for c in counters.values():
+        c.launches = 0
+    buf, t0 = io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = mod.main(list(args), **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    lines = buf.getvalue().strip().splitlines() or [""]
+    shown = lines[0] if len(lines) == 1 else f"{lines[0]} | ... | {lines[-1]}"
+    log(f"  {what}: {seconds:.2f} s: {shown} (wrapper launches "
+        f"{ {k: n for k, n in launches.items() if n} or 'none'})")
+    return result, buf.getvalue(), launches
+
+
+def session_launches(cg):
+    """The kernel launches one forward of an example's CompiledGraph makes,
+    from its IR (derived_launches, TT_DW_PALLAS unset), its stem-kernel
+    nodes and its fused chains."""
+    per_forward = derived_launches(cg, None)
+    stems = sum(k == "lower_conv_quant_pallas_stem" for k in cg.kernels.values())
+    chains = sum(n.op == "FusedResBlockChain" for n in cg.graph.nodes)
+    return per_forward | ({"stem_qconv": stems} if stems else {}) | (
+        {"qblock_chain": chains} if chains else {})
+
+
+def check_cli_launches(torch, counters, what, result, launches):
+    """An example's launches: WRAPPER_RUNS times what one forward of its
+    CompiledGraph launches (its first call warms up and captures; the
+    timed calls replay), each launch of one eager forward held against its
+    plain version. Returns the launches."""
+    cg = result["session"]
+    per_forward = session_launches(cg)
+    want = dict.fromkeys(counters, 0) | {k: WRAPPER_RUNS * n for k, n in per_forward.items()}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    x = torch.from_numpy(np.ascontiguousarray(result["input"])).cuda()
+    path = {k: n for k, n in per_forward.items() if k != "qblock_chain"}
+    if path:
+        check_path_kernels(torch, cg, x, what, path)
+    if "qblock_chain" in per_forward:
+        check_chain_kernels(torch, cg, x, what, per_forward["qblock_chain"])
+    return launches
+
+
+def write_cli_models(tt, ir, tmp):
+    """The tmfiles of phase 3q, by the port's writer from this script's
+    builders at their default sizes: mobilenet-v1-224 fp32, mobilenet-SSD-300
+    UINT8 (MinMax on the card from one seeded image, as tm_mobilenet_ssd_uint8
+    loads it), RetinaFace 320x240 and MobileFaceNet-112 fp32, and the darknet
+    zoo's yolov4-tiny-416 fp32 (tm_yolo decodes yolov3-tiny's two heads,
+    13x13 and 26x26 at 416, which yolov4-tiny shares)."""
+    from tengine_tpu_torch.models.darknet_zoo import build_yolov4_tiny_graph
+    from tengine_tpu_torch.serializer.tm2.writer import save_tmfile
+
+    ssd = build_mobilenet_ssd_graph(ir)
+    x = np.random.default_rng(0).standard_normal((1, 3, 300, 300)).astype(np.float32)
+    graphs = {
+        "mobilenet": build_mobilenet_v1_graph(ir),
+        "ssd_uint8": tt.quantize_graph(ssd, [x], scheme="uint8", algorithm="minmax"),
+        "retinaface": build_retinaface_mnet_graph(ir),
+        "mobilefacenet": build_mobilefacenet_graph(ir),
+        "yolov4_tiny": build_yolov4_tiny_graph(img=416),
+    }
+    files = {}
+    for key, g in graphs.items():
+        files[key] = str(tmp / f"{key}.tmfile")
+        save_tmfile(g, files[key])
+    return files
+
+
+def run_clis(torch, tt, qmath, ir, counters, default):
+    """Phase 3q: the CLIs on the card, in this process unless said.
+
+    The benchmark: tm_benchmark's `-m mobilenetv1 --uint8 -b 128` with
+    TT_DW_PALLAS=1, from a working directory whose benchmark/models holds
+    the seeded mobilenet-v1-224 tmfile. The tool compiles under
+    Options(quant_mode="fast", batch_size=128), the JAX tool's: that takes
+    the native-int8 plan only where _native_profitable, which no depthwise
+    graph is, and the dw route wants integer storage, so TT_DW_PALLAS=1
+    routes nothing and the tool runs tier K's route (27 convs on the fast
+    lowering, no plan, no kernel launch; checked); its average ms within
+    10% of tier K's captured ms. Then tm_yolov5 -q int8 (640) as a
+    `python -m` subprocess, started beside the in-process runs: what it
+    prints = what the in-process run printed (printout_mismatch). In
+    process: tm_yolov5 -q int8: one stem_qconv a forward, each launch of
+    one eager forward = the plain version, its heads within 1 LSB of the
+    port's CPU run of its quantized graph and of the same command with
+    --device cpu. The host tool chain: mobilenet-v1-224's fp32 tmfile ->
+    quant_tool -t uint8 --evaluate -> tm_classification -m on the card and
+    with --device cpu (the same top-5 classes, values within one step of
+    the output grid) -> align_tool (fast tier within 1 LSB of the ref
+    tier). Every example of CLI_EXAMPLES: its launches derived from its
+    CompiledGraph, each held to the plain version (check_cli_launches).
+    Returns the launches by kernel summed over the in-process runs."""
+    total = dict.fromkeys(counters, 0)
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] += n
+
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        t0 = time.time()
+        files = write_cli_models(tt, ir, tmp)
+        log(f"  3q tmfiles (build, calibrate the SSD, write): {time.time() - t0:.1f} s")
+
+        # the benchmark, on an otherwise idle card
+        models = tmp / "bench" / "benchmark" / "models"
+        models.mkdir(parents=True)
+        (models / "mobilenet_benchmark.tmfile").write_bytes(Path(files["mobilenet"]).read_bytes())
+        here = os.getcwd()
+        os.chdir(models.parents[1])
+        try:
+            with dw_gate("1"):
+                bench, _, launches = cli_run(
+                    torch, counters, "tools.benchmark",
+                    ["-m", "mobilenetv1", "--uint8", "-b", str(CLI_BENCH_BATCH)],
+                    f"benchmark -m mobilenetv1 --uint8 -b {CLI_BENCH_BATCH} (TT_DW_PALLAS=1)",
+                    keep=True)
+        finally:
+            os.chdir(here)
+        if bench["failed"] or any(launches.values()):
+            raise AssertionError(f"benchmark: failed {bench['failed']}, launches {launches}")
+        (row,) = bench["rows"]
+        cg = row["cg"]
+        routes = [cg.kernels[n.name] for n in cg.graph.nodes if n.op == "Convolution"]
+        if (routes != ["lower_conv_quant_fast"] * 27
+                or getattr(cg.graph, "_bf16_tids", None) is not None):
+            raise AssertionError(f"benchmark: routes {set(routes)}, plan "
+                                 f"{getattr(cg.graph, '_bf16_tids', None) is not None}")
+        check_path_kernels(torch, cg, row["x"], "benchmark mobilenetv1 uint8 b128", {})
+        k_ms = default["K"][6][0]
+        log(f"  benchmark mobilenetv1 uint8 b{CLI_BENCH_BATCH}: min {row['min_ms']:.3f} ms, avg "
+            f"{row['avg_ms']:.3f} ms, {row['img_s']:.1f} img/s; tier K (the same route, "
+            f"captured) {k_ms:.3f} ms [{gpu_name_and_power_limit()}]")
+        if abs(row["avg_ms"] - k_ms) > CLI_BENCH_TOLERANCE * k_ms:
+            raise AssertionError(f"benchmark: {row['avg_ms']:.3f} ms against tier K's {k_ms:.3f}")
+        del bench, row, cg
+
+        # tm_yolov5 from the command line, beside the in-process runs
+        cmd = [sys.executable, "-m", "tengine_tpu_torch.examples.tm_yolov5", "-q", "int8"]
+        proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        t_proc = time.perf_counter()
+
+        res, text5, launches = cli_run(torch, counters, "examples.tm_yolov5", ["-q", "int8"],
+                                       "tm_yolov5 -q int8 (640)")
+        if session_launches(res["session"]) != {"stem_qconv": 1}:
+            raise AssertionError(f"tm_yolov5: {session_launches(res['session'])}")
+        add(check_cli_launches(torch, counters, "tm_yolov5 -q int8", res, launches))
+        cg = res["session"]
+        x5 = torch.from_numpy(res["input"]).cuda()
+        captured = [timed_ms(torch, lambda: cg(x5)) for _ in range(3)]
+        log(f"  tm_yolov5 -q int8 (640, b1): printed (host wall, one warm run) {res['ms']:.3f} ms; "
+            f"its CompiledGraph captured {captured} ms (median {float(np.median(captured)):.3f}) "
+            f"[{gpu_name_and_power_limit()}]")
+        heads = [cg.graph.tensors[t] for t in cg.output_ids]
+        t1 = time.time()
+        own = tt.compile_graph(res["graph"], tt.Options(quant_mode="fast"),
+                               device="cpu").run(res["input"])
+        check_within_lsb("tm_yolov5 card vs its graph on the CPU", res["raw"], own, heads)
+        cpu, text_cpu, _ = cli_run(torch, counters, "examples.tm_yolov5",
+                                   ["-q", "int8", "--device", "cpu"], "tm_yolov5 -q int8 --device cpu")
+        grids = max(abs(float(np.asarray(a.quant.scales).ravel()[0])
+                        / float(np.asarray(b.quant.scales).ravel()[0]) - 1)
+                    for a, b in zip(res["graph"].tensors, cpu["graph"].tensors)
+                    if a.quant is not None and a.data is None)
+        log(f"  tm_yolov5: the card's and the CPU's calibrations, activation scales apart "
+            f"by at most {grids:.3g} relative; the CPU run {time.time() - t1:.1f} s")
+        check_within_lsb("tm_yolov5 -q int8 card vs --device cpu", res["raw"], cpu["raw"], heads)
+        del res, cpu, cg, own, x5
+
+        # the host tool chain
+        u8 = str(tmp / "mobilenet_uint8.tmfile")
+        quant, _, launches = cli_run(torch, counters, "tools.quant_tool",
+                                     ["-m", files["mobilenet"], "-o", u8, "-t", "uint8",
+                                      "--evaluate"], "quant_tool -t uint8 --evaluate")
+        if any(launches.values()) or min(quant["cosines"].values()) <= 0.99:
+            raise AssertionError(f"quant_tool: launches {launches}, least cosine "
+                                 f"{min(quant['cosines'].values())}")
+        card, _, launches = cli_run(torch, counters, "examples.tm_classification", ["-m", u8],
+                                    "tm_classification -m (uint8)")
+        add(check_cli_launches(torch, counters, "tm_classification", card, launches))
+        host, _, _ = cli_run(torch, counters, "examples.tm_classification",
+                             ["-m", u8, "--device", "cpu"], "tm_classification -m (uint8) --device cpu")
+        t_out = card["session"].graph.tensors[card["session"].output_ids[0]]
+        step = float(np.asarray(t_out.quant.scales).ravel()[0])
+        if ([i for _, i in card["top5"]] != [i for _, i in host["top5"]]
+                or any(abs(a - b) > step * 1.0001 for (a, _), (b, _) in zip(card["top5"], host["top5"]))):
+            raise AssertionError(f"tm_classification: card top-5 {card['top5']}, CPU {host['top5']}")
+        align, _, _ = cli_run(torch, counters, "tools.align_tool", ["-m", u8], "align_tool")
+        if not align["max_abs"] <= 1:
+            raise AssertionError(f"align_tool: fast tier {align['max_abs']} LSB from the ref tier")
+        del quant, card, host, align
+
+        # every other example
+        for name, args in CLI_EXAMPLES.items():
+            args = [a.format(**files) for a in args]
+            res, _, launches = cli_run(torch, counters, f"examples.{name}", args,
+                                       f"{name} {' '.join(args)}".replace(str(tmp) + "/", ""))
+            if "session" in res:
+                add(check_cli_launches(torch, counters, name, res, launches))
+            elif any(launches.values()):
+                raise AssertionError(f"{name}: launches {launches}")
+            del res
+
+        out, err = proc.communicate(timeout=600)
+        log(f"  python -m tengine_tpu_torch.examples.tm_yolov5 -q int8: exit {proc.returncode}, "
+            f"{time.perf_counter() - t_proc:.1f} s: {out.strip().splitlines()[:1]}")
+        if proc.returncode != 0:
+            raise AssertionError(f"tm_yolov5 as a command exited {proc.returncode}: {err[-2000:]}")
+        differs = printout_mismatch(text5, out)
+        if differs:
+            raise AssertionError(f"tm_yolov5: the command printed otherwise: {differs}")
+    return total
+
+
 def main(argv) -> int:
     import torch
 
@@ -4876,6 +5205,15 @@ def main(argv) -> int:
                             server_answers).items():
         entries[name]["launches"] += n
     log(f"  mesh in all: {time.time() - t0:.1f} s")
+
+    # 3q. the example and tool CLIs (tengine_tpu_torch/examples, tools) on the
+    # card: tm_benchmark on mobilenet-v1-224 b128, tm_yolov5 -q int8 at 640
+    # in-process and as a command, the host tool chain (quant_tool ->
+    # tm_classification, align_tool), every other example at its default size
+    t0 = time.time()
+    for name, n in run_clis(torch, tt, qmath, ir, counters, default).items():
+        entries[name]["launches"] += n
+    log(f"  CLIs in all: {time.time() - t0:.1f} s")
 
     # 4. correctness: fp32 engine on the card, and the port's CPU run
     t0 = time.time()

@@ -46,7 +46,7 @@ def test_port_imports_no_jax():
             "tengine_tpu_torch.models.zoo", "tengine_tpu_torch.capi_bridge",
             "tengine_tpu_torch.ops.cuda.host_node", "tengine_tpu_torch.parallel.mesh",
             "tengine_tpu_torch.parallel.sharding",
-            "tengine_tpu_torch.parallel.distributed"} | set(FRONTEND_MODULES) <= set(mods)
+            "tengine_tpu_torch.parallel.distributed"} | set(FRONTEND_MODULES) | set(CLI_MODULES) <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -64,6 +64,13 @@ def test_port_imports_no_jax():
     )
     assert r.returncode == 0, r.stderr
 
+
+# the example and tool CLIs: the 25 examples with _runner, and the tools
+CLI_MODULES = [f"tengine_tpu_torch.examples.{p.stem}"
+               for p in sorted((PACKAGE / "examples").glob("*.py")) if p.stem != "__init__"] + [
+    f"tengine_tpu_torch.tools.{m}" for m in ("quant_tool", "align_tool", "benchmark",
+                                             "accuracy_eval")]
+assert len(CLI_MODULES) == 30
 
 # the front ends and the convert tool: none may import jax, the JAX package,
 # tensorflow, flatbuffers or protobuf
