@@ -514,13 +514,16 @@ TRANSFORMER_TIERS = {
 # 37 classes, T = 24) INT8 MinMax from one seeded image; E: equalize_graph
 # (DFQ) then quantize_graph(algorithm="eq") on EQ_IMAGES seeded images.
 # U-Net at Ronneberger et al.'s widths (64 -> 1024, depth 4, 2 classes) UINT8
-# MinMax at 512x512 (ISBI-2012's image size); U-Net INT8 quantizes in neither
-# engine (ROADMAP §3). Per tier: the net, the Options beyond
+# and INT8 MinMax at 512x512 (ISBI-2012's image size); the INT8 graph's
+# deconvs take per-channel scales by output channel (the JAX quantizer
+# refuses it, ROADMAP §3) and run on the generic dequantize -> fp32
+# conv_transpose2d -> requantize wrapper. Per tier: the net, the Options beyond
 # Options(quant_mode="fast"), the launches per forward (derived from the IR
 # and asserted), the cosine gate against the fp32 engine. T: CRNN's conv6
 # (3x3 at 4x25) and conv7 (2x2 at 2x25), C_in 128, on qconv_direct, the FC
 # ([24, 128] x [128, 37]) on qgemm_requant; U-Net's 14 3x3 convs with C_in
-# 128-1024 on qconv_direct, the 1x1 head (N = 2) on qconv1x1.
+# 128-1024 on qconv_direct, the 1x1 head (N = 2) on qconv1x1, in UINT8
+# (UNET-T) and in INT8 (UNET-I8-T).
 CRNN_CONFIG = dict(img_w=100, img_h=32, hidden=128)
 UNET_CONFIG = dict(img=512, base=64, depth=4, num_classes=2)
 UNET_CHECK_IMG = 128  # the card held to the CPU node by node at this size
@@ -533,6 +536,9 @@ EXTRA_TIERS = {
     "UNET-S": ("unet", {}, {}, 0.99),
     "UNET-T": ("unet", dict(quant_bf16_storage=False, quant_native="off"),
                {"qconv_direct": 14, "qconv1x1": 1}, 0.99),
+    "UNET-I8-S": ("unet-i8", {}, {}, 0.99),
+    "UNET-I8-T": ("unet-i8", dict(quant_bf16_storage=False, quant_native="off"),
+                  {"qconv_direct": 14, "qconv1x1": 1}, 0.99),
 }
 # yolov5s-640 INT8 b8 (phase 3a's graph) with Options(stem_s2d=True): the 6x6
 # s2 stem becomes SpaceToDepth + a 3x3 s1 conv over 12 channels, which the
@@ -1361,7 +1367,7 @@ def encode_mxnet(layers, shape):
     return files, ["-m", "model-symbol.json", "-w", "model-0000.params"]
 
 
-def encode_tf_graphdef(layers, shape):
+def encode_tf_graphdef(layers, shape, slim=False):
     """A frozen TF GraphDef, NHWC, convs with TF-SAME padding as TensorFlow's
     published mobilenet_v1 (graph.proto: GraphDef node=1 versions=4;
     node_def.proto: NodeDef name=1 op=2 input=3 attr=5, a map of entries
@@ -1369,7 +1375,12 @@ def encode_tf_graphdef(layers, shape):
     tensor=8, ListValue i=3; tensor.proto: TensorProto dtype=1
     tensor_shape=2 tensor_content=4; tensor_shape.proto: dim=2, Dim size=1;
     types.proto: DT_FLOAT 1, DT_INT32 3). Conv2D / DepthwiseConv2dNative +
-    BiasAdd + Relu, Mean over H and W, MatMul + BiasAdd."""
+    BiasAdd + Relu, Mean over H and W, MatMul + BiasAdd. With `slim`, the
+    classifier ends as TF-slim's frozen mobilenet_v1 ends: AvgPool over the
+    whole map (VALID, keep dims), the FC a 1x1 Conv2D + BiasAdd
+    (Logits/Conv2d_1c_1x1), SpatialSqueeze (Squeeze, squeeze_dims [1, 2]),
+    then Predictions: Reshape [-1, classes], Softmax, Reshape to
+    Shape(logits); the Placeholder's batch unknown."""
     def shape_pb(dims):
         return b"".join(_pb_ld(2, _pb_int(1, d)) for d in dims)
 
@@ -1400,12 +1411,14 @@ def encode_tf_graphdef(layers, shape):
                     value=tensor(arr))
 
     n, c, h, w = shape
-    out = [node("input", "Placeholder", [], dtype=dtype(1), shape=_pb_ld(7, shape_pb([n, h, w, c])))]
+    out = [node("input", "Placeholder", [], dtype=dtype(1),
+                shape=_pb_ld(7, shape_pb([-1 if slim else n, h, w, c])))]
     x = "input"
     for layer in layers:
         name = layer[1]
         if layer[0] == "conv":
             _, _, wt, b, s, _, group = layer
+            h, w = -(-h // s), -(-w // s)  # SAME
             op, hw = (("Conv2D", wt.transpose(2, 3, 1, 0)) if group == 1  # OIHW -> HWIO
                       else ("DepthwiseConv2dNative", wt.transpose(2, 3, 0, 1)))  # -> [k, k, C, 1]
             out.append(const(f"{name}/weights", np.ascontiguousarray(hw, np.float32)))
@@ -1416,10 +1429,36 @@ def encode_tf_graphdef(layers, shape):
             out.append(node(f"{name}/bias", "BiasAdd", [f"{name}/conv", f"{name}/biases"],
                             T=dtype(1), data_format=text("NHWC")))
             out.append(node(name, "Relu", [f"{name}/bias"], T=dtype(1)))
+        elif layer[0] == "gap" and slim:
+            out.append(node(name, "AvgPool", [x], T=dtype(1), ksize=ints([1, h, w, 1]),
+                            strides=ints([1, 1, 1, 1]), padding=text("VALID"),
+                            data_format=text("NHWC")))
         elif layer[0] == "gap":
             out.append(const(f"{name}/axes", np.asarray([1, 2], np.int32)))
             out.append(node(name, "Mean", [x, f"{name}/axes"], T=dtype(1), Tidx=dtype(3),
                             keep_dims=flag(False)))
+        elif slim:
+            _, _, wt, b = layer
+            classes = int(wt.shape[0])
+            out.append(const(f"{name}/weights", np.ascontiguousarray(
+                wt.T.reshape(1, 1, -1, classes), np.float32)))
+            out.append(node(f"{name}/conv", "Conv2D", [x, f"{name}/weights"], T=dtype(1),
+                            strides=ints([1, 1, 1, 1]), padding=text("SAME"),
+                            data_format=text("NHWC"), dilations=ints([1, 1, 1, 1])))
+            out.append(const(f"{name}/biases", np.asarray(b, np.float32)))
+            out.append(node(f"{name}/bias", "BiasAdd", [f"{name}/conv", f"{name}/biases"],
+                            T=dtype(1), data_format=text("NHWC")))
+            out.append(node("SpatialSqueeze", "Squeeze", [f"{name}/bias"], T=dtype(1),
+                            squeeze_dims=ints([1, 2])))
+            out.append(const("Predictions/shape", np.asarray([-1, classes], np.int32)))
+            out.append(node("Predictions/Reshape", "Reshape", ["SpatialSqueeze", "Predictions/shape"],
+                            T=dtype(1), Tshape=dtype(3)))
+            out.append(node("Predictions/Softmax", "Softmax", ["Predictions/Reshape"], T=dtype(1)))
+            out.append(node("Predictions/Shape", "Shape", ["SpatialSqueeze"], T=dtype(1),
+                            out_type=dtype(3)))
+            name = "Predictions/Reshape_1"
+            out.append(node(name, "Reshape", ["Predictions/Softmax", "Predictions/Shape"],
+                            T=dtype(1), Tshape=dtype(3)))
         else:
             _, _, wt, b = layer
             out.append(const(f"{name}/weights", np.ascontiguousarray(wt.T, np.float32)))
@@ -1657,7 +1696,7 @@ def convert_models(tmp: Path, models, shape):
             (d / name).write_bytes(data.encode() if isinstance(data, str) else data)
         args = [str(d / a) if a in files else a for a in args]
         cmd = [sys.executable, "-m", "tengine_tpu_torch.tools.convert_tool",
-               "-f", "tflite" if fmt.startswith("tflite") else fmt, *args,
+               "-f", fmt.split("-")[0], *args,
                "--input-shape", ",".join(map(str, shape)), "--optimize",
                "-o", str(d / f"{fmt}.tmfile")]
         procs[fmt] = (subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
@@ -1740,7 +1779,15 @@ def run_frontends(torch, tt, qmath, ir, counters, default, profile):
               likewise), imported with no calibration: default Options at
               batch 8 (no kernel), and at batch 32 13 dw_qconv and no
               qconv1x1 (the pointwise convs' shifted INT8 input keeps them
-              on the fast lowering).
+              on the fast lowering). Every INT8 activation of the tool's
+              tmfile carries full_range (TFLite's [-128, 127]); on the
+              card under TFL-U's Options conv1 and the dw_qconv outputs
+              hold -128 (their shares printed), which the JAX engine
+              clips to -127 (ROADMAP §3).
+    The TF-slim tail: the GraphDef with encode_tf_graphdef(slim=True)'s
+    classifier (AvgPool, a 1x1 conv, Squeeze, Reshape, Softmax, Reshape to
+    Shape(logits)) through the tool, its output at batch 8 against the
+    plain forward's logits (check_slim_tail).
     Prints each import's seconds and the quantized tiers' ms per batch
     beside tiers K and L. Returns the launches by kernel."""
     from tengine_tpu_torch.graph.passes import optimize
@@ -1758,10 +1805,12 @@ def run_frontends(torch, tt, qmath, ir, counters, default, profile):
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         models = {fmt: FRONTEND_ENCODERS[fmt](layers, shape) for fmt in FRONTEND_FORMATS}
+        models["tf-slim"] = encode_tf_graphdef(layers, shape, slim=True)
         log(f"  mobilenet-v1-{shape[2]} encoded in {len(models)} formats: {time.time() - t1:.1f} s")
         tms = convert_models(tmp, models, shape)
-        log("phase 3n import seconds (convert_tool --optimize, the six at once): "
+        log("phase 3n import seconds (convert_tool --optimize, the seven at once): "
             + ", ".join(f"{fmt} {s:.2f}" for fmt, (_, s) in tms.items()))
+        slim_path, _ = tms.pop("tf-slim")
         graphs = {fmt: tt.load_model(str(path)) for fmt, (path, _) in tms.items()}
         for fmt, gi in graphs.items():
             convs = [n for n in gi.nodes if n.op == "Convolution"]
@@ -1781,6 +1830,8 @@ def run_frontends(torch, tt, qmath, ir, counters, default, profile):
                                                      batch_size=FRONTEND_U_BATCH))
                 fp32_u[fmt] = eager(torch, cg, x_dev)
             del cg
+        check_slim_tail(torch, tt, tt.load_model(str(slim_path)), layers,
+                        x_dev[:FRONTEND_BATCH])
 
         opts, gate, per_forward, batch = FRONTEND_TIERS["ONNX-U"]
         q_onnx = tt.quantize_graph(graphs["onnx"], [images[:1]], scheme="uint8",
@@ -1817,7 +1868,13 @@ def run_frontends(torch, tt, qmath, ir, counters, default, profile):
         bare = [t.name for t in g8.tensors if t.quant is None]
         if bare or not any(t.dtype == ir.DType.INT8 for t in g8.tensors):
             raise AssertionError(f"tflite int8 import: tensors without a grid {bare[:5]}")
-        log(f"  tflite full-int8 import: {seconds:.2f} s, no calibration")
+        acts = [t for t in g8.tensors if t.data is None and t.dtype == ir.DType.INT8]
+        short = [t.name for t in acts if not t.quant.full_range]
+        if short:
+            raise AssertionError(f"tflite int8 import: activations clipped at -127 after the "
+                                 f"tool's tmfile {short[:5]}")
+        log(f"  tflite full-int8 import: {seconds:.2f} s, no calibration; its {len(acts)} INT8 "
+            f"activations all full_range ([-128, 127]) after the tool's tmfile")
         for tier in ("TFL-D", "TFL-U"):
             opts, gate, per_forward, batch = FRONTEND_TIERS[tier]
             got, *rows[tier] = run_quant_tier(
@@ -1826,12 +1883,95 @@ def run_frontends(torch, tt, qmath, ir, counters, default, profile):
                 fp32_u["tflite"], images, dict(opts, batch_size=batch), gate, per_forward, batch,
                 0, profile, out_dtype=torch.int8)
             launches = {k: launches[k] + got[k] for k in launches}
+        check_minus_128(torch, tt, qmath, g8, images)
     log("phase 3n ms/batch captured, eager: " + ", ".join(
         f"{tier} {cap:.3f}, {eag:.3f}" for tier, (cap, eag) in rows.items())
         + "; beside mobilenet-v1-224 uint8 b128 " + ", ".join(
             f"{tier} {default[tier][6][0]:.3f}, {default[tier][6][1]:.3f}" for tier in ("K", "L"))
         + f" [{gpu_name_and_power_limit()}]")
     return launches
+
+
+def check_slim_tail(torch, tt, gs, layers, x):
+    """The TF-slim tail's import (encode_tf_graphdef(slim=True) through the
+    tool): one Squeeze, the Shape folded into the last Reshape; fp32 at
+    x's batch. Its output is a softmax: the log of it, centred per image,
+    against the plain forward's logits centred, as check_fp32_import holds
+    logits (the probabilities of the seeded net are all near 1/classes,
+    and would agree in cosine whatever the logits)."""
+    ops = [n.op for n in gs.nodes]
+    if ops.count("Squeeze") != 1 or ops.count("Softmax") != 1 or "Shape" in ops:
+        raise AssertionError(f"tf-slim tail: imported as {ops[-6:]}")
+    cg = tt.compile_graph(gs, tt.Options(precision="fp32", batch_size=x.shape[0]))
+    (out,) = eager(torch, cg, x)
+    if tuple(out.shape) != (x.shape[0], layers[-1][2].shape[0]):
+        raise AssertionError(f"tf-slim tail: output of shape {tuple(out.shape)}")
+    got = out.double().log()
+    want = plain_mobilenet(torch, layers, x, same=True).double()
+    check_fp32_import(f"tf-slim tail ({', '.join(ops[-5:])}) import fp32 b{x.shape[0]}: log "
+                      f"softmax centred vs the plain logits centred", got - got.mean(1, True),
+                      want - want.mean(1, True))
+    del cg
+
+
+def check_minus_128(torch, tt, qmath, g8, images):
+    """The full-int8 TFLite import under TFL-U's Options on the card, every
+    tensor of one eager forward: conv1 (ReLU, zero point -128) and the
+    outputs of the dw_qconv launches hold -128, the bottom of TFLite's int8
+    range, which the JAX engine clips to -127 (ROADMAP §3). The launches
+    equal their plain versions (run_quant_tier), so the kernel's epilogue
+    clips where qrange says. Prints the shares of -128."""
+    opts, gate, _, batch = FRONTEND_TIERS["TFL-U"]
+    with dw_gate(gate):
+        cg = tt.compile_graph(g8, tt.Options(**dict(opts, batch_size=batch)))
+    t_in = g8.tensors[g8.input_tensors[0]]
+    xq = torch.from_numpy(qmath.quantize_np(images[:batch], t_in.quant, t_in.dtype)).cuda()
+    acts = tensors_by_name(torch, cg, xq)
+    dw = [cg.graph.tensors[n.outputs[0]].name for n in cg.graph.nodes
+          if cg.kernels.get(n.name) == "lower_conv_quant_pallas_dw"]
+    floor = {name: float((acts[name] == -128).double().mean()) for name in ["conv1", *dw]}
+    if not floor["conv1"] > 0 or not all(floor[name] > 0 for name in dw):
+        raise AssertionError(f"TFL-U: no -128 where TFLite's ReLU zero is {floor}")
+    log(f"  TFL-U b{batch} on the card: share of -128 at conv1 {floor['conv1']:.4f}, in the "
+        f"{len(dw)} dw_qconv outputs {min(floor[n] for n in dw):.4f}-"
+        f"{max(floor[n] for n in dw):.4f} (the JAX engine clips them to -127)")
+    del cg
+    check_igemm_full_range(torch)
+
+
+# two INT8 cases of tests/test_torch_cuda.py:QCONV_EDGE_CASES without an
+# activation: a 1x1 conv (qconv1x1) and a 3x3 stride-2 conv (qconv_direct)
+IGEMM_FULL_RANGE_CASES = (1, 13)
+IGEMM_FULL_RANGE_ZP = -100
+
+
+def check_igemm_full_range(torch) -> None:
+    """qconv1x1 and qconv_direct writing a full-range INT8 grid, as a conv
+    whose output a TFLite import or the native-int8 plan marks full_range
+    does: the edge cases' outputs (about +-50 on the grid) moved to zero
+    point IGEMM_FULL_RANGE_ZP and clipped to [-128, 127], so that a share of
+    them sits at -128; each kernel = its plain version at 0 LSB under the
+    tile pick_tile chooses. A kernel that clipped at -127 would part there."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda import QCONV_EDGE_CASES, port_qconv, qconv_edge_inputs
+
+    shares = {}
+    for i in IGEMM_FULL_RANGE_CASES:
+        case = QCONV_EDGE_CASES[i]
+        inp = qconv_edge_inputs(case, seed=sum(case[:7]))
+        inp["B"] = inp["B"] + np.float32(IGEMM_FULL_RANGE_ZP)
+        inp["kw_args"].update(zp_out=IGEMM_FULL_RANGE_ZP, lo=-128, hi=127)
+        want = port_qconv(inp, "cuda", kernel=False)
+        got = port_qconv(inp, "cuda", kernel=True)
+        name = "qconv1x1" if inp["pointwise"] else "qconv_direct"
+        err = int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+        shares[name] = float((got == -128).mean())
+        if err or not shares[name] > 0:
+            raise AssertionError(f"{name} on a full-range grid: {err} LSB from its plain "
+                                 f"version, share of -128 {shares[name]}")
+    log(f"  qconv1x1 / qconv_direct on a full-range INT8 grid (zero point "
+        f"{IGEMM_FULL_RANGE_ZP}): = plain at 0 LSB, share of -128 "
+        + ", ".join(f"{k} {v:.4f}" for k, v in shares.items()))
 
 
 def log(msg: str) -> None:
@@ -3177,7 +3317,7 @@ def run_transformer_tiers(torch, tt, qmath, counters, profile):
 
 
 def run_extra_tiers(torch, tt, qmath, counters, profile):
-    """Phase 3j: CRNN INT8 and U-Net-512 UINT8 (models/extra.py) under
+    """Phase 3j: CRNN INT8 and U-Net-512 UINT8 and INT8 (models/extra.py) under
     EXTRA_TIERS, calibrated on the card; each tier compiled with its
     Options, its kernels' launches derived from the IR and equal to the
     table's, driven as drive does (captured = eager at 0 LSB), the wrapper
@@ -3212,11 +3352,19 @@ def run_extra_tiers(torch, tt, qmath, counters, profile):
     for img in (UNET_CONFIG["img"], UNET_CHECK_IMG):
         _, gu = build_unet_graph(**dict(UNET_CONFIG, img=img))
         xu = rng.standard_normal((1, 3, img, img)).astype(np.float32)
-        unet[img] = (tt.quantize_graph(gu, [xu], scheme="uint8", algorithm="minmax"), xu, gu)
+        unet[img] = {scheme: tt.quantize_graph(gu, [xu], scheme=scheme, algorithm="minmax")
+                     for scheme in ("uint8", "int8")}, xu, gu
     qu, xu, gu = unet[UNET_CONFIG["img"]]
     fp32_u = eager(torch, tt.compile_graph(gu, tt.Options(precision="fp32")),
                    torch.from_numpy(xu).cuda())[0]
-    nets["unet"] = (qu, xu, fp32_u, unet[UNET_CHECK_IMG][:2])
+    qs, xs, _ = unet[UNET_CHECK_IMG]
+    for net, scheme in (("unet", "uint8"), ("unet-i8", "int8")):
+        nets[net] = (qu[scheme], xu, fp32_u, (qs[scheme], xs))
+    check_no_saturated_bias(qu["int8"], "unet-512 int8")
+    deconv_scales = {n.name: qu["int8"].tensors[n.inputs[1]].quant.scales.shape
+                     for n in qu["int8"].nodes if n.op == "Deconvolution"}
+    log(f"  unet-512 int8: per-channel weight scales of the {len(deconv_scales)} deconvs by "
+        f"output channel {sorted(set(deconv_scales.values()))}")
     log(f"  crnn / unet set-up (build graphs, DFQ over {pairs} conv pairs, MinMax and EQ "
         f"calibration, fp32 references): {time.time() - t0:.1f} s")
     total = dict.fromkeys(counters, 0)
@@ -3224,7 +3372,7 @@ def run_extra_tiers(torch, tt, qmath, counters, profile):
         t1 = time.time()
         qg, x, fp32, small = nets[net]
         opts = dict(quant_mode="fast", **extra)
-        what = f"{net} {'uint8' if net == 'unet' else 'int8'} b1 tier {tier}"
+        what = f"{net.split('-')[0]} {'uint8' if net == 'unet' else 'int8'} b1 tier {tier}"
         cg = tt.compile_graph(qg, tt.Options(**opts))
         derived = derived_launches(cg, None)
         if derived != per_forward:
@@ -3256,7 +3404,7 @@ def run_extra_tiers(torch, tt, qmath, counters, profile):
             check_nodes_against_cpu(torch, tt, qs, opts, cgs, xqs, f"{what} at {UNET_CHECK_IMG}")
             del cgs
         deq = dequant(torch, outs[0], out).cpu().numpy()
-        if net == "unet":
+        if net.startswith("unet"):
             agree = float((deq.argmax(1) == fp32.cpu().numpy().argmax(1)).mean())
             log(f"  {what}: mask {deq.shape[2:]}, {agree:.4f} of the pixels the fp32 engine's class")
         else:
@@ -3723,23 +3871,17 @@ def run_face_pipeline_threads(torch, tt, qmath, native, counters, graphs, face_f
     return launches
 
 
-def saturated_convs(g, tid):
-    """The convolutions nearest above tensor tid (through any other nodes)
-    whose int32 bias holds +-(2^31 - 1): the quantizer saturated a bias
-    that did not fit (ROADMAP §3)."""
-    found, stack, seen = [], [tid], set()
-    while stack:
-        t = stack.pop()
-        if t in seen or g.tensors[t].producer is None:
-            continue
-        seen.add(t)
-        node = g.nodes[g.tensors[t].producer]
-        if node.op != "Convolution":
-            stack.extend(node.inputs)
-        elif len(node.inputs) > 2 and (
-                np.abs(g.tensors[node.inputs[2]].data.astype(np.int64)) == INT32_MAX).any():
-            found.append(node.name)
-    return found
+def check_no_saturated_bias(g, what):
+    """No int32 bias of quantized graph g sits at +-(2^31 - 1): where a bias
+    would not fit, the port's quantizer raises the weight scale
+    (quantize/quantizer.py:fit_bias) where the JAX quantizer saturates it
+    (ROADMAP §3). Returns the number of int32 biases read."""
+    biases = [t for t in g.tensors if t.data is not None and t.dtype.name == "INT32"
+              and t.quant is not None and t.quant.width == 32]
+    at = [t.name for t in biases if (np.abs(t.data.astype(np.int64)) >= INT32_MAX).any()]
+    if at:
+        raise AssertionError(f"{what}: int32 biases at +-(2^31 - 1): {at[:5]}")
+    return len(biases)
 
 
 def check_chain_kernels(torch, cg, x, what, chains):
@@ -3812,10 +3954,11 @@ def run_zoo(torch, tt, qmath, native, counters, profile):
     default Options no conv of these nets meets a kernel's gate, and
     quant_relaxed's chain pass gives the nets with bottlenecks of c_mid >=
     256 FusedResBlockChain nodes: their qblock_chain launches exact, each
-    held to its plain version); each head's dequantized cosine against the fp32
-    engine above the net's gate, except a head below a conv whose int32
-    bias the quantizer saturated (saturated_convs; ROADMAP §3), whose
-    cosine is printed; the heads within 1 LSB of the port's CPU run; the
+    held to its plain version); no int32 bias at +-(2^31 - 1)
+    (check_no_saturated_bias: the seeded YOLOX's and UltraFace's heads
+    raise their weight scales instead, ROADMAP §3); every head's
+    dequantized cosine against the fp32 engine above the net's gate; the
+    heads within 1 LSB of the port's CPU run; the
     host decoder on the dequantized heads, native.nms = the numpy NMS where
     the example calls NMS. Returns the launches by kernel summed over the
     nets' main-path runs."""
@@ -3833,6 +3976,7 @@ def run_zoo(torch, tt, qmath, native, counters, profile):
         shape = g.tensors[g.input_tensors[0]].shape
         x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
         qg = tt.quantize_graph(g, [x], scheme=scheme, algorithm="minmax")
+        biases = check_no_saturated_bias(qg, name)
         t_in = qg.tensors[qg.input_tensors[0]]
         xq = qmath.quantize_np(x, t_in.quant, t_in.dtype)
         fouts = eager(torch, tt.compile_graph(g, tt.Options(precision="fp32")),
@@ -3851,16 +3995,13 @@ def run_zoo(torch, tt, qmath, native, counters, profile):
         for k, n in launches.items():
             total[k] += n
         heads = [qg.tensors[t] for t in qg.output_tensors]
-        cosines, exempt = [], {}
+        cosines = []
         for t, q, f in zip(heads, outs, fouts, strict=True):
             a = qmath.dequantize_np(q.cpu().numpy().astype(np.float32), t.quant).ravel()
             b = f.double().cpu().numpy().ravel()
             cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-12))
             cosines.append(round(cos, 5))
-            sat = saturated_convs(qg, t.idx)
-            if sat:
-                exempt[t.name] = sat
-            elif not cos > gate:
+            if not cos > gate:
                 raise AssertionError(f"{name} head {t.name}: cosine {cos:.5f} <= {gate}")
         couts = tt.compile_graph(qg, tt.Options(), device="cpu").run(xq)
         check_within_lsb(f"{name} card vs CPU", outs, couts, heads)
@@ -3876,7 +4017,7 @@ def run_zoo(torch, tt, qmath, native, counters, profile):
         log(f"phase 3 zoo: {name} {tuple(shape)} {scheme}: captured {ms:.3f} ms/batch, "
             f"{cg.cost_analysis()['launches']} device launches a forward, kernels a forward "
             f"{per_forward or 'none'}, heads' cosine vs fp32 "
-            f"{cosines} (gate {gate}; exempt, below a saturated int32 bias: {exempt or 'none'}), "
+            f"{cosines} (gate {gate}; every head; {biases} int32 biases, none at +-(2^31 - 1)), "
             f"card = CPU within 1 LSB, decode: {summary} [{time.time() - t1:.1f} s]")
         del cg
     log(f"phase 3 zoo: captured ms/batch {dict(rows)} [{gpu_name_and_power_limit()}] "
@@ -4584,7 +4725,11 @@ def serve_multihost(torch, tt, qg5, mesh, xs, mine, answers, counters, what) -> 
 # *_uint8 app, or the -q its usage line names; fp32 where there is none):
 # the arguments beyond the defaults. The -m examples read tmfiles the phase
 # writes ({key}: run_clis's files); tm_classification runs in the host tool
-# chain, tm_yolov5 on its own
+# chain, tm_yolov5 on its own. tm_ultraface at its default 240x320 with -t
+# 0.5: faces scored in the stride-32 head's last row decode against the
+# priors the port counts by ceil (the JAX example raises IndexError there,
+# ROADMAP §3)
+ULTRAFACE_SCORES = 17640  # at 240x320: 3·(60·80 + 8·10) + 2·(30·40 + 15·20)
 CLI_EXAMPLES = {
     "tm_efficientdet": ["-q", "uint8"],
     "tm_hrnet": ["-q", "uint8"],
@@ -4600,7 +4745,7 @@ CLI_EXAMPLES = {
     "tm_pose": ["-q", "int8"],
     "tm_scrfd": ["-q", "uint8"],
     "tm_segformer": ["-q", "int8"],
-    "tm_ultraface": ["-q", "uint8"],
+    "tm_ultraface": ["-q", "uint8", "-t", "0.5"],
     "tm_unet": ["-q", "uint8"],
     "tm_vit": ["-q", "int8"],
     "tm_yolov3_full": ["-q", "int8"],
@@ -4739,6 +4884,25 @@ def write_cli_models(tt, ir, tmp):
     return files
 
 
+def check_ultraface_cli(res):
+    """tm_ultraface -t 0.5 at 240x320: ULTRAFACE_SCORES scores and as many
+    priors, faces printed, and the share of them the JAX priors lack (a
+    score in their last 30 rows)."""
+    from tengine_tpu_torch.models.detect_zoo import flatten_ultraface, ultraface_priors
+
+    scores, _ = flatten_ultraface(res["outs"])
+    priors = ultraface_priors(240, 320)
+    prob = np.exp(scores[0]) / np.exp(scores[0]).sum(-1, keepdims=True)
+    if scores.shape[1] != ULTRAFACE_SCORES or len(priors) != ULTRAFACE_SCORES:
+        raise AssertionError(f"tm_ultraface: {scores.shape[1]} scores, {len(priors)} priors")
+    if not len(res["dets"]):
+        raise AssertionError("tm_ultraface -t 0.5: no face printed")
+    log(f"  tm_ultraface -q uint8 -t 0.5 (240x320): {scores.shape[1]} scores and priors, "
+        f"{len(res['dets'])} faces after NMS; {int((prob[:, 1] > 0.5).sum())} scores above "
+        f"0.5, {int((prob[-30:, 1] > 0.5).sum())} of them in the last 30 rows (past the JAX "
+        f"priors' {ULTRAFACE_SCORES - 30})")
+
+
 def run_clis(torch, tt, qmath, ir, counters, default):
     """Phase 3q: the CLIs on the card, in this process unless said.
 
@@ -4873,6 +5037,8 @@ def run_clis(torch, tt, qmath, ir, counters, default):
                 add(check_cli_launches(torch, counters, name, res, launches))
             elif any(launches.values()):
                 raise AssertionError(f"{name}: launches {launches}")
+            if name == "tm_ultraface":
+                check_ultraface_cli(res)
             del res
 
         out, err = proc.communicate(timeout=600)
@@ -4940,6 +5106,7 @@ def main(argv) -> int:
     rng = np.random.default_rng(0)
     images5 = rng.standard_normal((batch, 3, img, img)).astype(np.float32)
     qg5 = tt.quantize_graph(g5, [images5[:1]], scheme="int8", algorithm="minmax")
+    check_no_saturated_bias(qg5, f"yolov5s-{img} int8")
     cg5 = tt.compile_graph(qg5, tt.Options(quant_mode="fast", batch_size=batch))
     stems = [n for n, k in cg5.kernels.items() if k == "lower_conv_quant_pallas_stem"]
     if len(stems) != 1:

@@ -42,6 +42,8 @@ TENSOR_NAME = 3  # name:string
 TENSOR_QUANTIZATION = 4  # quantization:QuantizationParameters
 # table Buffer
 BUFFER_DATA = 0  # data:[ubyte]
+BUFFER_OFFSET = 1  # offset:ulong, from the start of the file; set where > 1
+BUFFER_SIZE = 2  # size:ulong
 # table QuantizationParameters
 QUANT_SCALE = 2  # scale:[float]
 QUANT_ZERO_POINT = 3  # zero_point:[long]
@@ -194,5 +196,16 @@ class Model:
                    oc.scalar(OPCODE_DEPRECATED_BUILTIN_CODE, "b", 0))
 
     def buffer_data(self, index: int) -> np.ndarray:
-        """A buffer's inline bytes (uint8, empty when it has none)."""
-        return self.buffers[index].vector(BUFFER_DATA, np.uint8)
+        """A buffer's bytes (uint8, empty when it has none): inline, or,
+        where its offset is set (> 1, schema.fbs), `size` bytes at `offset`
+        from the start of the file, after the flatbuffer (a model over 2 GB
+        is written so)."""
+        buf = self.buffers[index]
+        offset = buf.scalar(BUFFER_OFFSET, "Q", 0)
+        if offset > 1:
+            size = buf.scalar(BUFFER_SIZE, "Q", 0)
+            if offset + size > len(self.buf):
+                raise ValueError(f"buffer {index}: {size} bytes at {offset} past the file's "
+                                 f"{len(self.buf)}")
+            return np.frombuffer(self.buf, np.uint8, size, offset)
+        return buf.vector(BUFFER_DATA, np.uint8)

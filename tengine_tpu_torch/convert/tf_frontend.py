@@ -33,6 +33,14 @@ the IR's NCHW tensor, so a rank-4 activation is flattened in C-H-W order
 where TF flattens H-W-C. Here a Reshape of a rank-4 activation with
 H*W > 1 first transposes it to NHWC (and a rank-4 result back to NCHW);
 with H*W == 1 the IR is the reference's.
+
+Two ops the reference's importer raises on are imported, so that the
+published TF-slim frozen mobilenet_v1 imports (ROADMAP §3): its logits go
+through SpatialSqueeze (a Squeeze), then slim's softmax tail, a Reshape, a
+Softmax and a Reshape to Shape(logits). Squeeze maps its squeeze_dims from
+NHWC to NCHW axes onto the IR's Squeeze (where the kept axes would not keep
+TF's order, it squeezes an NHWC transpose); a Shape of a tensor whose shape
+is static folds to a const.
 """
 
 from __future__ import annotations
@@ -300,7 +308,8 @@ def from_tf_graphdef(path_or_bytes, input_shape: Optional[List[int]] = None) -> 
     Supported ops: Placeholder/Const/Identity, Conv2D,
     DepthwiseConv2dNative, BiasAdd, FusedBatchNorm(V2/V3), Relu/Relu6/
     LeakyRelu/Sigmoid/Tanh/Softmax, MaxPool/AvgPool/Mean(H,W), MatMul,
-    Add/AddV2/Mul, ConcatV2, Reshape, Pad.
+    Add/AddV2/Mul, ConcatV2, Reshape, Pad, Squeeze, Shape (of a tensor
+    whose shape is static).
     """
     if isinstance(path_or_bytes, (bytes, bytearray, memoryview)):
         nodes = parse_graphdef(bytes(path_or_bytes))
@@ -311,6 +320,7 @@ def from_tf_graphdef(path_or_bytes, input_shape: Optional[List[int]] = None) -> 
     g = Graph(name="tf", source_format="tensorflow")
     env: Dict[str, int] = {}
     const_vals: Dict[str, np.ndarray] = {}
+    shapes: set = set()  # the consts folded from a Shape
 
     def const(name: str, arr: np.ndarray) -> int:
         arr = np.ascontiguousarray(arr)
@@ -501,7 +511,32 @@ def from_tf_graphdef(path_or_bytes, input_shape: Optional[List[int]] = None) -> 
             emit("Concat", name, [inp(node, i) for i in range(n_in)], dict(axis=axis))
         elif op == "Reshape":
             shape = [int(v) for v in np.asarray(cval(node, 1)).reshape(-1)]
+            if ref(node.input[1]) in shapes:
+                # a Shape folded at the import's batch: the batch is the
+                # input's (0 copies it), so that the graph runs at any batch
+                shape[0] = 0
             reshape_nhwc(g, emit, name, inp(node, 0), shape)
+        elif op == "Shape":
+            sh = _static_shape(g, inp(node, 0))
+            if len(sh) == 4:
+                sh = [sh[0], sh[2], sh[3], sh[1]]  # NCHW -> TF's NHWC
+            const_vals[name] = np.asarray(sh, np.int32)
+            shapes.add(name)
+        elif op == "Squeeze":
+            src = inp(node, 0)
+            sh = _static_shape(g, src)
+            tf_sh = [sh[0], sh[2], sh[3], sh[1]] if len(sh) == 4 else sh
+            dims = sorted({int(d) % len(sh) for d in _attr_list(node, "squeeze_dims")}
+                          or {k for k, d in enumerate(tf_sh) if d == 1})
+            if len(sh) == 4:
+                kept = [k for k in range(4) if k not in dims]
+                if 3 in kept and (1 in kept or 2 in kept):
+                    # C kept beside H or W: the NCHW squeeze would not keep
+                    # TF's order of them
+                    src = emit("Transpose", f"{name}/nhwc", [src], dict(perm=[0, 2, 3, 1]))
+                else:
+                    dims = [(0, 2, 3, 1)[d] for d in dims]  # NHWC axis -> NCHW axis
+            emit("Squeeze", name, [src], {f"dim_{k}": int(k in dims) for k in range(4)})
         elif op == "Pad":
             pads = np.asarray(cval(node, 1)).reshape(-1, 2)  # NHWC rows
             emit("Pad", name, [inp(node, 0)], dict(

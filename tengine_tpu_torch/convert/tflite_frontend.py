@@ -7,15 +7,19 @@ PyTorch port of tengine_tpu/convert/tflite_frontend.py. That module reads
 the flatbuffer through the schema classes bundled with tensorflow; this one
 imports no tensorflow and no flatbuffers package: it reads the file with the
 port's own reader (convert/_flatbuf.py), which knows the slots of the fields
-read here and their schema defaults. Like the reference it reads only a
-buffer's inline data.
+read here and their schema defaults. It reads a buffer's inline data, or
+the bytes that Buffer.offset / size place after the flatbuffer (the JAX
+importer reads only the inline data).
 
 TFLite is the quantization-native interchange format: per-tensor uint8
 asymmetric and per-channel int8 tensors carry (scale, zero_point) exactly
 like tmfile quant params, so quantized .tflite models import straight onto
 the quantized execution engine (quant params land in Tensor.quant; conv
 weights are dequantize-free). Per-channel zero points import as the file
-gives them.
+gives them. INT8 activations carry QuantParam.full_range: TFLite's int8
+tensors span [-128, 127], where the reference's symmetric int8 clips at
++-127; the JAX importer leaves the flag unset (ROADMAP §3), and the port's
+TM2 writer records it (serializer/tm2/writer.py:_w_attrs).
 
 Layouts: TFLite activations are NHWC and conv weights OHWI / depthwise
 1HWC(M); the importer transposes to the IR's NCHW / OIHW convention like the
@@ -83,7 +87,10 @@ def from_tflite(path_or_bytes, input_shape: Optional[List[int]] = None) -> Graph
     def name_of(i: int) -> str:
         return (tensors[i].string(fb.TENSOR_NAME) or b"").decode()
 
-    def quant_of(i: int) -> Optional[QuantParam]:
+    def quant_of(i: int, activation: bool) -> Optional[QuantParam]:
+        """Tensor i's grid. An INT8 activation's spans TFLite's [-128, 127]
+        (full_range; the JAX importer leaves it unset, so its engine clips
+        such a tensor at -127, ROADMAP §3); a weight's is data."""
         q = tensors[i].table(fb.TENSOR_QUANTIZATION)
         if q is None:
             return None
@@ -93,8 +100,11 @@ def from_tflite(path_or_bytes, input_shape: Optional[List[int]] = None) -> Graph
         zps = q.vector(fb.QUANT_ZERO_POINT, np.int64)
         zps = zps.astype(np.int32) if len(zps) else np.zeros(len(scales), np.int32)
         if len(scales) == 1:
-            return QuantParam.per_tensor(float(scales[0]), int(zps[0]), width=8)
-        return QuantParam(scales=scales, zero_points=zps, width=8)
+            qp = QuantParam.per_tensor(float(scales[0]), int(zps[0]), width=8)
+        else:
+            qp = QuantParam(scales=scales, zero_points=zps, width=8)
+        qp.full_range = activation and _DT.get(type_of(i)) == DType.INT8
+        return qp
 
     def tensor_data(i: int) -> Optional[np.ndarray]:
         raw = model.buffer_data(tensors[i].scalar(fb.TENSOR_BUFFER, "I", 0))
@@ -111,7 +121,7 @@ def from_tflite(path_or_bytes, input_shape: Optional[List[int]] = None) -> Graph
         name = name_of(i) + name_suffix
         dtype = _DT[type_of(i)]
         data = tensor_data(i)
-        quant = quant_of(i)
+        quant = quant_of(i, activation=data is None)
         if data is not None:
             if transform is not None:
                 data = transform(data)
@@ -134,7 +144,7 @@ def from_tflite(path_or_bytes, input_shape: Optional[List[int]] = None) -> Graph
         else:
             shape = dims
         tt = g.add_tensor(name_of(i) or "in", _DT[type_of(i)], shape,
-                          TensorType.INPUT, quant=quant_of(i))
+                          TensorType.INPUT, quant=quant_of(i, activation=True))
         n = g.add_node("InputOp", tt.name, [], [tt.idx])
         g.inputs.append(n.idx)
         tmap[i] = tt.idx

@@ -136,14 +136,21 @@ class ConstIn:
 class DequantConstIn(ConstIn):
     """Const input materialized pre-dequantized on the host — used when a
     float kernel consumes a quantized const under the generic fallback.
-    Per-channel scales assume axis 0 (tmfile weight convention)."""
+    Per-channel grids run over the consumer's output channels
+    (qmath.weight_channels: axis 0, but a Deconvolution weight's along
+    axis 1 by group)."""
+
+    def __init__(self, tensor: Tensor, store: ParamStore, node):
+        super().__init__(tensor, store)
+        self._op, self._group = node.op, node.params.get("group", 1)
 
     @property
     def x(self):
         t = self._t
         return self._store.get(
             f"t{t.idx}/dequant",
-            lambda: qmath.dequantize_np(t.data, t.quant, channel_axis=0).astype(np.float32),
+            lambda: qmath.dequantize_weight_np(t.data, t.quant, self._op,
+                                               self._group).astype(np.float32),
         )
 
 
@@ -471,7 +478,7 @@ class _Step(NamedTuple):
                 a = env[tid]
                 args.append(TArr(qmath.dequantize(a.x, t.quant), a.layout) if quant else a)
             elif t.is_const:
-                args.append(DequantConstIn(t, store) if quant else ConstIn(t, store))
+                args.append(DequantConstIn(t, store, self.node) if quant else ConstIn(t, store))
             else:
                 raise RuntimeError(
                     f"tensor {t.name!r} consumed by {self.node.name!r} before production")

@@ -799,11 +799,15 @@ def _is_conv_geom(g: Graph, n, k: int, strides=(1,), pad: int = 0) -> bool:
 
 
 def _sym_int8_act(t) -> bool:
+    """A symmetric INT8 activation: zero point 0, clipped at +-127 as the
+    chain kernel clips. A full-range grid (a TFLite import's, the
+    native-int8 plan's) clips at -128, which the kernel does not."""
     return (
         t.quant is not None
         and not t.quant.per_channel
         and t.dtype.name == "INT8"
         and int(np.asarray(t.quant.zero_points).reshape(-1)[0]) == 0
+        and not t.quant.full_range
     )
 
 

@@ -373,12 +373,18 @@ def decode_ultraface(scores, boxes, priors, score_threshold=0.7,
 
 
 def ultraface_priors(img_h=240, img_w=320):
-    """Anchor grid matching UltraFace's 4 scales (normalized cx,cy,w,h)."""
+    """Anchor grid matching UltraFace's 4 scales (normalized cx,cy,w,h).
+
+    ceil(size / stride) cells a scale, as the convs give and as the
+    upstream project computes its feature maps (Linzaer's
+    Ultra-Light-Fast-Generic-Face-Detector, vision/ssd/config/fd_config.py).
+    The JAX package counts floor(size / stride): 17,610 priors against the
+    net's 17,640 scores at the default 240x320 (ROADMAP §3)."""
     min_boxes = [[10, 16, 24], [32, 48], [64, 96], [128, 192, 256]]
     strides = [4, 8, 16, 32]
     priors = []
     for stride, sizes in zip(strides, min_boxes):
-        fh, fw = img_h // stride, img_w // stride
+        fh, fw = -(-img_h // stride), -(-img_w // stride)
         for y in range(fh):
             for x in range(fw):
                 for s in sizes:

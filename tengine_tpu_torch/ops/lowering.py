@@ -174,7 +174,7 @@ def lower_deconv(ctx: LowerCtx, x: TArr, *rest: TArr):
         if t_w.quant is not None and not np.issubdtype(a.dtype, np.floating):
             from . import qmath
 
-            a = qmath.dequantize_np(a, t_w.quant, channel_axis=0)
+            a = qmath.dequantize_weight_np(a, t_w.quant, "Deconvolution", group)
         return a.astype(np.float32)
 
     w = ctx.weight(1, weight_f32, tag="iohw_f32")

@@ -143,6 +143,59 @@ def quantize_np(x: np.ndarray, quant: QuantParam, dtype: DType, channel_axis: Op
     return np.clip(q, lo, hi).astype(dtype.np)
 
 
+# --- a weight's output channels ------------------------------------------------
+#
+# Per-channel weight grids run over a node's output channels. A Convolution
+# or FullyConnected weight holds them on axis 0 ([C_out, C_in/g, kh, kw],
+# [C_out, K]). A Deconvolution weight is [C_in, C_out/g, kh, kw]: element
+# [i, j] feeds output channel (i // (C_in/g))·(C_out/g) + j, so for g > 1
+# its C_out channels lie along no one axis. The JAX package takes axis 0 for
+# a Deconvolution too, and so gives it C_in scales against C_out biases
+# (ROADMAP §3). Every per-channel quantize and dequantize of a weight goes
+# through these helpers.
+
+
+def weight_channels(op: str, shape, group: int = 1) -> np.ndarray:
+    """The output channel each element of an `op` weight of `shape` feeds,
+    as an integer array that broadcasts against the weight. A 1-D const (a
+    bias) and every op but Deconvolution: axis 0."""
+    shape = tuple(int(d) for d in shape)
+    if op == "Deconvolution" and len(shape) == 4:
+        c_in, ocg = shape[:2]
+        ch = (np.arange(c_in) // (c_in // group))[:, None] * ocg + np.arange(ocg)
+        return ch.reshape(c_in, ocg, 1, 1)
+    return np.arange(shape[0]).reshape((shape[0],) + (1,) * (len(shape) - 1))
+
+
+def weight_absmax(w: np.ndarray, op: str, group: int = 1) -> np.ndarray:
+    """max |w| over each output channel, in output-channel order: a
+    Deconvolution's [C_in, C_out/g, kh, kw] as [g, C_in/g, C_out/g, kh·kw],
+    the max over axes 1 and 3."""
+    if op == "Deconvolution" and w.ndim == 4:
+        c_in, ocg = w.shape[:2]
+        return np.abs(w.reshape(group, c_in // group, ocg, -1)).max(axis=(1, 3)).reshape(-1)
+    return np.abs(w.reshape(w.shape[0], -1)).max(axis=1)
+
+
+def dequantize_weight_np(w: np.ndarray, quant: QuantParam, op: str, group: int = 1):
+    """dequantize_np of an `op` weight, per-channel grids by output channel."""
+    if not quant.per_channel:
+        return dequantize_np(w, quant)
+    ch = weight_channels(op, w.shape, group)
+    return (w.astype(np.float32) - np.asarray(quant.zero_points)[ch]) * np.asarray(
+        quant.scales)[ch]
+
+
+def quantize_weight_np(w: np.ndarray, quant: QuantParam, dtype: DType, op: str, group: int = 1):
+    """quantize_np of an `op` weight, per-channel grids by output channel."""
+    if not quant.per_channel:
+        return quantize_np(w, quant, dtype)
+    lo, hi = qrange(dtype, quant)
+    ch = weight_channels(op, w.shape, group)
+    q = round_away_np(w / np.asarray(quant.scales)[ch]) + np.asarray(quant.zero_points)[ch]
+    return np.clip(q, lo, hi).astype(dtype.np)
+
+
 def is_quantized_tensor(t: Tensor) -> bool:
     return t.quant is not None and t.dtype in (DType.UINT8, DType.INT8)
 

@@ -846,7 +846,7 @@ def lower_conv_quant_ref(ctx: LowerCtx, x: TArr, *rest: TArr):
     # in float64)
     w = ctx.weight(
         1,
-        lambda a: qmath.dequantize_np(a, t_w.quant, channel_axis=0).astype(np.float32),
+        lambda a: qmath.dequantize_weight_np(a, t_w.quant, "Convolution").astype(np.float32),
         tag="oihw_deq",
     )
     out = conv2d_nhwc(xf, w, pads, (p["stride_h"], p["stride_w"]), (dil_h, dil_w), p["group"])
@@ -937,7 +937,7 @@ def lower_fc_quant_ref(ctx: LowerCtx, x: TArr, *rest: TArr):
     w = ctx.weight(
         1,
         lambda a: np.ascontiguousarray(
-            qmath.dequantize_np(a, t_w.quant, channel_axis=0).astype(np.float32).T
+            qmath.dequantize_weight_np(a, t_w.quant, "FullyConnected").astype(np.float32).T
         ),
         tag="kt_deq",
     )

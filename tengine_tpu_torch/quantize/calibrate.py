@@ -18,6 +18,7 @@ import torch
 
 from ..executor.engine import ParamStore, build_forward, resolve_device
 from ..graph.ir import Graph, QuantParam, TensorType
+from ..ops import qmath
 from ..utils.config import Options
 
 
@@ -199,13 +200,14 @@ def aciq_int8(stats: ActivationStats, width: int = 8) -> QuantParam:
     return QuantParam.per_tensor(alpha / qmax if alpha > 0 else 1e-4, 0, width=8)
 
 
-def weight_quant_int8_perchannel(w: np.ndarray) -> QuantParam:
+def weight_quant_int8_perchannel(w: np.ndarray, op: str = "Convolution",
+                                 group: int = 1) -> QuantParam:
     """Per-output-channel symmetric int8 weights (quant_tool_int8.cpp weight
-    pass): scale[c] = max|w[c]|/127."""
-    flat = np.abs(w.reshape(w.shape[0], -1))
-    amax = flat.max(axis=1)
+    pass): scale[c] = max|w[c]|/127, over the output channels of an `op`
+    weight (qmath.weight_absmax: a Deconvolution's lie along axis 1)."""
+    amax = qmath.weight_absmax(w, op, group)
     scales = np.where(amax > 0, amax / 127.0, 1e-4).astype(np.float32)
-    return QuantParam(scales=scales, zero_points=np.zeros(w.shape[0], np.int32), width=8)
+    return QuantParam(scales=scales, zero_points=np.zeros(scales.size, np.int32), width=8)
 
 
 def weight_quant_uint8(w: np.ndarray) -> QuantParam:

@@ -32,11 +32,12 @@ import torch
 import torch.nn.functional as F
 
 from ..executor.engine import resolve_device
-from ..graph.ir import DType, Graph
+from ..graph.ir import DType, Graph, QuantParam
 from ..ops import qmath
 from ..utils.config import Options
 from ..utils.log import logger
 from .calibrate import tensors_by_batch
+from .quantizer import fit_bias, quantize_bias
 
 # the reference's zoom grid: snum = 0,20,...,180 -> 1.3*(snum+1)/200
 ZOOMS = tuple(1.3 * (snum + 1) / 200.0 for snum in range(0, 200, 20))
@@ -173,29 +174,23 @@ def eq_adjust_weights(
             best_zoom = np.where(better, np.float32(z), best_zoom)
 
         new_scales = (base * best_zoom).astype(np.float32)
-        wt_q.quant.scales = new_scales
-        wt_q.quant.zero_points = np.zeros(out_c, np.int32)
-        wt_q.data = qmath.quantize_np(w, wt_q.quant, DType.INT8, channel_axis=0)
+        wq = QuantParam(scales=new_scales, zero_points=np.zeros(out_c, np.int32), width=8)
 
-        # bias rescale: b_q = round(b / (s_in * s_w[c]))
+        # bias rescale: b_q = round(b / (s_in * s_w[c])), the scales raised
+        # where a bias would not fit (quantizer.fit_bias)
+        bt = xin = None
         if b is not None and len(n.inputs) > b_idx:
-            bt = qgraph.tensors[n.inputs[b_idx]]
-            xin = qgraph.tensors[n.inputs[0]]
-            if xin.quant is not None and bt.dtype == DType.INT32:
-                s_in = float(np.asarray(xin.quant.scales).reshape(-1)[0])
-                b_scales = s_in * new_scales
-                safe = np.where(b_scales == 0.0, 1.0, b_scales).astype(np.float64)
-                bq = qmath.round_away_np(b.astype(np.float64) / safe)
-                bt.data = (
-                    np.where(
-                        b_scales == 0.0,
-                        0.0,
-                        np.clip(bq, float(-(2**31) + 1), float(2**31 - 1)),
-                    )
-                    .astype(np.int64)
-                    .astype(np.int32)
-                )
-                bt.quant.scales = b_scales.astype(np.float32)
+            bt, xin = qgraph.tensors[n.inputs[b_idx]], qgraph.tensors[n.inputs[0]]
+            if xin.quant is None or bt.dtype != DType.INT32:
+                bt = None
+        if bt is not None:
+            s_in = float(np.asarray(xin.quant.scales).reshape(-1)[0])
+            wq = fit_bias(wq, w, b, s_in, asymmetric=False)
+            bt.data = b.copy()
+            quantize_bias(bt, wq, s_in)
+        wt_q.quant.scales = wq.scales
+        wt_q.quant.zero_points = wq.zero_points
+        wt_q.data = qmath.quantize_weight_np(w, wt_q.quant, DType.INT8, n.op)
         adjusted += 1
         logger.debug(
             "eq: %s mean zoom %.3f mean cos %.5f", n.name, float(best_zoom.mean()),

@@ -38,6 +38,80 @@ _KEEP_FLOAT_OUTPUT_OPS = {"DetectionOutput", "RPN", "TopKV2", "ArgMax", "ArgMin"
 # weight-carrying ops: (weight input index, bias input index or None)
 _WEIGHTED = {"Convolution": (1, 2), "FullyConnected": (1, 2), "Deconvolution": (1, 2)}
 
+INT32_MAX = 2**31 - 1
+# where a bias does not fit, the weight scale is raised until the bias lands
+# here: half the int32 range (fit_bias)
+BIAS_TARGET = 2**30
+
+
+def _s_in(t) -> float:
+    return float(np.asarray(t.quant.scales).reshape(-1)[0])
+
+
+def _bias_scales(wq: QuantParam, n: int, s_in: float) -> np.ndarray:
+    """s_in * s_w[c] over the n output channels, in float32 as stored."""
+    w_scales = np.asarray(wq.scales, np.float32).reshape(-1)
+    if w_scales.size == 1:
+        w_scales = np.full((n,), w_scales[0], np.float32)
+    return s_in * w_scales
+
+
+def fit_bias(wq: QuantParam, w: np.ndarray, b: np.ndarray, s_in: float,
+             asymmetric: bool) -> QuantParam:
+    """The weight grid with each scale raised where the int32 bias
+    round(b / (s_in·s_w)) would not fit: that channel's scale (the one
+    scale of a per-tensor UINT8 grid, its zero point recomputed as
+    weight_quant_uint8 computes it where `asymmetric`) goes to
+    |b| / (s_in·2^30), so that the
+    bias lands at half the int32 range. Half, not all of it: at 2^31 - 1
+    the f32 roundings of s_in·s_w could push it back onto the clip, and an
+    int32 accumulator that adds the bias (the reference's C kernels) keeps
+    2^30 of room for the products. TFLite's post-training quantizer raises
+    a weight scale for the same reason (AdjustWeightsForBiasScale,
+    tensorflow/lite/tools/optimize/quantization_utils.cc). The JAX
+    quantizer clips the bias at +-(2^31 - 1), which zeroes the seeded
+    YOLOX's coarser heads (ROADMAP §3). Where every bias fits, `wq` is
+    returned as it is, and the graph is the JAX quantizer's."""
+    b = np.asarray(b, np.float64).reshape(-1)
+    b_scales = _bias_scales(wq, b.size, s_in)
+    safe = np.where(b_scales == 0.0, 1.0, b_scales).astype(np.float64)
+    over = (np.abs(qmath.round_away_np(b / safe)) > INT32_MAX) & (b_scales > 0.0)
+    if not over.any():
+        return wq
+    need = np.abs(b) / (s_in * float(BIAS_TARGET))
+    if not wq.per_channel:
+        scale = max(float(np.asarray(wq.scales).reshape(-1)[0]), float(need[over].max()))
+        zp = np.asarray(wq.zero_points).copy()
+        if asymmetric:
+            zp[...] = int(np.clip(round(-min(float(w.min()), 0.0) / scale), 0, 255))
+        return QuantParam(scales=np.full_like(np.asarray(wq.scales, np.float32), scale),
+                          zero_points=zp, width=wq.width)
+    scales = np.where(over, np.maximum(wq.scales, need), wq.scales).astype(np.float32)
+    return QuantParam(scales=scales, zero_points=np.asarray(wq.zero_points).copy(),
+                      width=wq.width)
+
+
+def quantize_bias(bt, wq: QuantParam, s_in: float) -> None:
+    """bt becomes the int32 bias at scales s_in * s_w[c]. float64
+    throughout: in float32 the clip bound 2^31-1 rounds UP to 2^31 and the
+    int32 cast overflows for saturated biases. Zero scales (all-zero weight
+    channel) contribute 0 downstream (the requant multiplier is 0 too), so
+    the bias is 0 there."""
+    b_scales = _bias_scales(wq, bt.data.size, s_in)
+    safe = np.where(b_scales == 0.0, 1.0, b_scales).astype(np.float64)
+    bq = qmath.round_away_np(bt.data.astype(np.float64) / safe)
+    bt.data = (
+        np.where(b_scales == 0.0, 0.0, np.clip(bq, float(-INT32_MAX), float(INT32_MAX)))
+        .astype(np.int64)
+        .astype(np.int32)
+    )
+    bt.dtype = DType.INT32
+    bt.quant = QuantParam(
+        scales=b_scales.astype(np.float32),
+        zero_points=np.zeros(b_scales.size, np.int32),
+        width=32,
+    )
+
 
 def quantize_graph(
     graph: Graph,
@@ -178,43 +252,22 @@ def quantize_graph(
             continue
         wt = q.tensors[n.inputs[w_idx]]
         w = wt.data.astype(np.float32)
+        group = n.params.get("group", 1) if n.op == "Deconvolution" else 1
+        w_dtype = DType.UINT8 if scheme == "uint8" else DType.INT8
         if scheme == "uint8":
             wq = weight_quant_uint8(w)
-            wt.data = qmath.quantize_np(w, wq, DType.UINT8)
-            wt.dtype = DType.UINT8
         else:
-            wq = weight_quant_int8_perchannel(w)
-            wt.data = qmath.quantize_np(w, wq, DType.INT8, channel_axis=0)
-            wt.dtype = DType.INT8
-        wt.quant = wq
-
+            wq = weight_quant_int8_perchannel(w, n.op, group)
+        bt = xin = None
         if b_idx is not None and len(n.inputs) > b_idx:
-            bt = q.tensors[n.inputs[b_idx]]
-            xin = q.tensors[n.inputs[0]]
-            if xin.quant is None:
-                continue
-            s_in = float(np.asarray(xin.quant.scales).reshape(-1)[0])
-            w_scales = np.asarray(wq.scales, np.float32).reshape(-1)
-            if w_scales.size == 1:
-                w_scales = np.full((bt.data.size,), w_scales[0], np.float32)
-            b_scales = s_in * w_scales
-            # float64 throughout: in float32 the clip bound 2^31-1 rounds UP
-            # to 2^31 and the int32 cast overflows for saturated biases.
-            # zero scales (all-zero weight channel) contribute 0 downstream
-            # (requant multiplier is 0 too), so store bias 0 there.
-            safe = np.where(b_scales == 0.0, 1.0, b_scales).astype(np.float64)
-            bq = qmath.round_away_np(bt.data.astype(np.float64) / safe)
-            bt.data = (
-                np.where(b_scales == 0.0, 0.0, np.clip(bq, float(-(2**31) + 1), float(2**31 - 1)))
-                .astype(np.int64)
-                .astype(np.int32)
-            )
-            bt.dtype = DType.INT32
-            bt.quant = QuantParam(
-                scales=b_scales.astype(np.float32),
-                zero_points=np.zeros(b_scales.size, np.int32),
-                width=32,
-            )
+            bt, xin = q.tensors[n.inputs[b_idx]], q.tensors[n.inputs[0]]
+        if bt is not None and xin.quant is not None:
+            wq = fit_bias(wq, w, bt.data, _s_in(xin), asymmetric=scheme == "uint8")
+        wt.data = qmath.quantize_weight_np(w, wq, w_dtype, n.op, group)
+        wt.dtype = w_dtype
+        wt.quant = wq
+        if bt is not None and xin.quant is not None:
+            quantize_bias(bt, wq, _s_in(xin))
 
     q._is_quantized = True
 

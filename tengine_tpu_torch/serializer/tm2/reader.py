@@ -616,22 +616,27 @@ def _graph_from_wire(
     return g
 
 
-def _attr_params(b: Blob, op_name: str, off_attrs: int) -> Dict[str, Any]:
-    """The params a node's attribute list carries (TM2_Attr {offset_s_attrname,
-    offset_s_attrval, attr_type}): an Eltwise's fused activation, which the
-    port's writer records there (writer.py:_w_attrs)."""
-    out: Dict[str, Any] = {}
-    if op_name != "Eltwise" or off_attrs == TM2_NOT_SET:
-        return out
+def _apply_attrs(b: Blob, g: Graph, n, off_attrs: int) -> None:
+    """What a node's attribute list (TM2_Attr {offset_s_attrname,
+    offset_s_attrval, attr_type}) carries, as the port's writer records it
+    (writer.py:_w_attrs): an Eltwise's fused activation into its params,
+    and "full_range" onto the grids of the outputs it lists."""
+    if off_attrs == TM2_NOT_SET:
+        return
     for aoff in b.vec_u32(off_attrs):
         off_name, off_val, _ = b.unpack("IIi", aoff)
-        if b.string(off_name) == "activation":
-            out["activation"] = int(b.string(off_val))
-    return out
+        key, val = b.string(off_name), b.string(off_val)
+        if key == "activation" and n.op == "Eltwise":
+            n.params["activation"] = int(val)
+        elif key == "full_range":
+            for k in val.split(","):
+                q = g.tensors[n.outputs[int(k)]].quant
+                if q is not None:
+                    q.full_range = True
 
 
 def _read_node_attrs(b: Blob, g: Graph) -> None:
-    """Add to the graph the params of its nodes' attribute lists (the native
+    """Add to the graph what its nodes' attribute lists carry (the native
     parser does not read them)."""
     root = b.u32(8)
     (off_subgraphs,) = b.unpack("I", root + 8)
@@ -639,7 +644,7 @@ def _read_node_attrs(b: Blob, g: Graph) -> None:
     (off_nodes,) = b.unpack("I", soff + 12 + 8)
     for noff in b.vec_u32(off_nodes):
         node_id, _, _, _, _, off_attrs = b.unpack("6I", noff)
-        g.nodes[node_id].params.update(_attr_params(b, g.nodes[node_id].op, off_attrs))
+        _apply_attrs(b, g, g.nodes[node_id], off_attrs)
 
 
 def _fill_missing(t, fill_missing_weights: str, rng) -> np.ndarray:
@@ -761,7 +766,6 @@ def load_tm_bytes_py(data: bytes, name: str = "", fill_missing_weights: str = "z
         params: Dict[str, Any] = {}
         if off_param != TM2_NOT_SET and op_name in PARAM_PARSERS:
             params = PARAM_PARSERS[op_name](b, off_param)
-        params.update(_attr_params(b, op_name, off_attrs))
         n = g.add_node(
             op=op_name,
             name=b.string(off_nname),
@@ -770,6 +774,7 @@ def load_tm_bytes_py(data: bytes, name: str = "", fill_missing_weights: str = "z
             params=params,
         )
         assert n.idx == node_id, f"non-sequential node id {node_id}"
+        _apply_attrs(b, g, n, off_attrs)
 
     # --- graph I/O (tm2_serializer.c:734-768) ---
     g.inputs = b.vec_u32(off_in)

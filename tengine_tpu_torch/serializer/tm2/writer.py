@@ -178,18 +178,27 @@ def _w_unsqueeze(b: Blob, p: Dict[str, Any]) -> int:
     return b.pack("I", off)
 
 
-def _w_attrs(b: Blob, n) -> int:
+def _w_attrs(b: Blob, n, graph: Graph) -> int:
     """The node's attribute list (TM2_Node.offset_vo_attrs: TM2_Attr
-    {offset_s_attrname, offset_s_attrval, attr_type}). One attribute is
-    written: an Eltwise's fused activation, which split_concat_conv1x1 moves
-    onto a sum and the Eltwise param record has no field for. The JAX
-    package writes no attributes and its reader skips them, so every other
-    node's bytes are its writer's."""
+    {offset_s_attrname, offset_s_attrval, attr_type}). Two attributes are
+    written: "activation", an Eltwise's fused activation, which
+    split_concat_conv1x1 moves onto a sum and the Eltwise param record has
+    no field for; and "full_range", the positions of the node's outputs
+    ("0", "0,2") whose INT8 grid spans [-128, 127] (QuantParam.full_range:
+    a TFLite full-int8 import's activations), which TM2_QuantParam has no
+    field for. The JAX package writes no attributes and its reader skips
+    them, so every other node's bytes are its writer's."""
+    attrs = []
     act = n.params.get("activation", -1) if n.op == "Eltwise" else -1
-    if act is None or act < 0:
+    if act is not None and act >= 0:
+        attrs.append(("activation", str(int(act))))
+    full = [str(k) for k, tid in enumerate(n.outputs)
+            if graph.tensors[tid].quant is not None and graph.tensors[tid].quant.full_range]
+    if full:
+        attrs.append(("full_range", ",".join(full)))
+    if not attrs:
         return TM2_NOT_SET
-    off = b.pack("IIi", b.string("activation"), b.string(str(int(act))), 0)
-    return b.vec_u32([off])
+    return b.vec_u32([b.pack("IIi", b.string(k), b.string(v), 0) for k, v in attrs])
 
 
 PARAM_WRITERS = {
@@ -372,7 +381,7 @@ def graph_to_tm_bytes(graph: Graph) -> bytes:
         off_out = b.vec_u32(n.outputs)
         off_name = b.string(n.name)
         node_offsets.append(
-            b.pack("6IBxxx", n.idx, off_in, off_out, off_op, off_name, _w_attrs(b, n), 0)
+            b.pack("6IBxxx", n.idx, off_in, off_out, off_op, off_name, _w_attrs(b, n, graph), 0)
         )
 
     # --- subgraph ---

@@ -16,6 +16,13 @@ and the TM2 Eltwise activation it writes, on the CPU.
     and the Python one) gives outputs equal to the in-memory optimized
     graph, and the JAX reader reads the same bytes into the JAX writer's
     graph without the activation.
+  * A TFLite full-int8 import's activations carry QuantParam.full_range
+    (their grids span [-128, 127]), which TM2_QuantParam has no field for;
+    the writer records it in the producer node's attribute list. Through
+    the tool (in process) and read back by either parser, every activation
+    keeps the flag and the outputs equal the in-memory import's; the JAX
+    reader skips the attribute and reads the JAX writer's graph without
+    the flags.
 """
 
 import functools
@@ -227,4 +234,67 @@ def test_jax_reader_skips_the_activation_attribute(converted):
     for native in (True, False):
         jg = jt.load_tm_bytes(data) if native else load_tm_bytes_py(data)
         assert not any("activation" in n.params for n in jg.nodes if n.op == "Eltwise")
+        assert jax_bytes(jg) == want
+
+
+@functools.lru_cache(maxsize=None)
+def int8_tflite():
+    """chip_smoke's narrow mobilenet as encode_tflite's full-int8 file, on
+    the UINT8 MinMax grids of its fp32 import, and its input shape."""
+    from tengine_tpu_torch.convert.tflite_frontend import from_tflite
+
+    layers, shape = _mobilenet()
+    (blob,) = chip_smoke.encode_tflite(layers, shape)[0].values()
+    x = np.random.default_rng(11).standard_normal((1, *shape[1:])).astype(np.float32)
+    qg = pt.quantize_graph(from_tflite(blob), [x], scheme="uint8", algorithm="minmax",
+                           device="cpu")
+    (blob8,) = chip_smoke.encode_tflite(layers, shape, chip_smoke.tflite_grids(qg))[0].values()
+    return blob8, shape
+
+
+def full_range_flags(g):
+    return {t.name: t.quant.full_range for t in g.tensors if t.quant is not None}
+
+
+@pytest.mark.parametrize("parser", ["native", "python"])
+def test_full_range_survives_the_tool(parser, tmp_path, monkeypatch):
+    from tengine_tpu_torch.convert.tflite_frontend import from_tflite
+
+    blob, shape = int8_tflite()
+    (tmp_path / "m.tflite").write_bytes(blob)
+    out = tmp_path / "m.tmfile"
+    convert_tool.main(["-f", "tflite", "-m", str(tmp_path / "m.tflite"), "--input-shape",
+                       ",".join(map(str, shape)), "--optimize", "-o", str(out)])
+    monkeypatch.setenv("TT_NATIVE_PARSER", "1" if parser == "native" else "0")
+    g, want = pt.load_model(str(out)), optimize(from_tflite(blob))
+    flags = full_range_flags(g)
+    assert flags == full_range_flags(want)
+    acts = [t for t in g.tensors if t.data is None and t.dtype == pir.DType.INT8]
+    assert len(acts) == 30 and all(flags[t.name] for t in acts)
+    assert not any(flags[t.name] for t in g.tensors if t.data is not None and t.quant is not None)
+    x = np.random.default_rng(3).integers(-128, 128, [1, *shape[1:]]).astype(np.int8)
+    got = pt.compile_graph(g, pt.Options(quant_mode="fast"), device="cpu").run(x)
+    ref = pt.compile_graph(want, pt.Options(quant_mode="fast"), device="cpu").run(x)
+    for a, b in zip(got, ref, strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_jax_reader_skips_the_full_range_attribute():
+    """The port's bytes of the full-int8 import, read by the JAX package
+    (native and Python parsers): the JAX writer's graph of the same import
+    with every flag unset, which is also the port's writer's bytes of it."""
+    from tengine_tpu.convert.tflite_frontend import from_tflite as jax_from_tflite
+    from tengine_tpu_torch.convert.tflite_frontend import from_tflite
+
+    blob, _ = int8_tflite()
+    g = from_tflite(blob)
+    data = pt.graph_to_tm_bytes(g)
+    bare = g.clone()
+    for t in bare.tensors:
+        if t.quant is not None:
+            t.quant.full_range = False
+    want = pt.graph_to_tm_bytes(bare)
+    assert want != data and want == jax_bytes(jax_from_tflite(blob))
+    for jg in (jt.load_tm_bytes(data), load_tm_bytes_py(data)):
+        assert not any(t.quant.full_range for t in jg.tensors if t.quant is not None)
         assert jax_bytes(jg) == want

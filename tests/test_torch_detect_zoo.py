@@ -167,7 +167,10 @@ def test_fp32_matches_the_module_and_decoders_equal_jax(name):
 def test_scrfd_anchor_centers_equal_jax():
     for h, w, stride in ((8, 8, 8), (5, 7, 16), (2, 2, 32)):
         _equal(pz2.scrfd_anchor_centers(h, w, stride), jz2.scrfd_anchor_centers(h, w, stride))
-    _equal(pz1.ultraface_priors(240, 320), jz1.ultraface_priors(240, 320))
+    # at a size whose maps are whole multiples of the strides: at 240x320
+    # the port counts ceil(size / stride) cells where JAX counts floor
+    # (tests/test_torch_examples2.py::test_ultraface_priors_fall_short_at_the_default_size)
+    _equal(pz1.ultraface_priors(256, 320), jz1.ultraface_priors(256, 320))
 
 
 def test_yolov4_tiny_decode_equals_jax():
@@ -184,15 +187,17 @@ def test_yolov4_tiny_decode_equals_jax():
 
 
 def test_yolox_int8_bias_saturation_is_shared():
-    """The seeded YOLOX's activations shrink through its SiLU stacks to
-    scales of 1e-9 to 1e-11 at the heads, where a head's float bias over
-    s_in * s_w no longer fits int32: both quantizers saturate it at
-    +-(2^31 - 1), and both engines then give the two coarser heads all
-    zero (ROADMAP §3). The port keeps the JAX package's quantizer and
-    engine: the same saturated biases, the others within the relative 1e-5
-    that the two calibrations' activation scales part by
-    (tests/test_torch_transformer.py), the heads within 1 LSB, the same
-    two heads all zero."""
+    """A fault of the reference not copied (ROADMAP §3). The seeded YOLOX's
+    activations shrink through its SiLU stacks to scales of 1e-9 to 1e-11
+    at the heads, where a head's float bias over s_in * s_w no longer fits
+    int32: the JAX quantizer saturates it at +-(2^31 - 1), and the JAX
+    engine then gives the two coarser heads all zero. The port's quantizer
+    raises such a channel's weight scale until its bias lands at 2^30
+    (quantizer.fit_bias): no bias at the bound; every channel whose bias
+    JAX did not saturate keeps its weight scale and its bias (within the
+    relative 1e-5 that the two calibrations' activation scales part by,
+    tests/test_torch_transformer.py); and every head's dequantized cosine
+    against the fp32 engine is above 0.99."""
     _, jg = build("yolox", 0)
     _, pg = build("yolox", 1)
     x = np.random.default_rng(0).standard_normal((1, 3, IMG, IMG)).astype(np.float32)
@@ -205,19 +210,27 @@ def test_yolox_int8_bias_saturation_is_shared():
             b = qg.tensors[n.inputs[2]].data.astype(np.int64)
             (jn,) = [j for j in jqg.nodes if j.name == n.name]
             jb = jqg.tensors[jn.inputs[2]].data.astype(np.int64)
-            np.testing.assert_array_equal(np.abs(b) == top, np.abs(jb) == top)
-            np.testing.assert_allclose(b, jb, rtol=1e-5, atol=1)
-            if (np.abs(b) == top).any():
+            s_w, js_w = (np.asarray(g.tensors[m.inputs[1]].quant.scales)
+                         for g, m in ((qg, n), (jqg, jn)))
+            assert (np.abs(b) < top).all(), n.name
+            kept = np.abs(jb) < top
+            np.testing.assert_allclose(b[kept], jb[kept], rtol=1e-5, atol=1)
+            np.testing.assert_array_equal(s_w[kept], js_w[kept])
+            if not kept.all():
                 saturated.append(n.name)
+                assert (s_w[~kept] > js_w[~kept]).all()
+                np.testing.assert_allclose(np.abs(b[~kept]), 2**30, rtol=1e-5)
     assert {"heads/1/reg_pred", "heads/2/cls_pred"} <= set(saturated)
     t_in = qg.tensors[qg.input_tensors[0]]
     xq = qmath.quantize_np(x, t_in.quant, t_in.dtype)
     got = pt.compile_graph(qg, pt.Options(quant_mode="fast"), device="cpu").run(xq)
     want = jt.compile_graph(jqg, jt.Options(quant_mode="fast")).run(xq)
-    for a, b in zip(got, want, strict=True):
-        assert np.abs(a.astype(np.int32) - np.asarray(b).astype(np.int32)).max() <= 1
-    assert not got[1].any() and not got[2].any()
     assert not np.asarray(want[1]).any() and not np.asarray(want[2]).any()
+    fp32 = pt.compile_graph(pg, pt.Options(precision="fp32"), device="cpu").run(x)
+    for t_id, q, f in zip(qg.output_tensors, got, fp32, strict=True):
+        d = qmath.dequantize_np(q, qg.tensors[t_id].quant).ravel().astype(np.float64)
+        cos = d @ f.ravel() / (np.linalg.norm(d) * np.linalg.norm(f) + 1e-30)
+        assert cos > 0.99, (qg.tensors[t_id].name, cos)
 
 
 def test_zoo_table_equals_jax():

@@ -28,10 +28,12 @@ depth 2 (2 classes).
     steps round apart in the last bits and meet a .5 tie of the requant
     now and then); the free-running output within 1 LSB on at most 1% of
     its elements; the CTC strings of both engines equal.
-  * fault 1 of ROADMAP §3: both quantizers refuse an INT8 U-Net (the
-    Deconvolution weight [C_in, C_out, kh, kw] is quantized per channel
-    along axis 0, so its bias scales have C_in entries against C_out
-    biases).
+  * fault 1 of ROADMAP §3, not copied: the JAX quantizer refuses an INT8
+    U-Net (the Deconvolution weight [C_in, C_out, kh, kw] is quantized per
+    channel along axis 0, so its bias scales have C_in entries against
+    C_out biases); the port's INT8 U-Net at img 64 runs, node by node
+    against the JAX engine but for the deconvs, which are held to a numpy
+    float64 oracle.
 """
 
 import collections
@@ -189,13 +191,60 @@ def test_calibration_matches_jax():
                                            np.asarray(a.quant.scales), rtol=1e-5)
 
 
-def test_int8_unet_is_refused_by_both_quantizers():
-    """Fault 1 (ROADMAP §3): a Deconvolution weight is [C_in, C_out, kh,
-    kw], and both quantizers take its per-channel INT8 scales along axis
-    0; the bias scales then have C_in entries against C_out biases, and
-    both quantizers raise where C_in != C_out (every up-conv of U-Net)."""
-    _, jg, pg, _, _, x, _ = net("unet")
+def test_int8_unet_is_refused_by_both_quantizers(monkeypatch):
+    """Fault 1 (ROADMAP §3), not copied: a Deconvolution weight is [C_in,
+    C_out, kh, kw], and the JAX quantizer takes its per-channel INT8 scales
+    along axis 0; the bias scales then have C_in entries against C_out
+    biases, and it raises where C_in != C_out (every up-conv of U-Net). The
+    port's quantizer takes them by output channel. Its INT8 U-Net at img 64
+    under S and T: its bytes run by the JAX engine, each deconv's weight
+    handed over dequantized by output channel to fp32 (the JAX deconv
+    lowering takes a float weight as is; its own per-channel dequantize
+    would broadcast along axis 0); every node but the deconvs, fed what its
+    JAX counterpart was fed, within 1 LSB on at most 0.1% of its elements;
+    each deconv, on the port's own run, within 1 LSB of a numpy float64
+    dequantize -> conv_transpose -> requantize
+    (test_torch_repairs.py:deconv_oracle) on at most 1% of its elements;
+    the output's cosine against fp32 above 0.99."""
+    from tengine_tpu.graph import ir as jir
+
+    from test_torch_repairs import deconv_oracle
+    from test_torch_yolofastest import port_run_all
+
+    unet = dict(UNET, img=64)
+    _, jg = jax_extra.build_unet_graph(**unet)
+    _, pg = port_extra.build_unet_graph(**unet)
+    x = np.random.default_rng(0).standard_normal((1, 3, 64, 64)).astype(np.float32)
     with pytest.raises(ValueError, match="broadcast"):
         jax_quantize(jg, [x], scheme="int8", algorithm="minmax")
-    with pytest.raises(ValueError, match="broadcast"):
-        pt.quantize_graph(pg, [x], scheme="int8", algorithm="minmax", device="cpu")
+    blob = pt.graph_to_tm_bytes(
+        pt.quantize_graph(pg, [x], scheme="int8", algorithm="minmax", device="cpu"))
+    pqg, jqg = pt.load_tm_bytes(blob), jt.load_tm_bytes(blob)
+    deconvs = [n for n in pqg.nodes if n.op == "Deconvolution"]
+    assert len(deconvs) == 2 and all(
+        pqg.tensors[n.inputs[1]].shape[0] != pqg.tensors[n.inputs[1]].shape[1] for n in deconvs)
+    for n in deconvs:
+        t, tj = pqg.tensors[n.inputs[1]], jqg.tensors[n.inputs[1]]
+        tj.data = pt.ops.qmath.dequantize_weight_np(t.data, t.quant, n.op, n.params["group"])
+        tj.data = tj.data.astype(np.float32)
+        tj.dtype, tj.quant = jir.DType.FP32, None
+    t_in = pqg.tensors[pqg.input_tensors[0]]
+    xq = jq.quantize_np(x, t_in.quant, t_in.dtype)
+    (fp32,) = pt.compile_graph(pg, pt.Options(precision="fp32"), device="cpu").run(x)
+    for tier, opts in TIERS["unet"].items():
+        jax_env, jax_routes, _ = jax_run_all(jqg, opts, xq, monkeypatch)
+        cg = pt.compile_graph(pqg, pt.Options(**opts), device="cpu")
+        assert cg.kernels == jax_routes
+        seen = port_run_forced(pqg, opts, xq, jax_env, monkeypatch)
+        assert set(seen) == {n.name for n in cg.graph.nodes if n.outputs and n.op != "InputOp"}
+        for node, (worst, share) in seen.items():
+            if node not in {n.name for n in deconvs}:
+                assert worst <= 1 and share <= 1e-3, (tier, node, worst, share)
+        env = port_run_all(cg, xq)
+        for n in deconvs:
+            got = env[n.outputs[0]]
+            d = np.abs(got.astype(np.int32)
+                       - deconv_oracle(pqg, n, env[n.inputs[0]]).astype(np.int32))
+            assert d.max() <= 1 and (d > 0).mean() <= 1e-2, (tier, n.name, d.max())
+        out = env[cg.output_ids[0]]
+        assert _cosine(out, cg.graph.tensors[cg.output_ids[0]], fp32) > 0.99, tier

@@ -156,3 +156,18 @@ def test_relaxed_chain_against_exact(name):
     d = np.abs(a.astype(np.int32) - b.astype(np.int32))
     print(f"{name} R vs F: max |d| {d.max()}, >1: {(d > 1).mean():.4f}, >3: {(d > 3).mean():.4f}")
     assert d.max() <= 6 and (d > 1).mean() < 0.10 and (d > 3).mean() < 0.01
+
+
+def test_pass_does_not_match_full_range_grids():
+    """The chain kernel clips every INT8 activation at +-127, with zero
+    point 0. A full-range grid with zero point 0 (a TFLite import's, whose
+    int8 tensors clip at -128) keeps its blocks on the convs: the same
+    graph fuses its blocks without the flag and none with it."""
+    blob, _ = quantized("identity_chain")
+    assert port_fuse(pt.load_tm_bytes(blob)) == 2
+    pg = pt.load_tm_bytes(blob)
+    for t in pg.tensors:
+        if t.data is None and t.quant is not None and t.dtype.name == "INT8":
+            t.quant.full_range = True
+    assert port_fuse(pg) == 0
+    assert not any(n.op == "FusedResBlockChain" for n in pg.nodes)

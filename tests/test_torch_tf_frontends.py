@@ -27,8 +27,13 @@ serves as an oracle: the port decodes GraphDefs and flatbuffers itself.
     dw_qconv, each node within 1 LSB of the JAX engine's fast lowering.
   * chip_smoke.py's GraphDef and TFLite encoders at small width run in TF
     and in the Interpreter, each equal to the port's forward.
-  * A fault shared with the reference, shown: both engines clip a TFLite
-    int8 grid at -127 where TFLite's spans [-128, 127] (ROADMAP §3).
+  * Faults of the reference not copied (ROADMAP §3): the JAX engine clips
+    a TFLite int8 grid at -127 where TFLite's spans [-128, 127], and the
+    port's import sets QuantParam.full_range, which its tmfile keeps; the
+    JAX TF importer raises on Squeeze, which TF-slim's logits tail needs
+    (with a Shape), and the port imports both against a TF session; the
+    port's flatbuffer reader reads a buffer stored by offset and size after
+    the flatbuffer.
 """
 
 import functools
@@ -348,13 +353,29 @@ def test_tflite_fp32_fixture():
     np.testing.assert_allclose(got.reshape(y_tfl.shape), y_tfl, rtol=1e-4, atol=1e-5)
 
 
+def without_full_range(g):
+    """A copy of g with every QuantParam.full_range unset, as the JAX
+    importers leave it."""
+    h = g.clone()
+    for t in h.tensors:
+        if t.quant is not None:
+            t.quant.full_range = False
+    return h
+
+
 def test_tflite_full_int8_fixture():
     """tests/test_tflite_frontend.py:55's full-int8 file: imported with its
     quant params, no calibration; within 2 LSB of the Interpreter (the JAX
-    test's own bound) and 1 LSB of the JAX engine."""
+    test's own bound) and 1 LSB of the JAX engine. The port's INT8
+    activations carry full_range, which its writer records as node
+    attributes: without the flags its bytes are the JAX writer's, and the
+    JAX reader reads its bytes to the JAX import's graph."""
     _, blob, cal = keras_blobs()
     jg, pg = jax_from_tflite(blob), from_tflite(blob)
-    assert pt.graph_to_tm_bytes(pg) == jax_bytes(jg)
+    assert all(t.quant.full_range for t in pg.tensors
+               if t.data is None and t.dtype == pir.DType.INT8)
+    assert pt.graph_to_tm_bytes(without_full_range(pg)) == jax_bytes(jg)
+    assert jax_bytes(jt.load_tm_bytes(pt.graph_to_tm_bytes(pg))) == jax_bytes(jg)
     xq_tfl, y_tfl, _, _ = tflite_run(blob, cal[0])
     t_in = pg.tensors[pg.input_tensors[0]]
     assert t_in.quant is not None and t_in.dtype == pir.DType.INT8
@@ -575,12 +596,17 @@ def test_same_padded_depthwise_convs_take_the_dw_route(monkeypatch):
 
 
 def test_int8_tflite_grids_clip_at_minus_127_in_both_engines(monkeypatch):
-    """A fault shared with the reference (ROADMAP §3): TFLite's int8 tensors
-    span [-128, 127], but both importers leave QuantParam.full_range unset,
-    so both engines clip an INT8 activation to [-127, 127]. On the small
-    full-int8 mobilenet, conv1 (ReLU, zero point -128) reads -127 in both
-    engines wherever tf.lite.Interpreter reads -128, and equals it
-    elsewhere."""
+    """A fault of the reference not copied (ROADMAP §3): TFLite's int8
+    tensors span [-128, 127], but the JAX importer leaves
+    QuantParam.full_range unset, so the JAX engine clips every INT8
+    activation to [-127, 127]. The port's importer sets it. On the small
+    full-int8 mobilenet, conv1 (ReLU, zero point -128) reads -127 in the
+    JAX engine wherever tf.lite.Interpreter reads -128, and equals it
+    elsewhere; the port equals the Interpreter on conv1, -128 included, and
+    on every activation down to the logits: its largest difference from the
+    Interpreter mid-net is 0 LSB, where the JAX engine's, run free on the
+    same bytes (its reader skips the full_range attribute), is tens of
+    LSB."""
     from test_torch_yolofastest import port_run_all
 
     _, shape = chip_smoke_small()
@@ -593,17 +619,129 @@ def test_int8_tflite_grids_clip_at_minus_127_in_both_engines(monkeypatch):
     xq = np.clip(np.round(x.transpose(0, 2, 3, 1) / s) + zp, -128, 127).astype(np.int8)
     it.set_tensor(ind["index"], xq)
     it.invoke()
-    (want,) = [nchw(it.get_tensor(d["index"])) for d in it.get_tensor_details()
-               if d["name"] == "conv1"]
+    tfl = {d["name"]: it.get_tensor(d["index"]) for d in it.get_tensor_details()}
     pg = from_tflite(blob)
     (t1,) = [t for t in pg.tensors if t.name == "conv1"]
-    assert int(np.asarray(t1.quant.zero_points)) == -128 and not t1.quant.full_range
+    assert int(np.asarray(t1.quant.zero_points)) == -128 and t1.quant.full_range
     opts = dict(quant_mode="fast")
     port = port_run_all(pt.compile_graph(pg, pt.Options(**opts), device="cpu"), nchw(xq))
     jax_env, _, _ = jax_run_all(pt.graph_to_tm_bytes(pg), opts, nchw(xq), monkeypatch)
+    want = nchw(tfl["conv1"])
     floor = want == -128
     assert floor.mean() > 0.2
-    for got in (port[t1.idx], jax_env[t1.idx]):
-        assert (got[floor] == -127).all()
-        np.testing.assert_array_equal(got[~floor], want[~floor])
+    assert (jax_env[t1.idx][floor] == -127).all()
+    np.testing.assert_array_equal(jax_env[t1.idx][~floor], want[~floor])
+    np.testing.assert_array_equal(port[t1.idx], want)
 
+    worst = {"port": 0, "jax": 0}
+    acts = [t for t in pg.tensors if t.data is None and t.name in tfl]
+    assert len(acts) == 30  # the input, 27 convs, the pool, the logits
+    for t in acts[:-1]:
+        w = tfl[t.name]
+        w = (nchw(w) if w.ndim == 4 else w).astype(np.int32)
+        for engine, env in (("port", port), ("jax", jax_env)):
+            got = env[t.idx].astype(np.int32)
+            worst[engine] = max(worst[engine], int(np.abs(got - w.reshape(got.shape)).max()))
+    assert worst["port"] == 0 and worst["jax"] >= 10, worst
+    logits = tfl[acts[-1].name].astype(np.int32)
+    got = port[acts[-1].idx].reshape(logits.shape).astype(np.int32)
+    assert np.abs(got - logits).max() <= 2
+
+
+# --- TF-slim's logits tail and TFLite buffers stored after the flatbuffer ------
+
+
+def slim_tail_graph(rng, squeeze_dims=(1, 2), pool=4):
+    """A conv net ending as TF-slim's frozen mobilenet_v1 ends: AvgPool to
+    1x1, a 1x1 conv with bias (Logits/Conv2d_1c_1x1), SpatialSqueeze (a
+    Squeeze), then Predictions: Reshape [-1, C], Softmax, Reshape to
+    Shape(logits). The batch is unknown, so TF leaves the Shape a node.
+    squeeze_dims=(1,) with pool < 4 squeezes H only (a [N, W, C] result)."""
+    gph = tf1.Graph()
+    with gph.as_default():
+        x = tf1.placeholder(tf.float32, [None, 8, 8, 3], name="input")
+        w = tf.constant(rng.standard_normal((3, 3, 3, 16)).astype(np.float32))
+        c = tf.nn.relu(tf1.nn.conv2d(x, w, strides=[1, 2, 2, 1], padding="SAME"))
+        p = tf1.nn.avg_pool(c, [1, 4, pool, 1], [1, 1, 1, 1], "VALID")
+        wl = tf.constant(rng.standard_normal((1, 1, 16, 10)).astype(np.float32))
+        bl = tf.constant(rng.standard_normal(10).astype(np.float32))
+        logits = tf.nn.bias_add(tf1.nn.conv2d(p, wl, [1, 1, 1, 1], "SAME"), bl)
+        logits = tf.squeeze(logits, list(squeeze_dims), name="SpatialSqueeze")
+        if len(squeeze_dims) == 2:
+            probs = tf.nn.softmax(tf.reshape(logits, [-1, 10]))
+            tf.reshape(probs, tf.shape(logits), name="out")
+        else:
+            tf.identity(logits, name="out")
+    return gph
+
+
+@pytest.mark.parametrize("case", ["slim", "squeeze_h"])
+def test_squeeze_and_shape_import_as_tensorflow_runs_them(case):
+    """The slim tail imports (the JAX importer raises on the Squeeze) and
+    runs within 1e-5 of a TF session, at the import's batch 1 and at batch
+    3 (the Reshape to a folded Shape keeps the input's batch); a Squeeze
+    that keeps C beside W goes through an NHWC transpose and keeps TF's
+    order."""
+    rng = np.random.default_rng(21)
+    gph = slim_tail_graph(rng, *((1, 2), 4) if case == "slim" else ((1,), 2))
+    data = gph.as_graph_def().SerializeToString()
+    ops = [n.op for n in gph.as_graph_def().node]
+    assert "Squeeze" in ops and ("Shape" in ops) == (case == "slim")
+    with pytest.raises(NotImplementedError, match="Squeeze"):
+        jax_from_tf(data)
+    pg = ptf.from_tf_graphdef(data)
+    assert ("Transpose" in [n.op for n in pg.nodes]) == (case == "squeeze_h")
+    x = rng.standard_normal((3, 8, 8, 3)).astype(np.float32)
+    for batch in (1, 3):
+        want = tf_session(gph, "out:0", x[:batch])
+        (got,) = pt.compile_graph(pg, pt.Options(batch_size=batch), device="cpu").run(
+            nchw(x[:batch]))
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def external_buffers(buf: bytes) -> bytes:
+    """The TFLite file with every buffer's data moved after the flatbuffer,
+    referred to by Buffer.offset and size (schema.fbs; 16-byte aligned),
+    as the converter writes a model over 2 GB. The flatbuffer is packed
+    twice: its length does not depend on the offsets' values."""
+    import flatbuffers
+
+    model = tfl_schema.ModelT.InitFromObj(tfl_schema.Model.GetRootAsModel(buf, 0))
+    datas = []
+    for b in model.buffers:
+        datas.append(None if b.data is None else bytes(np.asarray(b.data, np.uint8)))
+        b.data = None
+
+    def pack():
+        builder = flatbuffers.Builder(1024)
+        builder.Finish(model.Pack(builder), file_identifier=b"TFL3")
+        return bytes(builder.Output())
+
+    for b, d in zip(model.buffers, datas):
+        b.offset, b.size = (2, len(d)) if d else (0, 0)
+    at, tail = -(-len(pack()) // 16) * 16, b""
+    for b, d in zip(model.buffers, datas):
+        if d:
+            b.offset = at + len(tail)
+            tail += d + bytes(-len(d) % 16)
+    head = pack()
+    return head + bytes(at - len(head)) + tail
+
+
+def test_tflite_buffers_stored_by_offset_and_size():
+    """The full-int8 keras file with its buffers moved after the
+    flatbuffer: tf.lite.Interpreter reads it to the same outputs, and the
+    port imports it to the graph of the inline file, tmfile bytes equal;
+    the JAX importer, which reads only inline data, fails on it."""
+    _, blob, cal = keras_blobs()
+    ext = external_buffers(blob)
+    assert len(ext) > len(blob) and not any(
+        b.DataLength() for b in (tfl_schema.Model.GetRootAsModel(ext, 0).Buffers(i)
+                                 for i in range(tfl_schema.Model.GetRootAsModel(ext, 0).BuffersLength())))
+    _, y_inline, _, _ = tflite_run(blob, cal[0])
+    _, y_ext, _, _ = tflite_run(ext, cal[0])
+    np.testing.assert_array_equal(y_ext, y_inline)
+    assert pt.graph_to_tm_bytes(from_tflite(ext)) == pt.graph_to_tm_bytes(from_tflite(blob))
+    with pytest.raises(TypeError):
+        jax_from_tflite(ext)

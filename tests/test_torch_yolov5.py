@@ -84,19 +84,31 @@ def test_tm2_reader_matches_jax_reader(graphs, which):
 @pytest.mark.parametrize("algorithm", ["minmax", "kl", "aciq"])
 def test_quantizer_matches_jax(graphs, algorithm):
     """Same calibration, same QuantParams: weights exact, activation scales
-    within rtol 1e-5 (the fp32 engines sum in different orders)."""
+    within rtol 1e-5 (the fp32 engines sum in different orders). But for a
+    fault of the JAX quantizer the port does not copy (ROADMAP §3): the
+    seeded yolov5s has output channels with weights near 0 (s_w 1e-9 to
+    1e-8, 17-19 channels of about 12 convs) whose bias over s_in·s_w does not fit
+    int32; the JAX quantizer saturates it, the port raises the channel's
+    weight scale (quantizer.fit_bias). Those channels are held to that
+    rule (test_torch_repairs.py:assert_agree_but_raised)."""
+    from test_torch_repairs import assert_agree_but_raised, saturated_channels
+
     jg, pg, jqg, calib = graphs
     if algorithm != "minmax":
         jqg = jax_quantize(jg, calib, scheme="int8", algorithm=algorithm)
     pqg = pt.quantize_graph(pg, calib, scheme="int8", algorithm=algorithm, device="cpu")
     assert len(pqg.tensors) == len(jqg.tensors)
+    raised = saturated_channels(jqg)
+    assert sum(int(m.sum()) for m in raised.values()) >= 2 * 15  # weight and bias
     n_act = 0
     for a, b in zip(jqg.tensors, pqg.tensors):
         assert a.dtype.name == b.dtype.name, a.name
         assert (a.quant is None) == (b.quant is None), a.name
         if a.quant is None:
             continue
-        if a.tensor_type.name == "CONST" and a.dtype.name == "INT8":
+        if a.idx in raised:
+            assert_agree_but_raised(a, b, raised[a.idx])
+        elif a.tensor_type.name == "CONST" and a.dtype.name == "INT8":
             assert _quant_key(a.quant) == _quant_key(b.quant), a.name
             np.testing.assert_array_equal(a.data, b.data)
         elif a.tensor_type.name in ("VAR", "INPUT"):
