@@ -1,0 +1,48 @@
+"""The plain reference: calibration and the integer forward worked out again
+from the fp32 weights and inputs, in plain PyTorch, importing nothing of the
+program under test (qsim.py: the quantization; one module per architecture;
+compare.py: the numbers that decide `correct`)."""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from hbench.reference.qsim import QT, Ctx, act_grid, calibrate
+
+
+class Reference:
+    """Architecture module `arch` at configuration `cfg`, calibrated by
+    MinMax on `cal_images` (fp32, NCHW) with the configuration's scheme, and
+    run on `bits`-bit grids (8: the reference; fewer: the control)."""
+
+    def __init__(self, arch, cfg: dict, params: Dict[str, torch.Tensor],
+                 cal_images: torch.Tensor, bits: int = 8):
+        self.arch, self.cfg, self.p = arch, cfg, params
+        self.scheme = cfg["scheme"]
+        fwd = lambda ctx, p, x: arch.forward(ctx, p, x, cfg)  # noqa: E731
+        self.ranges = calibrate(fwd, params, [cal_images], self.scheme)
+        self.ctx = Ctx("quant", self.scheme, bits, self.ranges)
+        # the images are data handed alike to every side: always on the
+        # 8-bit input grid
+        self.input_grid = act_grid(*self.ranges["data"], self.scheme, 8)
+        self.out_grids = None
+
+    def __call__(self, xq: torch.Tensor) -> List[torch.Tensor]:
+        """The dequantized outputs for integer inputs `xq` (NCHW)."""
+        with torch.no_grad():
+            outs = self.arch.forward(self.ctx, self.p, QT(xq.double(), self.input_grid), self.cfg)
+        self.out_grids = [o.grid for o in outs]
+        return [o.real() for o in outs]
+
+    def grids(self) -> Dict[str, Tuple[float, float]]:
+        """(scale, zero point) of the input ("data"), the outputs ("out<i>",
+        after a call) and the inner grids the architecture compares by name."""
+        g = {"data": (self.input_grid.scale, self.input_grid.zero)}
+        for i, og in enumerate(self.out_grids or []):
+            g[f"out{i}"] = (og.scale, og.zero)
+        for name in self.arch.grid_names(self.cfg):
+            t = self.ctx.grid(name)
+            g[name] = (t.scale, t.zero)
+        return g

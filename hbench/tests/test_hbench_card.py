@@ -1,0 +1,62 @@
+"""On the card: a short run of each cell comes out correct, and the control
+and the planted faults fail the limits at the cell's own size. They skip
+without a card."""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[2]
+CELLS = ["mnv1-u8-b128", "yolov5s-i8-b8", "mnv1-u8-b1", "yolov5s-i8-served"]
+
+
+@pytest.fixture()
+def card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CELLS)
+def test_short_run_is_correct(card, name):
+    p = subprocess.run([sys.executable, "hbench/run.py", "--workload", name, "--seed",
+                        str(2**33 + 101), "--seconds", "3", "--trace", "0"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stderr[-3000:]
+    line = json.loads(p.stdout.strip().splitlines()[-1])
+    assert line["correct"], line["checks"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CELLS)
+def test_control_fails_at_full_size(card, name):
+    from hbench import spec
+    from hbench.control import control_numbers
+    from hbench.reference import compare
+
+    cell = spec.load_cell(name)
+    ok, checks = compare.judge(control_numbers(cell, 2**33 + 7, card, bits=4),
+                               cell.config["limits"])
+    assert not ok, checks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["yolov5s-i8-b8", "yolov5s-i8-served"])
+@pytest.mark.parametrize("fault", ["stale", "rows_swapped"])
+def test_fault_fails_at_full_size(card, name, fault):
+    """A stale answer, or another request's row, at the cell's own size
+    comes out not correct through the harness's own judge."""
+    from hbench import harness, spec
+    from hbench.faults import plant
+
+    with plant(fault):
+        out = harness.run_cell(spec.load_cell(name), 2**33 + 11, 2.0, False, card, lambda: 0.0)
+    assert not out["correct"], out["checks"]
