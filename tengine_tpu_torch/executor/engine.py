@@ -45,6 +45,7 @@ from ..ops import qmath
 from ..ops import quantized as _quantized  # noqa: F401
 from ..ops.layout import TArr, as_semantic, nchw, nhwc
 from ..ops.registry import LowerCtx, select_kernel
+from ..utils import trace
 from ..utils.config import Options
 
 META = torch.device("meta")
@@ -237,30 +238,35 @@ class CompiledGraph:
         Any number of threads may call one CompiledGraph, or several, at
         once: calls of one CompiledGraph take its lock in turn, and a
         capture runs beside other threads' replays and eager forwards."""
-        xs = [x if isinstance(x, torch.Tensor) else torch.as_tensor(np.ascontiguousarray(x))
-              for x in inputs]
-        with self._lock:
-            fn, params = self._for_size(xs)
-        if not self._captures():
-            with torch.inference_mode():
-                return fn(params, *(x.to(self.device) for x in xs))
-        sig = tuple((tuple(x.shape), x.dtype) for x in xs)
-        with self._lock:
-            stream = torch.cuda.current_stream(self.device)
-            if self._done is not None:
-                stream.wait_event(self._done)
-            cap = self._graphs.get(sig)
-            if cap is None:
-                cap = self._graphs[sig] = self._capture(fn, params, xs)
-            else:
-                for buf, x in zip(cap.inputs, xs):
-                    if buf is not x:  # a donated buffer passed again needs no copy
-                        buf.copy_(x)
-            cap.graph.replay()
-            outs = tuple(o.clone() for o in cap.outputs)
-            self._done = torch.cuda.Event()
-            self._done.record(stream)
-            return outs
+        with trace.span(trace.ENGINE_CALL):
+            with trace.span(trace.ENGINE_COPY_IN):
+                xs = [x if isinstance(x, torch.Tensor)
+                      else torch.as_tensor(np.ascontiguousarray(x)) for x in inputs]
+            with self._lock:
+                fn, params = self._for_size(xs)
+            if not self._captures():
+                with trace.span(trace.ENGINE_FORWARD), torch.inference_mode():
+                    return fn(params, *(x.to(self.device) for x in xs))
+            sig = tuple((tuple(x.shape), x.dtype) for x in xs)
+            with self._lock:
+                stream = torch.cuda.current_stream(self.device)
+                if self._done is not None:
+                    stream.wait_event(self._done)
+                cap = self._graphs.get(sig)
+                if cap is None:
+                    cap = self._graphs[sig] = self._capture(fn, params, xs)
+                else:
+                    with trace.span(trace.ENGINE_COPY_IN):
+                        for buf, x in zip(cap.inputs, xs):
+                            if buf is not x:  # a donated buffer passed again needs no copy
+                                buf.copy_(x)
+                with trace.span(trace.ENGINE_REPLAY):
+                    cap.graph.replay()
+                with trace.span(trace.ENGINE_CLONE):
+                    outs = tuple(o.clone() for o in cap.outputs)
+                self._done = torch.cuda.Event()
+                self._done.record(stream)
+                return outs
 
     def _captures(self) -> bool:
         """Whether __call__ runs the forward as a CUDA graph."""
@@ -302,7 +308,7 @@ class CompiledGraph:
         dev = self.device
         donate = self.options.donate_input
         static = [x if donate and x.device == dev else x.to(dev, copy=True) for x in xs]
-        with _CAPTURE_LOCK:
+        with trace.span(trace.ENGINE_CAPTURE), _CAPTURE_LOCK:
             if self._stream is None:
                 self._stream = torch.cuda.Stream(dev)
             side = self._stream
@@ -332,7 +338,10 @@ class CompiledGraph:
         return self._fn.kernels
 
     def run(self, *inputs) -> List[np.ndarray]:
-        return [o.cpu().numpy() for o in self(*inputs)]
+        with trace.span(trace.ENGINE_RUN):
+            outs = self(*inputs)
+            with trace.span(trace.ENGINE_DOWNLOAD):
+                return [o.cpu().numpy() for o in outs]
 
     def cost_analysis(self) -> Dict[str, Any]:
         """The forward's cost at the compiled input shapes, computed once
@@ -646,6 +655,27 @@ def compile_graph(
     wherever a param here is equal to its, instead of a second copy."""
     device = resolve_device(device)
     options = options or Options.from_env()
+    with trace.span(trace.COMPILE_PASSES):
+        graph = _compile_passes(graph, options)
+    store = ParamStore()
+    with trace.span(trace.COMPILE_PREPARE):
+        forward, input_ids, output_ids = build_forward(graph, options, store)
+
+        # --- prepare pass: collect params, infer shapes ---
+        env = meta_pass(graph, options, store)
+        for tid in output_ids:
+            graph.tensors[tid].shape = list(env[tid].shape)
+
+    if share is not None and share.device != device:
+        raise ValueError(f"share= is on {share.device}, this graph compiles for {device}")
+    with trace.span(trace.COMPILE_UPLOAD):
+        params = store.upload(device, share=share.forward_fn.store if share is not None else None)
+    return CompiledGraph(graph, options, forward, params, input_ids, output_ids, device)
+
+
+def _compile_passes(graph: Graph, options: Options) -> Graph:
+    """compile_graph's passes under `options`: the graph itself where none
+    applies, else a rewritten clone."""
     fast_quant = (
         _graph_quantized(graph)
         and options.quant_mode in ("auto", "fast")
@@ -697,19 +727,7 @@ def compile_graph(
         graph = graph.clone()
         to_native_int8(graph)
         graph._bf16_tids = set()
-
-    store = ParamStore()
-    forward, input_ids, output_ids = build_forward(graph, options, store)
-
-    # --- prepare pass: collect params, infer shapes ---
-    env = meta_pass(graph, options, store)
-    for tid in output_ids:
-        graph.tensors[tid].shape = list(env[tid].shape)
-
-    if share is not None and share.device != device:
-        raise ValueError(f"share= is on {share.device}, this graph compiles for {device}")
-    params = store.upload(device, share=share.forward_fn.store if share is not None else None)
-    return CompiledGraph(graph, options, forward, params, input_ids, output_ids, device)
+    return graph
 
 
 def infer_shapes(graph: Graph, options: Optional[Options] = None) -> Graph:

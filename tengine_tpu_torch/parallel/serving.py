@@ -26,6 +26,7 @@ window) — the standard continuous-batching tradeoff.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -40,6 +41,7 @@ import torch.distributed as dist
 from ..executor.engine import CompiledGraph, compile_graph, resolve_device
 from ..graph.ir import Graph
 from ..ops.qmath import TORCH_DTYPES
+from ..utils import trace
 from ..utils.config import Options
 from ..utils.log import logger
 from .distributed import host_local_batch_to_global, state
@@ -50,7 +52,21 @@ from .sharding import broadcast_from, shard_compiled
 class _Request:
     x: np.ndarray
     future: Future
-    enqueued_at: float
+    enqueued_at: float  # time.perf_counter(), the span recorder's clock in seconds
+    rid: int  # the id the request's spans share
+
+
+def _ns(seconds: float) -> int:
+    return int(seconds * 1e9)
+
+
+def _record_queue(batch: List[_Request]) -> int:
+    """Each request's server.queue span, from its submit to now; now, in
+    the span recorder's ns."""
+    t = trace.now()
+    for r in batch:
+        trace.record(trace.SERVER_QUEUE, _ns(r.enqueued_at), t, ids=(r.rid,))
+    return t
 
 
 def _bucket(n: int, max_batch: int) -> int:
@@ -106,6 +122,7 @@ class InferenceServer:
             self._leader = dist.get_global_rank(mesh.get_group(1), 0)
         self._latencies: List[float] = []  # seconds, submit -> result set
         self._lat_cap = 100_000
+        self._rids = itertools.count()
 
     def _get_compiled(self, batch: int) -> CompiledGraph:
         cg = self._compiled.get(batch)
@@ -166,29 +183,40 @@ class InferenceServer:
                 time.sleep(min(self.max_wait_s, 0.005))
                 continue
             batch = self._collect(self.max_wait_s) if holds_queue else []
-            n = len(batch)
-            x = torch.zeros(bucket_shape, dtype=bucket_dtype)
-            if n:
-                x[:n] = torch.from_numpy(np.concatenate([r.x for r in batch], axis=0))
-            self.stats["padded"] += local_b - n if holds_queue else 0
-            try:
-                x = x.to(self.device)
-                if self._leader is not None:  # the TP group's rows, from its queue
-                    x = broadcast_from(x, self._leader, self.mesh.get_group(1))
-                outs = cg(host_local_batch_to_global(x, self.mesh))
-                outs = [o.to_local().cpu().numpy() for o in outs]
-            except Exception as e:  # the loop serves on; the callers get the error
-                logger.exception("multihost serving batch failed: %s", e)
-                for r in batch:
-                    r.future.set_exception(e)
-                continue
-            self.stats["batches"] += 1
-            self.stats["requests"] += n
-            done = time.perf_counter()
-            for i, r in enumerate(batch):
-                r.future.set_result([o[i : i + 1] for o in outs])
-                if len(self._latencies) < self._lat_cap:
-                    self._latencies.append(done - r.enqueued_at)
+            t = _record_queue(batch)
+            with trace.span(trace.SERVER_BATCH, start_ns=t,
+                            ids=tuple(r.rid for r in batch)) as held:
+                n = len(batch)
+                x = torch.zeros(bucket_shape, dtype=bucket_dtype)
+                if n:
+                    x[:n] = torch.from_numpy(np.concatenate([r.x for r in batch], axis=0))
+                self.stats["padded"] += local_b - n if holds_queue else 0
+                try:
+                    x = x.to(self.device)
+                    if self._leader is not None:  # the TP group's rows, from its queue
+                        x = broadcast_from(x, self._leader, self.mesh.get_group(1))
+                    outs = cg(host_local_batch_to_global(x, self.mesh))
+                    outs = [o.to_local().cpu().numpy() for o in outs]
+                except Exception as e:  # the loop serves on; the callers get the error
+                    logger.exception("multihost serving batch failed: %s", e)
+                    for r in batch:
+                        r.future.set_exception(e)
+                    continue
+                self.stats["batches"] += 1
+                self.stats["requests"] += n
+                held.end_at(_ns(self._reply(batch, outs)))
+
+    def _reply(self, batch: List[_Request], outs) -> float:
+        """Each request's rows of the outputs to its future; the time the
+        last was set, which ends each request's latency sample and the
+        batch's span."""
+        for i, r in enumerate(batch):
+            r.future.set_result([o[i : i + 1] for o in outs])
+        done = time.perf_counter()
+        for r in batch:
+            if len(self._latencies) < self._lat_cap:
+                self._latencies.append(done - r.enqueued_at)
+        return done
 
     # -- public API --------------------------------------------------------
 
@@ -223,7 +251,8 @@ class InferenceServer:
         if x.shape[0] != 1:
             raise ValueError("submit one request at a time; batching is internal")
         fut: Future = Future()
-        self._queue.put(_Request(x=x, future=fut, enqueued_at=time.perf_counter()))
+        self._queue.put(_Request(x=x, future=fut, enqueued_at=time.perf_counter(),
+                                 rid=next(self._rids)))
         return fut
 
     def __call__(self, x: np.ndarray):
@@ -264,28 +293,29 @@ class InferenceServer:
             batch = self._collect(0.05)
             if not batch:
                 continue
-            n = len(batch)
-            b = _bucket(n, self.max_batch)
-            x = np.concatenate([r.x for r in batch], axis=0)
-            if b > n:  # pad to the bucket size
-                pad = np.zeros((b - n,) + x.shape[1:], x.dtype)
-                x = np.concatenate([x, pad], axis=0)
-                self.stats["padded"] += b - n
-            try:
-                cg = self._get_compiled(b)
-                outs = cg.run(x)
-            except Exception as e:  # the loop serves on; the callers get the error
-                logger.exception("serving batch failed: %s", e)
-                for r in batch:
-                    r.future.set_exception(e)
-                continue
-            self.stats["batches"] += 1
-            self.stats["requests"] += n
-            done = time.perf_counter()
-            for i, r in enumerate(batch):
-                r.future.set_result([o[i : i + 1] for o in outs])
-                if len(self._latencies) < self._lat_cap:
-                    self._latencies.append(done - r.enqueued_at)
+            t = _record_queue(batch)
+            with trace.span(trace.SERVER_BATCH, start_ns=t,
+                            ids=tuple(r.rid for r in batch)) as held:
+                n = len(batch)
+                b = _bucket(n, self.max_batch)
+                with trace.span(trace.SERVER_FORM):
+                    x = np.concatenate([r.x for r in batch], axis=0)
+                    if b > n:  # pad to the bucket size
+                        pad = np.zeros((b - n,) + x.shape[1:], x.dtype)
+                        x = np.concatenate([x, pad], axis=0)
+                        self.stats["padded"] += b - n
+                try:
+                    cg = self._get_compiled(b)
+                    outs = cg.run(x)
+                except Exception as e:  # the loop serves on; the callers get the error
+                    logger.exception("serving batch failed: %s", e)
+                    for r in batch:
+                        r.future.set_exception(e)
+                    continue
+                self.stats["batches"] += 1
+                self.stats["requests"] += n
+                with trace.span(trace.SERVER_REPLY):
+                    held.end_at(_ns(self._reply(batch, outs)))
 
     def latency_stats(self) -> dict:
         """End-to-end request latency percentiles in ms (p50 is the

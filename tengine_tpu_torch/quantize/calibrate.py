@@ -19,6 +19,7 @@ import torch
 from ..executor.engine import ParamStore, build_forward, resolve_device
 from ..graph.ir import Graph, QuantParam, TensorType
 from ..ops import qmath
+from ..utils import trace
 from ..utils.config import Options
 
 
@@ -37,14 +38,16 @@ def tensors_by_batch(graph: Graph, batches, options: Options, device: torch.devi
     layout, for each batch (a tuple of numpy arrays, at the dtypes the
     graph takes): one dict a batch, yielded in turn. The prepare pass runs
     once, at the first batch's shapes."""
-    store = ParamStore()
-    forward_all, _, _ = build_forward(graph, options, store, return_all=True)
-    with torch.inference_mode():
-        forward_all({}, *[torch.from_numpy(b).to("meta") for b in batches[0]])
-    params = store.upload(device)
-    for batch in batches:
+    with trace.span(trace.QUANTIZE_PREPARE):
+        store = ParamStore()
+        forward_all, _, _ = build_forward(graph, options, store, return_all=True)
         with torch.inference_mode():
-            yield forward_all(params, *[torch.from_numpy(b).to(device) for b in batch])
+            forward_all({}, *[torch.from_numpy(b).to("meta") for b in batches[0]])
+        params = store.upload(device)
+    for batch in batches:
+        with trace.span(trace.QUANTIZE_FORWARD), torch.inference_mode():
+            env = forward_all(params, *[torch.from_numpy(b).to(device) for b in batch])
+        yield env
 
 
 def collect_activation_ranges(
@@ -68,49 +71,58 @@ def collect_activation_ranges(
         raise ValueError("no calibration inputs")
 
     stats: Dict[int, ActivationStats] = {}
-    for env in tensors_by_batch(graph, batches, options, device):
-        for tid, arr in env.items():
-            t = graph.tensors[tid]
-            if t.tensor_type == TensorType.CONST:
-                continue
-            mn, mx = (float(v) for v in torch.aminmax(arr.float()))
-            s = stats.get(tid)
-            if s is None:
-                s = stats[tid] = ActivationStats(min=mn, max=mx)
-            else:
-                s.min = min(s.min, mn)
-                s.max = max(s.max, mx)
-            s.count += arr.numel()
-            if with_histograms:
-                a = arr.float().cpu().numpy()
-                amax = max(abs(s.min), abs(s.max), 1e-9)
-                # exact zeros are EXCLUDED from the KL histogram, matching
-                # the reference (quant_utils.cpp:histCount `if (data[i]!=0)`).
-                # Post-ReLU activations can be >90% zeros; counting them
-                # makes every small clip threshold look KL-optimal (the zero
-                # bin is always represented) and collapses the scale — seen
-                # as a 0.10 top-1 on the depthwise digit net before the fix.
-                nz = a[a != 0]
-                h, _ = np.histogram(np.abs(nz), bins=bins, range=(0, amax))
-                if s.hist is None or s.hist_max < amax:
-                    # rebin existing histogram into the new range
-                    if s.hist is not None and s.hist_max > 0:
-                        scale_f = s.hist_max / amax
-                        idx = np.minimum((np.arange(bins) * scale_f).astype(int), bins - 1)
-                        rebinned = np.zeros(bins)
-                        np.add.at(rebinned, idx, s.hist)
-                        s.hist = rebinned
-                    else:
-                        s.hist = np.zeros(bins)
-                    s.hist_max = amax
-                    s.hist += h
-                else:
-                    idx_scale = amax / s.hist_max
-                    idx = np.minimum((np.arange(bins) * idx_scale).astype(int), bins - 1)
-                    add = np.zeros(bins)
-                    np.add.at(add, idx, h)
-                    s.hist += add
+    with trace.span(trace.QUANTIZE_COLLECT):
+        for env in tensors_by_batch(graph, batches, options, device):
+            with trace.span(trace.QUANTIZE_OBSERVE):
+                _observe(graph, env, stats, with_histograms, bins)
     return stats
+
+
+def _observe(graph: Graph, env, stats: Dict[int, ActivationStats], with_histograms: bool,
+             bins: int) -> None:
+    """Folds one batch's tensors `env` into `stats`: each non-const
+    tensor's range, and with_histograms its |x| histogram."""
+    for tid, arr in env.items():
+        t = graph.tensors[tid]
+        if t.tensor_type == TensorType.CONST:
+            continue
+        mn, mx = (float(v) for v in torch.aminmax(arr.float()))
+        s = stats.get(tid)
+        if s is None:
+            s = stats[tid] = ActivationStats(min=mn, max=mx)
+        else:
+            s.min = min(s.min, mn)
+            s.max = max(s.max, mx)
+        s.count += arr.numel()
+        if with_histograms:
+            a = arr.float().cpu().numpy()
+            amax = max(abs(s.min), abs(s.max), 1e-9)
+            # exact zeros are EXCLUDED from the KL histogram, matching
+            # the reference (quant_utils.cpp:histCount `if (data[i]!=0)`).
+            # Post-ReLU activations can be >90% zeros; counting them
+            # makes every small clip threshold look KL-optimal (the zero
+            # bin is always represented) and collapses the scale — seen
+            # as a 0.10 top-1 on the depthwise digit net before the fix.
+            nz = a[a != 0]
+            h, _ = np.histogram(np.abs(nz), bins=bins, range=(0, amax))
+            if s.hist is None or s.hist_max < amax:
+                # rebin existing histogram into the new range
+                if s.hist is not None and s.hist_max > 0:
+                    scale_f = s.hist_max / amax
+                    idx = np.minimum((np.arange(bins) * scale_f).astype(int), bins - 1)
+                    rebinned = np.zeros(bins)
+                    np.add.at(rebinned, idx, s.hist)
+                    s.hist = rebinned
+                else:
+                    s.hist = np.zeros(bins)
+                s.hist_max = amax
+                s.hist += h
+            else:
+                idx_scale = amax / s.hist_max
+                idx = np.minimum((np.arange(bins) * idx_scale).astype(int), bins - 1)
+                add = np.zeros(bins)
+                np.add.at(add, idx, h)
+                s.hist += add
 
 
 # ---------------------------------------------------------------------------

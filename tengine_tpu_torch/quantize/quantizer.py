@@ -18,6 +18,7 @@ import numpy as np
 
 from ..graph.ir import DType, Graph, QuantParam, TensorType
 from ..ops import qmath
+from ..utils import trace
 from ..utils.config import Options
 from ..utils.log import logger
 from .calibrate import (
@@ -139,7 +140,6 @@ def quantize_graph(
         # carries (quant_tool splits the same way); silently falling back to
         # minmax would misreport what ran
         raise ValueError("algorithm='eq' requires scheme='int8'")
-    act_dtype = DType.UINT8 if scheme == "uint8" else DType.INT8
 
     # materialize once: calibration_inputs may be a generator, and EQ below
     # iterates it a second time after collect_activation_ranges consumed it
@@ -149,6 +149,23 @@ def quantize_graph(
         graph, calibration_inputs, options, with_histograms=(algorithm == "kl"),
         device=device,
     )
+    with trace.span(trace.QUANTIZE_REWRITE):
+        q = _rewrite(graph, stats, scheme, algorithm)
+
+    if algorithm == "eq" and scheme == "int8":
+        # search-based per-channel weight-scale equalization on top of the
+        # minmax base quantization (quant_eq.cpp QuantTool::quant_search)
+        from .eq import eq_adjust_weights
+
+        n = eq_adjust_weights(graph, q, calibration_inputs, options, device=device)
+        logger.info("eq search adjusted %d weighted nodes", n)
+    return q
+
+
+def _rewrite(graph: Graph, stats: Dict, scheme: str, algorithm: str) -> Graph:
+    """A quantized copy of `graph`: activation grids from the calibration
+    `stats`, shared grids pinned, weights and biases quantized."""
+    act_dtype = DType.UINT8 if scheme == "uint8" else DType.INT8
 
     def act_qparam(s: ActivationStats) -> QuantParam:
         if scheme == "uint8":
@@ -270,12 +287,4 @@ def quantize_graph(
             quantize_bias(bt, wq, _s_in(xin))
 
     q._is_quantized = True
-
-    if algorithm == "eq" and scheme == "int8":
-        # search-based per-channel weight-scale equalization on top of the
-        # minmax base quantization (quant_eq.cpp QuantTool::quant_search)
-        from .eq import eq_adjust_weights
-
-        n = eq_adjust_weights(graph, q, calibration_inputs, options, device=device)
-        logger.info("eq search adjusted %d weighted nodes", n)
     return q
