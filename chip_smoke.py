@@ -2366,6 +2366,78 @@ def _dw_sweep_tiles(pd, N, H, C, k, stride):
     return tiles
 
 
+def check_requant_kernels(torch):
+    """Phase 2 for the passes around the fast tier's library conv
+    (ops/cuda/requant.py): qwiden and qrequant against their plain versions
+    at the main path's largest shapes, in both layouts the library conv
+    hands over, bit for bit, and timed (graph_ms) beside the plain
+    versions; bound by bytes (1 in and 8 out, 8 in and 1 out)."""
+    from tengine_tpu_torch.ops.cuda import requant as rq
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        if got.stride() != want.stride() or not torch.equal(got, want):
+            raise AssertionError(f"{what}: kernel != plain (strides {got.stride()} / "
+                                 f"{want.stride()})")
+        return 0
+
+    def nhwc(shape, dtype, layout, lo, hi, gen):
+        """Random integers in [lo, hi), NHWC memory or the NHWC view of NCHW."""
+        n, h, w, c = shape
+        t = torch.randint(lo, hi, (n, c, h, w) if layout == "nchw" else shape, generator=gen,
+                          device="cuda", dtype=dtype)
+        return t.permute(0, 2, 3, 1) if layout == "nchw" else t
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    entries = {}
+    # the main path's largest launches, in the layout they run in there
+    # first (both nets run NCHW from their NCHW input on; yolov5s's first
+    # convs read the stem's NHWC output): mobilenet-v1-224 b128's dw conv2_2
+    # input 112x112x64 (UINT8 after ReLU, zp_in 0: "shift", the conv pads)
+    # and its pointwise conv2_1 output, requantized to UINT8 with ReLU;
+    # yolov5s-640 b8's largest SiLU conv, 320x320x32 raw INT8 in and
+    # 160x160x64 out; then the depthwise zp fold ("fill", zp_in 101) at
+    # mobilenet's shape, which the benchmark's nets do not take
+    widen = [("mobilenet b128 shift", (128, 112, 112, 64), torch.uint8, 0, "shift", None,
+              ("nchw", "nhwc")),
+             ("yolov5s b8 raw", (8, 320, 320, 32), torch.int8, 0, "raw", None, ("nhwc", "nchw")),
+             ("zp fold b128 fill", (128, 112, 112, 64), torch.uint8, 101, "fill",
+              ((1, 1), (1, 1)), ("nhwc", "nchw"))]
+    requant = [("mobilenet b128 u8 relu", (128, 112, 112, 64), 0, True, ("nchw", "nhwc")),
+               ("yolov5s b8 s8 silu", (8, 160, 160, 64), 100, False, ("nchw", "nhwc"))]
+    for what, shape, dtype, zp, mode, pads, layouts in widen:
+        lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
+        for layout in layouts:
+            x = nhwc(shape, dtype, layout, lo, hi, gen)
+            kw = dict(zp_in=zp, mode=mode, pads=pads)
+            err = same(rq.qwiden(x, **kw), rq.qwiden_plain(x, **kw), f"qwiden {what} {layout}")
+            ms = graph_ms(lambda: rq.qwiden(x, **kw), iters=20)
+            plain_ms = graph_ms(lambda: rq.qwiden_plain(x, **kw), iters=5)
+            out = rq.qwiden_plain(x, **kw)
+            log(f"  qwiden {what} {layout} {tuple(shape)}:")
+            entries.setdefault("qwiden", kernel_entry(
+                "qwiden", rq.SOURCE, None, err, ms, plain_ms, x.numel() + 8 * out.numel(), 0,
+                None))
+    for what, shape, act, u8, layouts in requant:
+        C = shape[3]
+        mult = (torch.rand(C, generator=gen, device="cuda") * 1e-3 + 1e-4).float()
+        bias = (torch.randn(C, generator=gen, device="cuda") * 20).float()
+        ep = rq.Epilogue(zp_out=117 if u8 else 0, lo=0 if u8 else -127, hi=255 if u8 else 127,
+                         out_u8=u8, s_out=0.0473, act=act)
+        for layout in layouts:
+            acc = nhwc(shape, torch.float64, layout, -2**20, 2**20, gen)
+            err = same(rq.qrequant(acc, mult, bias, None, None, ep),
+                       rq.qrequant_plain(acc, mult, bias, None, None, ep),
+                       f"qrequant {what} {layout}")
+            ms = graph_ms(lambda: rq.qrequant(acc, mult, bias, None, None, ep), iters=20)
+            plain_ms = graph_ms(lambda: rq.qrequant_plain(acc, mult, bias, None, None, ep),
+                                iters=5)
+            log(f"  qrequant {what} {layout} {tuple(shape)}:")
+            entries.setdefault("qrequant", kernel_entry(
+                "qrequant", rq.SOURCE, None, err, ms, plain_ms, 9 * acc.numel(), 0, None))
+    return entries
+
+
 def check_dw_kernel(torch, sweep=False):
     """Phase 2 for dw_qconv: bit for bit against dw_qconv_plain on the test
     grid and the redesign's edge cases under forced tiles
@@ -5095,6 +5167,7 @@ def main(argv) -> int:
     entries.update(check_igemm_main(torch, sweep="--tiles" in argv))
     entries["dw_qconv"] = check_dw_kernel(torch, sweep="--tiles" in argv)
     entries["qblock_chain"] = check_qblock_kernel(torch, sweep="--tiles" in argv)
+    entries.update(check_requant_kernels(torch))
     counters = {"stem_qconv": stem_qconv, "qconv_direct": qconv_direct, "qconv1x1": qconv1x1,
                 "qgemm_requant": qgemm_requant, "dw_qconv": dw_qconv, "qblock_chain": qblock_chain}
     log(f"phase 2 kernels: {time.time() - t0:.1f} s")

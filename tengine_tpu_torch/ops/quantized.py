@@ -43,6 +43,7 @@ from . import qmath
 from .cuda.dw_conv import dw_qconv, pack_dw_taps
 from .cuda.qconv import pack_qconv_weights, qconv1x1, qconv_direct
 from .cuda.qgemm import pack_qgemm_weights, qgemm_requant
+from .cuda.requant import Epilogue, qrequant, qwiden
 from .cuda.stem_conv import pack_stem_weights, stem_qconv
 from .layout import TArr, as_nchw, as_nhwc, as_semantic, nhwc
 from .lowering import ACT_SILU, _conv_pads, apply_activation, conv2d_nhwc, fc_output
@@ -136,8 +137,19 @@ def _relaxed_fused_add(ctx: LowerCtx) -> bool:
     )
 
 
+def _widen(xn, zp_in: int, mode: str, pads):
+    """The float64 buffer the library conv reads (qwiden), and the pads the
+    conv still applies: asymmetric pads are written into the buffer, as
+    conv2d_nhwc's F.pad wrote them; symmetric ones stay the conv's."""
+    (pt, pb), (pl, pr) = pads
+    if pt == pb and pl == pr:
+        return qwiden(xn, zp_in=zp_in, mode=mode), pads
+    return qwiden(xn, zp_in=zp_in, mode=mode, pads=pads), ((0, 0), (0, 0))
+
+
 def _conv_quant_common(ctx: LowerCtx, x: TArr):
-    """Shared quantized conv: returns (acc_f32 NHWC, params pack).
+    """Shared quantized conv: returns (acc float64 NHWC, params pack). The
+    stored input is widened to the conv's float64 buffer by qwiden.
 
     Two branches, as in tengine_tpu/ops/quantized.py:_conv_quant_common.
 
@@ -199,11 +211,9 @@ def _conv_quant_common(ctx: LowerCtx, x: TArr):
     strides = (p["stride_h"], p["stride_w"])
     if not (t_in.dtype == DType.INT8 and t_w.dtype == DType.INT8 and not np.any(zp_w)):
         w = ctx.weight(1, lambda a: a.astype(np.float64) - zp_w, tag="oihw_zshift_f64")
-        xf = xn.to(torch.float64)
         is_dw = group > 1 and group == out_c and int(t_w.shape[1]) == 1
         if is_dw and zp_in != 0:
-            (pt, pb), (pl_, pr) = pads
-            xs = torch.nn.functional.pad(xf, (0, 0, pl_, pr, pt, pb), value=float(zp_in))
+            xs = qwiden(xn, zp_in=zp_in, mode="fill", pads=pads)
             acc = conv2d_nhwc(xs, w, ((0, 0), (0, 0)), strides, (dil_h, dil_w), group)
             s_out_f = float(np.asarray(out_q.scales).reshape(-1)[0])
 
@@ -214,14 +224,14 @@ def _conv_quant_common(ctx: LowerCtx, x: TArr):
                 return (-zp_in * colsum * m).astype(np.float32)
 
             dw_corr = ctx.get_param("dwzp_bm", _corr)
-            return acc.to(torch.float32), (s_in, w_scales, out_q, t_out.dtype, p, dw_corr)
-        acc = conv2d_nhwc(xf - float(zp_in), w, pads, strides, (dil_h, dil_w), group)
-        return acc.to(torch.float32), (s_in, w_scales, out_q, t_out.dtype, p, None)
+            return acc, (s_in, w_scales, out_q, t_out.dtype, p, dw_corr)
+        xs, conv_pads = _widen(xn, zp_in, "shift", pads)
+        acc = conv2d_nhwc(xs, w, conv_pads, strides, (dil_h, dil_w), group)
+        return acc, (s_in, w_scales, out_q, t_out.dtype, p, None)
     w = ctx.weight(1, lambda a: np.asarray(a, np.float64), tag="oihw_f64")
     # zero padding in the integer domain; a nonzero zp_in is corrected below
-    acc = conv2d_nhwc(
-        xn.to(torch.float64), w, pads, strides, (dil_h, dil_w), group,
-    ).to(torch.float32)
+    xs, conv_pads = _widen(xn, zp_in, "raw", pads)
+    acc = conv2d_nhwc(xs, w, conv_pads, strides, (dil_h, dil_w), group)
     if zp_in != 0:
         # conv(x - zp, w) = conv(x, w) - zp * conv(ones, w): a compile-time
         # constant (native-int8-shifted uint8 grids, TFLite int8 imports)
@@ -241,12 +251,12 @@ def _conv_quant_common(ctx: LowerCtx, x: TArr):
 
 
 def _requant_conv_out(ctx: LowerCtx, acc, pack, residual=None):
-    """Fold dequant-scale, bias, activation, and requant into one vector op:
-    q = clip(round(acc*M[c] + B[c]) + zp_out). With a fused residual add
-    (fuse_conv_add pass) the full unfused chain — requant to the mid tensor,
-    dequant both operands, add, requant to the out tensor, optional trailing
-    relu — runs here bit-exactly; under the relaxed tier the residual joins
-    before the one rounding instead."""
+    """Fold dequant-scale, bias, activation, and requant into one pass
+    (qrequant): q = clip(round(acc*M[c] + B[c]) + zp_out). With a fused
+    residual add (fuse_conv_add pass) the full unfused chain — requant to the
+    mid tensor, dequant both operands, add, requant to the out tensor,
+    optional trailing relu — runs there bit-exactly; under the relaxed tier
+    the residual joins before the one rounding instead."""
     s_in, w_scales, out_q, out_dtype, p, zcorr = pack
     s_out = float(np.asarray(out_q.scales).reshape(-1)[0])
     zp_out = int(np.asarray(out_q.zero_points).reshape(-1)[0])
@@ -268,64 +278,37 @@ def _requant_conv_out(ctx: LowerCtx, acc, pack, residual=None):
         zp_r = int(np.asarray(t_r.quant.zero_points).reshape(-1)[0])
         beta = s_r / s_out
         zp_shift = zp_r * beta
-    act = p.get("activation", -1)
+    B = None
     if has_bias:
         def bias_q():
             b = ctx.const_data(2).astype(np.float32)
             return (b * s_in * w_scales / s_out - zp_shift).astype(np.float32)
 
         B = ctx.get_param("requant_b", bias_q)
-        q = acc * M + B
-    else:
-        q = acc * M
-        if zp_shift:
-            q = q - float(np.float32(zp_shift))
-    if zcorr is not None:
-        q = q + zcorr
-
-    if act is not None and act >= 0:
-        # clamp thresholds move into the pre-round domain (x/s_out)
-        if act == ACT_SILU:
-            # silu(v)/s_out = (v/s_out) * sigmoid(v), v = q*s_out
-            q = q * torch.sigmoid(q * s_out)
-        elif act == 1:
-            q = torch.clamp(q, -1.0 / s_out, 1.0 / s_out)
-        else:
-            q = torch.clamp_min(q, 0.0)
-            if act > 0:
-                q = torch.clamp_max(q, float(act) / s_out)
+    act = p.get("activation", -1)
     lo, hi = qmath.qrange(out_dtype, out_q)
-    store = qmath.TORCH_DTYPES[ctx.out_tensor(0).dtype]
+    ep = dict(zp_out=zp_out, lo=lo, hi=hi, s_out=s_out, act=-1 if act is None else act,
+              zp_shift=float(np.float32(zp_shift)),
+              out_u8=ctx.out_tensor(0).dtype == DType.UINT8,
+              relu2=bool(p.get("fused_add_relu")))
     if relaxed_res:
-        # relaxed tier: q is already folded to the FINAL output scale and
-        # carries the folded -zp_r*beta constant; add the scaled residual and
-        # round ONCE.
-        y = q + residual.to(torch.float32) * float(np.float32(beta))
-        if p.get("fused_add_relu"):
-            y = torch.clamp_min(y, 0.0)
-        return nhwc(qmath.clip_cast(qmath.round_away(y) + zp_out, lo, hi, store))
-    t_pre = qmath.round_away(q) + zp_out
-    if residual is None:
-        return nhwc(qmath.clip_cast(t_pre, lo, hi, store))
-    t = torch.clamp(t_pre, lo, hi)
-    # fused residual: t is the quantized mid tensor; reproduce the unfused
-    # eltwise-sum numerics exactly (dequant both, add, requant)
-    t_outf = ctx.out_tensor(0)
-    s_mid, zp_mid = s_out, zp_out
-    t_r = ctx.in_tensor(fused_pos)
-    s_r = float(np.asarray(t_r.quant.scales).reshape(-1)[0])
-    zp_r = int(np.asarray(t_r.quant.zero_points).reshape(-1)[0])
-    s_out2 = float(np.asarray(t_outf.quant.scales).reshape(-1)[0])
-    zp_out2 = int(np.asarray(t_outf.quant.zero_points).reshape(-1)[0])
-    tf = (t - zp_mid) * s_mid
-    rf = (residual.to(torch.float32) - zp_r) * s_r
-    # the JAX engine divides by s_out2 inside jit, where XLA turns a division
-    # by a constant into a multiply by its f32 reciprocal
-    y = qmath.round_away((tf + rf) * float(np.float32(1.0) / np.float32(s_out2))) + zp_out2
-    if p.get("fused_add_relu"):
-        y = torch.clamp_min(y, float(zp_out2))
-    lo2, hi2 = qmath.qrange(t_outf.dtype, t_outf.quant)
-    return nhwc(qmath.clip_cast(y, lo2, hi2, store))
+        ep.update(residual="relaxed", beta=float(np.float32(beta)))
+    elif residual is not None:
+        # the mid tensor t is requantized through the unfused eltwise-sum
+        # numerics: dequant both, add, requant. The JAX engine divides by
+        # s_out2 inside jit, where XLA turns a division by a constant into a
+        # multiply by its f32 reciprocal
+        t_outf = ctx.out_tensor(0)
+        t_r = ctx.in_tensor(fused_pos)
+        s_out2 = float(np.asarray(t_outf.quant.scales).reshape(-1)[0])
+        lo2, hi2 = qmath.qrange(t_outf.dtype, t_outf.quant)
+        ep.update(residual="exact",
+                  s_r=float(np.asarray(t_r.quant.scales).reshape(-1)[0]),
+                  zp_r=int(np.asarray(t_r.quant.zero_points).reshape(-1)[0]),
+                  inv_s_out2=float(np.float32(1.0) / np.float32(s_out2)),
+                  zp_out2=int(np.asarray(t_outf.quant.zero_points).reshape(-1)[0]),
+                  lo2=lo2, hi2=hi2)
+    return nhwc(qrequant(acc, M, B, zcorr, residual, Epilogue(**ep)))
 
 
 def _shifted_s8(ctx: LowerCtx) -> bool:
@@ -888,9 +871,10 @@ def lower_fc_quant_fast(ctx: LowerCtx, x: TArr, *rest: TArr):
     xf = xs.reshape(xs.shape[0], -1).to(torch.float64)
 
     zp_w = _zp_w(t_w.quant, out_c)
+    zc = None
     if t_in.dtype == DType.INT8 and t_w.dtype == DType.INT8 and not np.any(zp_w):
         w = ctx.weight(1, lambda a: np.ascontiguousarray(a.T, np.float64), tag="kt_f64")
-        acc = (xf @ w).to(torch.float32)
+        acc = xf @ w
         if zp_in != 0:
             zc = ctx.get_param(
                 "fc_zp_corr",
@@ -899,17 +883,16 @@ def lower_fc_quant_fast(ctx: LowerCtx, x: TArr, *rest: TArr):
                     * ctx.const_data(1).astype(np.int64).reshape(out_c, -1).sum(axis=1)
                 ).astype(np.float32),
             )
-            acc = acc + zc
     else:
         zp_rows = np.reshape(zp_w, (-1, 1))  # [out_c or 1, 1] against [out_c, K]
         w = ctx.weight(
             1, lambda a: np.ascontiguousarray((a.astype(np.float64) - zp_rows).T),
             tag="kt_zshift_f64",
         )
-        acc = ((xf - float(zp_in)) @ w).to(torch.float32)
+        acc = (xf - float(zp_in)) @ w
 
     M = ctx.get_param("requant_m", lambda: (s_in * w_scales / s_out).astype(np.float32))
-    q = acc * M
+    B = None
     if ctx.num_inputs > 2:
         B = ctx.get_param(
             "requant_b",
@@ -917,12 +900,10 @@ def lower_fc_quant_fast(ctx: LowerCtx, x: TArr, *rest: TArr):
                 np.float32
             ),
         )
-        q = q + B
     lo, hi = qmath.qrange(t_out.dtype, t_out.quant)
-    out = qmath.clip_cast(
-        qmath.round_away(q) + zp_out, lo, hi, qmath.TORCH_DTYPES[t_out.dtype]
-    )
-    return fc_output(out, xs.ndim)
+    ep = Epilogue(zp_out=zp_out, lo=lo, hi=hi, out_u8=t_out.dtype == DType.UINT8,
+                  s_out=s_out, corr_first=True)
+    return fc_output(qrequant(acc, M, B, zc, None, ep), xs.ndim)
 
 
 @register_op("FullyConnected", score=SCORE_CANDO, predicate=node_is_quant, quant=True)

@@ -904,6 +904,121 @@ def test_dw_kernel_shifted_int8_on_card(case):
     np.testing.assert_array_equal(got, want)
 
 
+# --- the passes around the fast tier's library conv ------------------------
+
+from test_torch_requant import (  # noqa: E402
+    REQUANT_CASES, WIDEN_CASES, requant_inputs, requant_tensors, widen_inputs,
+)
+
+# beyond the CPU grid: every activation at 3, 32, 255 and 1,024 channels in
+# both layouts (ragged ends at 3 and 255), |acc| past 2^24, each correction
+# and store in turn; then the fused residuals at 3 and 255 channels
+REQUANT_SWEEP = [
+    (f"{C}-{layout}-{act}", C, layout, act, ("none", "chan", "pos", "dw")[i % 4], None, False,
+     ("u8", "s8", "s8full")[i % 3], i % 2 == 0, True)
+    for i, (C, layout, act) in enumerate(
+        (C, layout, act) for C in (3, 32, 255, 1024) for layout in ("nhwc", "nchw")
+        for act in (-1, 0, 1, 6, 100))
+] + [
+    (f"{C}-{res}-{relu2}", C, layout, -1, "chan", res, relu2, "u8" if relu2 else "s8", True,
+     False)
+    for C in (3, 255) for layout in ("nhwc", "nchw") for res in ("exact", "relaxed")
+    for relu2 in (False, True)
+]
+WIDEN_SWEEP = [(mode, layout, pads, dtype) for mode in ("shift", "raw", "fill")
+               for layout in ("nhwc", "nchw") for pads in (None, ((1, 1), (1, 1)), ((0, 1), (2, 0)))
+               for dtype in ("u8", "s8")]
+
+
+def _unaligned(t):
+    """t's values and strides at a storage offset of one element: the
+    kernels' scalar path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].as_strided(t.shape, t.stride())
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unaligned", [False, True], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("case", REQUANT_CASES + REQUANT_SWEEP, ids=lambda c: c[0])
+def test_requant_kernel_matches_plain_on_card(case, unaligned):
+    """qrequant on the card against qrequant_plain on the card: every
+    branch at 0 LSB, in acc's layout."""
+    _need_card()
+    from tengine_tpu_torch.ops.cuda import requant as rq
+
+    arrays, ep, layout = requant_inputs(case, seed=sum(map(ord, case[0])))
+    args = [None if t is None else t.cuda() for t in requant_tensors(arrays, layout)]
+    if unaligned:
+        args[0] = _unaligned(args[0])
+    before = rq.qrequant.launches
+    got = rq.qrequant(*args, ep)
+    torch.cuda.synchronize()
+    assert rq.qrequant.launches == before + 1
+    want = rq.qrequant_plain(*args, ep)
+    assert got.dtype == want.dtype and got.shape == want.shape and got.stride() == want.stride()
+    assert torch.equal(got, want), int((got.int() - want.int()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unaligned", [False, True], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("case", WIDEN_CASES + WIDEN_SWEEP, ids=str)
+def test_widen_kernel_matches_plain_on_card(case, unaligned):
+    """qwiden on the card: qwiden_plain's buffer, values and strides."""
+    _need_card()
+    from tengine_tpu_torch.ops.cuda import requant as rq
+
+    _, t, kw = widen_inputs(case, seed=7)
+    x = t.cuda()
+    if unaligned:
+        x = _unaligned(x)
+    before = rq.qwiden.launches
+    got = rq.qwiden(x, **kw)
+    torch.cuda.synchronize()
+    assert rq.qwiden.launches == before + 1
+    want = rq.qwiden_plain(x, **kw)
+    assert got.shape == want.shape and got.stride() == want.stride()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,widens,requants", [("mnv1-u8-b128", 27, 28),
+                                                  ("yolov5s-i8-b8", 81, 81)])
+def test_benchmark_models_forward_on_requant_kernels_on_card(cell, widens, requants,
+                                                             monkeypatch):
+    """Both benchmark configurations at img 64, batch 2, captured on the
+    card: the kernels' route equals the plain versions' route on the card
+    at 0 LSB; each fast-tier conv widens once and each conv and FC
+    requantizes once a forward (warm-up and capture: twice each), and no
+    plain version runs."""
+    _need_card()
+    from hbench import harness
+    from hbench.tests.small import small_cell
+
+    from tengine_tpu_torch.executor.engine import compile_graph
+    from tengine_tpu_torch.ops import quantized
+    from tengine_tpu_torch.ops.cuda import requant as rq
+    from tengine_tpu_torch.utils.config import Options
+
+    pr = harness.prepare(small_cell(cell), 2**35 + 17, torch.device("cuda"))
+    t_in = pr.qg.tensors[pr.qg.input_tensors[0]]
+    u8 = cell.startswith("mnv1")
+    x = torch.from_numpy(np.random.default_rng(3).integers(
+        0 if u8 else -127, 256 if u8 else 128, (2, *t_in.shape[1:])).astype(
+        np.uint8 if u8 else np.int8)).cuda()
+    opts = Options(quant_mode="fast", batch_size=2)
+    counts = (rq.qwiden.launches, rq.qrequant.launches, rq.qwiden.plain, rq.qrequant.plain)
+    got = [o.cpu() for o in compile_graph(pr.qg, opts, device="cuda")(x)]
+    after = (rq.qwiden.launches, rq.qrequant.launches, rq.qwiden.plain, rq.qrequant.plain)
+    assert after == (counts[0] + 2 * widens, counts[1] + 2 * requants, counts[2], counts[3])
+    monkeypatch.setattr(quantized, "qwiden", lambda x, **kw: rq.qwiden_plain(x, **kw))
+    monkeypatch.setattr(quantized, "qrequant", rq.qrequant_plain)
+    want = [o.cpu() for o in compile_graph(pr.qg, opts, device="cuda")(x)]
+    assert rq.qwiden.launches == after[0] and rq.qrequant.launches == after[1]
+    _assert_equal(got, want)
+
+
 # --- the compiled forward and the server from several threads -------------
 
 
