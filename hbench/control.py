@@ -38,7 +38,7 @@ def control_numbers(cell, seed: int, device, bits: int = 4) -> dict:
     ref8 = Reference(ref_mod, cfg, params, cal, bits=8)
     low = Reference(ref_mod, cfg, params, cal, bits=bits)
     g = ref8.input_grid
-    n = int(tr.get("batch", 1)) * int(tr["ring"]) if tr["kind"] == "offline" else int(tr["pool"])
+    n = int(tr.get("batch", 1)) * int(tr["ring"]) if "ring" in tr else int(tr["pool"])
     x = harness.quantize_images(
         harness.draw_images(n, cfg, tr, device, harness.generator(device, s_traffic)),
         g.scale, g.zero, cfg["scheme"])

@@ -1,11 +1,14 @@
 """Faults planted in the timed path to show that the comparison catches
 them: each wraps the outputs of CompiledGraph.__call__ (the call that every
-traffic mix's loop reaches, the server's included). `plant(name)` returns a
-context manager that swaps the call for a broken one and restores it."""
+traffic mix's loop reaches, the server's and each rank's ShardedGraph's
+included), or leave out the exchange between cards. `plant(name)` returns
+a context manager that swaps the call for a broken one and restores it.
+The ENDINGS end the process instead."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 
 
 def stale(outs, state):
@@ -46,18 +49,51 @@ FAULTS = {"stale": stale, "half_batch": half_batch, "altered": altered,
           "rows_swapped": rows_swapped}
 
 
+def exits(outs, state):
+    """A process that ends mid-run, at its third call: a run over several
+    cards has to end without a result, leaving no process behind."""
+    state["calls"] = state.get("calls", 0) + 1
+    if state["calls"] >= 3:
+        os._exit(13)
+    return outs
+
+
+# faults that no comparison reads: the run has to fail
+ENDINGS = {"exits": exits}
+
+
+def no_exchange(x, dim, group, size):
+    """The exchange between cards left out: in place of the mesh's
+    all-gather, this rank's own rows in every rank's place."""
+    import torch
+
+    return torch.cat([x] * size, dim) if size > 1 else x
+
+
 @contextlib.contextmanager
+def _swapped(owner, attr: str, value):
+    real = getattr(owner, attr)
+    setattr(owner, attr, value)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, real)
+
+
 def plant(name: str):
-    """CompiledGraph.__call__ broken by fault `name` inside the block."""
+    """A context manager inside which CompiledGraph.__call__ is broken by
+    fault `name`, or, for `no_exchange`, the mesh's all-gather
+    (parallel/sharding.py:all_gather_dim, which ShardedGraph calls) left
+    out."""
+    if name == "no_exchange":
+        from tengine_tpu_torch.parallel import sharding
+
+        return _swapped(sharding, "all_gather_dim", no_exchange)
     from tengine_tpu_torch.executor.engine import CompiledGraph
 
-    real, fault, state = CompiledGraph.__call__, FAULTS[name], {}
+    real, fault, state = CompiledGraph.__call__, {**FAULTS, **ENDINGS}[name], {}
 
     def broken(self, *inputs):
         return fault(real(self, *inputs), state)
 
-    CompiledGraph.__call__ = broken
-    try:
-        yield
-    finally:
-        CompiledGraph.__call__ = real
+    return _swapped(CompiledGraph, "__call__", broken)

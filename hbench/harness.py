@@ -12,6 +12,7 @@ the program's answers.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import sys
 import time
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from hbench import counts as counting
+from hbench import faults
 from hbench import spec as specs
 from hbench import traffic as traffics
 from hbench import trace as tracing
@@ -40,6 +42,8 @@ class Run:
     cell: str
     batch: int
     counts: counting.Counts
+    chips: int = 1  # the cards the window ran on, one rank each
+    rows: Optional[int] = None  # of one rank's forward, where not the batch
     setup_s: float = 0.0
     calib_s: float = 0.0
     compile_s: float = 0.0
@@ -188,25 +192,36 @@ def prepare(cell: specs.Cell, seed: int, device) -> Prepared:
 
 
 def run_cell(cell: specs.Cell, seed: int, seconds: float, trace: bool, device,
-             setup_clock: Callable[[], float]) -> dict:
-    """One run. `setup_clock()` gives the seconds since the process began
-    (set-up ends at the first timed call). Returns the result's fields."""
+             setup_clock: Callable[[], float], window_fault: Optional[str] = None) -> Optional[dict]:
+    """One run. `setup_clock()` gives the seconds since the run began
+    (set-up ends at the first timed call). `window_fault` names a fault of
+    hbench/faults.py planted in the timed path for the window only. Returns
+    the result's fields; None on a rank of a run over several cards that
+    leaves the judging to rank 0."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     cfg = cell.config
+    t_in = setup_clock()
     pr = prepare(cell, seed, device)
+    t_prep = setup_clock()
     loop = pr.loop
     compile_s = loop.setup()
+    t_loop = setup_clock()
     if trace and cuda:
         tracing.warm_up(device)
     run = Run(cell=cell.name, batch=loop.batch, counts=counting.count(pr.ref_mod, cfg),
-              calib_s=pr.calib_s, compile_s=compile_s)
+              chips=loop.ranks, rows=loop.rows, calib_s=pr.calib_s, compile_s=compile_s)
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     sl = loop.slice_at(seconds) if trace and cuda else None
     run.setup_s = setup_clock()
-    run.window = loop.window(seconds, sl)
+    log(f"hbench: set-up {run.setup_s:.3f} s, by phase: to the harness {t_in:.3f}, weights "
+        f"and model {t_prep - t_in - pr.calib_s:.3f}, calibration {pr.calib_s:.3f}, the "
+        f"loop's set-up {t_loop - t_prep:.3f} (compile and capture {compile_s:.3f}), then "
+        f"{run.setup_s - t_loop:.3f}")
+    with faults.plant(window_fault) if window_fault else contextlib.nullcontext():
+        run.window = loop.window(seconds, sl)
     if sl is not None:
         run.slice = sl.reduce()
     if trace and cuda:
@@ -215,6 +230,7 @@ def run_cell(cell: specs.Cell, seed: int, seconds: float, trace: bool, device,
 
     # the program's answers and grids, then its state is freed
     answers = loop.answers()
+    peak, run.slice, across = loop.across(peak, run.slice)
     prog_grids = program_grids(pr.qg, pr.ref_mod.grid_names(cfg))
     out_grids = [pr.qg.tensors[tid].quant for tid in pr.qg.output_tensors]
     loop.close()
@@ -222,10 +238,14 @@ def run_cell(cell: specs.Cell, seed: int, seconds: float, trace: bool, device,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    if across is None:
+        return None
 
     numbers = judge_answers(pr.ref_mod, cfg, pr.flat, pr.p_specs, pr.cal, answers, prog_grids,
                             out_grids, device)
-    ok, checks = compare.judge(numbers, cfg["limits"])
+    # the ranks' own readings agree exactly, or the run is not correct
+    numbers.update(across)
+    ok, checks = compare.judge(numbers, dict(cfg["limits"], **dict.fromkeys(across, 0)))
     if not answers:
         ok = False
     return {"run": run, "correct": ok, "checks": checks, "numbers": numbers, "peak": peak,

@@ -9,13 +9,13 @@ from hbench.traffic import percentile
 
 
 def mfu_pct(run) -> Optional[float]:
-    """The window's int8 operations over the card's published peak: the
-    frozen operations of one image times the images answered (padding rows
-    not counted) over the window's seconds."""
+    """The window's int8 operations over the published peak of the cards
+    it ran on: the frozen operations of one image times the images answered
+    (padding rows not counted) over the window's seconds."""
     w = run.window
     if w is None or w.seconds <= 0 or not w.images:
         return None
-    return 100.0 * run.counts.ops_per_image * w.images / w.seconds / PEAK_INT8_OPS
+    return 100.0 * run.counts.ops_per_image * w.images / w.seconds / (PEAK_INT8_OPS * run.chips)
 
 
 def latency_ms(run, pct: float) -> Optional[float]:

@@ -10,9 +10,13 @@ metrics, or with --trace 1 its per-layer ones), device, with --trace 1
 breakdown, and checks (each compared number beside its limit, also the last
 lines on standard error).
 
-Needs an NVIDIA card: without one it exits non-zero and prints no result.
-It exits non-zero too, printing no result, where jax, jaxlib, flax or the
-JAX package has been loaded.
+A cell that asks for several cards runs one process a card
+(hbench/ranks.py) and prints the result of rank 0, which judges.
+
+Needs the NVIDIA cards the cell asks for: without them it exits non-zero
+and prints no result. It exits non-zero too, printing no result, where a
+rank failed, or where jax, jaxlib, flax or the JAX package has been loaded
+(in this process, or in any rank).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import faulthandler
 import os
 import sys
 import time
+from typing import Callable
 
 T_IMPORT = time.perf_counter()
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -57,14 +62,16 @@ def set_environment() -> None:
     os.environ["PYTORCH_KERNEL_CACHE_PATH"] = os.path.join(cache, "torch_kernels")
 
 
-def power_limit_w() -> str:
+def power_limit_w(cards: int = 1) -> str:
+    """The power limit of each card the run used, in watts ("/" between)."""
     import subprocess
 
     try:
         out = subprocess.run(["nvidia-smi", "--query-gpu=power.limit",
-                              "--format=csv,noheader,nounits", "-i", "0"],
+                              "--format=csv,noheader,nounits",
+                              "-i", ",".join(str(i) for i in range(cards))],
                              capture_output=True, text=True, timeout=20)
-        return out.stdout.strip() or "unknown"
+        return "/".join(out.stdout.split()) or "unknown"
     except (OSError, subprocess.SubprocessError):
         return "unknown"
 
@@ -84,11 +91,9 @@ def main(argv=None) -> int:
     # caller's own time limit
     faulthandler.dump_traceback_later(330, exit=True)
     sys.path.insert(0, ROOT)
-    import json
-
     import torch
 
-    from hbench import harness, result, spec
+    from hbench import harness, spec
 
     cell = spec.load_cell(args.workload)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
@@ -96,16 +101,40 @@ def main(argv=None) -> int:
         harness.log(f"hbench: cell {cell.name} needs {cell.chips} CUDA card(s), found {n}; "
                     "no result")
         return 2
-    out = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda",
-                           process_seconds)
+    return report(cell, args.seed, args.seconds, bool(args.trace), "cuda", process_seconds)
+
+
+def report(cell, seed: int, seconds: float, trace: bool, device: str,
+           setup_clock: Callable[[], float], **launch_kw) -> int:
+    """Runs `cell`, in this process or, where it asks for more than one
+    card, on one rank a card (hbench/ranks.py: `launch_kw` goes there), and
+    prints its result line; non-zero and no result where a rank failed or a
+    forbidden module is loaded."""
+    import json
+
+    from hbench import harness, result
+
+    if cell.chips > 1:
+        from hbench import ranks
+
+        origin = ranks.boot_now() - setup_clock()
+        out = ranks.launch(cell, seed, seconds, trace, device, origin, **launch_kw).out
+        if out is None:
+            return 1
+        kind, count = out["kind"], out["ranks"]
+    else:
+        import torch
+
+        out = harness.run_cell(cell, seed, seconds, trace, device, setup_clock)
+        kind, count = torch.cuda.get_device_name(0), cell.chips
     device = {
         "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": cell.chips,
+        "kind": kind,
+        "count": count,
         "memory_peak_bytes": out["peak"],
-        "power_limit_w": power_limit_w(),
+        "power_limit_w": power_limit_w(count),
     }
-    line = result.assemble(cell, out, device, bool(args.trace))
+    line = result.assemble(cell, out, device, trace)
     bad = forbidden_modules()
     if bad:
         harness.log(f"hbench: forbidden modules loaded: {', '.join(bad)}; no result")

@@ -1,5 +1,6 @@
 """Each cell at a size a CPU test holds: the same configuration and mix,
-with the image, the batch and the pools cut (widths as published)."""
+with the image, the batch, the pools and the mesh cut (widths as
+published)."""
 
 from __future__ import annotations
 
@@ -13,13 +14,17 @@ SMALL = {
                                          "max_batch": 4, "buckets": [1, 2, 4],
                                          "warm_s": 0.1}),
 }
+# cells over several cards: one process a place of the mesh, gloo on the CPU
+SMALL_RANKS = {
+    "mnv1-u8-dp4-b128": ({"img": 64}, {"batch": 4, "ring": 2, "mesh": [2, 1], "warm_s": 0.05}),
+}
 SEED = 2**40 + 12345
 
 
 def small_cell(name: str):
     from hbench import spec
 
-    cfg, tr = SMALL[name]
+    cfg, tr = {**SMALL, **SMALL_RANKS}[name]
     return spec.load_cell(name, config_over=cfg, traffic_over=tr)
 
 

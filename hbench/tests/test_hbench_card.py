@@ -1,6 +1,6 @@
-"""On the card: a short run of each cell comes out correct, and the control
-and the planted faults fail the limits at the cell's own size. They skip
-without a card."""
+"""On the card: a short run of each cell comes out correct (on as many cards
+as it asks for), and the control and the planted faults fail the limits at
+the cell's own size. They skip without a card."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[2]
-CELLS = ["mnv1-u8-b128", "yolov5s-i8-b8", "mnv1-u8-b1", "yolov5s-i8-served"]
+CELLS = ["mnv1-u8-b128", "yolov5s-i8-b8", "mnv1-u8-b1", "yolov5s-i8-served", "mnv1-u8-dp4-b128"]
 
 
 @pytest.fixture()
@@ -27,6 +27,13 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", CELLS)
 def test_short_run_is_correct(card, name):
+    import torch
+
+    from hbench import spec
+
+    chips = spec.load_cell(name).chips
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"needs {chips} NVIDIA cards")
     p = subprocess.run([sys.executable, "hbench/run.py", "--workload", name, "--seed",
                         str(2**33 + 101), "--seconds", "3", "--trace", "0"],
                        cwd=ROOT, capture_output=True, text=True, timeout=600)

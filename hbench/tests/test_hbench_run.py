@@ -30,6 +30,17 @@ def test_run_without_a_card_exits_nonzero():
         assert not d.get("correct"), line
 
 
+def test_four_card_cell_without_the_cards_exits_2():
+    """The launcher looks for the cards before it starts a rank."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    p = subprocess.run([sys.executable, "hbench/run.py", "--workload", "mnv1-u8-dp4-b128",
+                        "--seed", str(2**33 + 5), "--seconds", "1", "--trace", "0"],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 2, p.stderr[-2000:]
+    assert "needs 4 CUDA card(s)" in p.stderr and "[rank" not in p.stderr
+    assert not p.stdout.strip()
+
+
 def test_result_line_schema():
     cell = small_cell("mnv1-u8-b1")
     out = run_small("mnv1-u8-b1")

@@ -9,7 +9,7 @@ from pathlib import Path
 
 import pytest
 
-from hbench import spec
+from hbench import ranks, spec
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -63,6 +63,8 @@ def test_cells_and_configs():
         assert NAME.match(w["name"]) and w["chips"] in (1, 4)
         assert 1 <= len(w["why"]) <= 200 and "\n" not in w["why"]
         assert (ROOT / "hbench" / "traffic" / f"{w['traffic']}.json").is_file()
+        # a cell over several cards runs one rank a card of its mesh
+        assert ranks.world_of(spec.load_cell(w["name"])) == w["chips"], w["name"]
     files = [c["file"] for c in configs.values()]
     assert len(set(files)) == len(files)
     for c in configs.values():

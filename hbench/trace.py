@@ -4,8 +4,9 @@ Two readings, both made only in traced runs:
 
   * a slice of the measured window (Slice): the union of the device
     operations' intervals (busy), the slice's length, the device operations
-    that took most time, and the longest idle gaps by what the host was
-    doing in them;
+    that took most time, the longest idle gaps by what the host was doing
+    in them and, where a mesh's collectives ran, the device ms of one
+    all-gather;
   * a few forwards profiled back to back after the window (per_forward):
     the device operations of one forward, and the device ms one forward
     spends in the library's conv/GEMM kernels and in PyTorch's elementwise
@@ -29,6 +30,9 @@ OWN_KERNELS = ("qconv_mma_kernel", "dw_qconv_kernel", "stem_qconv_kernel", "qblo
 LIB_CONV = ("conv", "gemm", "xmma", "cutlass")
 # idle gaps shorter than this are launch spacing, not waiting
 GAP_MIN_US = 2.0
+# collectives left out at each end of a slice: they wait on a peer whose
+# tracer is starting or stopping, which no untraced call does
+EDGE_GATHERS = 8
 
 
 def _profile():
@@ -65,6 +69,11 @@ def is_lib_conv(name: str) -> bool:
 def is_elementwise(name: str) -> bool:
     """PyTorch's own elementwise, reduction and indexing kernels."""
     return "at::native::" in name and not is_lib_conv(name)
+
+
+def is_nccl(name: str) -> bool:
+    """NCCL's collective kernels (ncclDevKernel_AllGather_..., ...)."""
+    return "nccl" in name.lower()
 
 
 def union(spans: List[Tuple[float, float]]) -> Tuple[float, List[Tuple[float, float]]]:
@@ -135,12 +144,29 @@ class Slice:
         for e in dev:
             by_name[e.name] += e.time_range.end - e.time_range.start
         ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-        return {
+        out = {
             "busy_s": busy_us / 1e6,
             "window_s": window_us / 1e6,
             "device_ops": [[k[:160], v / 1e6] for k, v in ops],
             "idle_gaps": _label_gaps(gaps, _host_events(self.prof)),
         }
+        gather = gather_ms([(e.time_range.start, e.time_range.end) for e in dev
+                            if is_nccl(e.name)])
+        if gather is not None:  # only where a collective ran
+            out["gather_ms"] = gather
+        return out
+
+
+def gather_ms(spans: List[Tuple[float, float]]) -> Optional[float]:
+    """The mean device ms of one collective kernel, from the (start, end)
+    us of each in a slice of the window: every rank traces the slice, so a
+    kernel's time is its transfer and its wait for the slowest peer as the
+    window has them. EDGE_GATHERS at each end are left out; None where too
+    few ran."""
+    kept = sorted(spans)[EDGE_GATHERS:len(spans) - EDGE_GATHERS]
+    if not kept:
+        return None
+    return sum(hi - lo for lo, hi in kept) / 1e3 / len(kept)
 
 
 def _label_gaps(gaps, host) -> List[list]:

@@ -7,6 +7,14 @@ A traffic mix is a file of parameters (hbench/traffic/<name>.json) whose
            CompiledGraph.__call__ from a ring of `ring` distinct batches
            already on the card, at most `inflight` batches queued ahead;
            the window ends at a synchronize;
+  offline_dp
+           the same over the ranks of a (data, model) `mesh`, one process
+           a card (hbench/ranks.py): every rank holds the ring of global
+           batches and calls the port's ShardedGraph (shard_compiled) on
+           them, which runs the rank's rows and all-gathers the outputs;
+           every rank makes the same number of calls, agreed before the
+           window from rank 0's rate so far; rank 0's clock times it, and
+           every rank traces the slice (the cards' readings averaged);
   closed   one client at batch 1 through CompiledGraph.run (a host array
            in, host arrays out), its next call when the last returns, over
            a pool of `pool` images in an order drawn from the seed;
@@ -18,7 +26,8 @@ A traffic mix is a file of parameters (hbench/traffic/<name>.json) whose
            timed from when it was due to its future's result.
 
 Every loop takes explicit Options(quant_mode="fast", batch_size=b): the
-route a user gets by default.
+route a user gets by default. A loop that runs over several ranks also
+compares their readings (Loop.across).
 """
 
 from __future__ import annotations
@@ -65,10 +74,24 @@ class Loop:
         self.qg, self.device, self.tr, self.make, self.rng = qg, device, traffic, make, rng
         self.batch = int(traffic.get("batch", 1))
 
+    ranks = 1  # processes that run the window, one a card
+
+    @property
+    def rows(self) -> int:
+        """The rows of one rank's forward."""
+        return self.batch
+
     def slice_at(self, seconds: float) -> tracing.Slice:
         """The traced slice: `trace_slice_s` in the middle of the window."""
         length = min(float(self.tr["trace_slice_s"]), 0.5 * seconds)
         return tracing.Slice(0.5 * (seconds - length), length, self.device)
+
+    def across(self, peak: int, sliced: Optional[dict]):
+        """The peak memory of the fullest card, the traced slice's reduction
+        with its busy and traced seconds averaged over the cards, and the
+        numbers that compare the ranks' readings with rank 0's (none on one
+        card; None on a rank that leaves the judging to rank 0)."""
+        return peak, sliced, {}
 
 
 class Offline(Loop):
@@ -79,18 +102,28 @@ class Offline(Loop):
         x = self.make(b * r)
         self.ring = [x[i * b:(i + 1) * b].contiguous() for i in range(r)]
         t = time.perf_counter()
-        self.cg = compile_graph(self.qg, _options(b), device=self.device)
+        self.cg = self.compiled(compile_graph(self.qg, _options(b), device=self.device))
         self.cg(self.ring[0])  # warm-up forward and the capture
         _sync(self.device)
         compile_s = time.perf_counter() - t
+        t = time.perf_counter()
         for _ in range(2):
             for xb in self.ring:
                 self.cg(xb)
         _sync(self.device)
+        self.rate = 2 * r / (time.perf_counter() - t)  # calls a second so far
         self.window(float(self.tr["warm_s"]), None)
         return compile_s
 
+    def compiled(self, cg):
+        """What the loop calls: the CompiledGraph itself."""
+        return cg
+
     def window(self, seconds: float, sl: Optional[tracing.Slice]) -> Window:
+        return self.drive(lambda calls, el: el < seconds, sl)
+
+    def drive(self, more: Callable[[int, float], bool], sl: Optional[tracing.Slice]) -> Window:
+        """Calls back to back while `more(calls made, seconds elapsed)`."""
         cuda = self.device.type == "cuda"
         inflight = int(self.tr["inflight"])
         self.last = [None] * len(self.ring)
@@ -99,7 +132,7 @@ class Offline(Loop):
         t0 = time.perf_counter()
         while True:
             el = time.perf_counter() - t0
-            if el >= seconds:
+            if not more(calls, el):
                 break
             if sl is not None:
                 sl.tick(el)
@@ -302,7 +335,121 @@ class Open(Loop):
         self.server = self.pool = self.kept = None
 
 
-KINDS = {"offline": Offline, "closed": Closed, "open": Open}
+class OfflineDP(Offline):
+    """offline_dp: the offline loop on every rank of a process group that
+    init_distributed set up, through shard_compiled on the mix's mesh."""
+
+    def setup(self) -> float:
+        import torch.distributed as dist
+
+        self.rank, self.ranks = dist.get_rank(), dist.get_world_size()
+        # the harness's own messages (counts, readings) go by the host
+        self.host = dist.new_group(backend="gloo")
+        self.grid_diffs = self._grids_differ()  # before the window
+        return super().setup()
+
+    @property
+    def rows(self) -> int:
+        """The rank's share of the batch: the rows split over the mesh's
+        data axis."""
+        return self.batch // int(self.tr["mesh"][0])
+
+    def compiled(self, cg):
+        """The rank's program on the mix's mesh."""
+        from tengine_tpu_torch.parallel.mesh import make_mesh
+        from tengine_tpu_torch.parallel.sharding import shard_compiled
+
+        return shard_compiled(cg, make_mesh(shape=tuple(int(v) for v in self.tr["mesh"])))
+
+    def _to_rank0(self, obj) -> Optional[list]:
+        import torch.distributed as dist
+
+        got = [None] * self.ranks if self.rank == 0 else None
+        dist.gather_object(obj, got, dst=0, group=self.host)
+        return got
+
+    def _grids_differ(self) -> Optional[int]:
+        """On rank 0: the quantized tensors whose grid (scales and zero
+        points) differs on some rank from rank 0's; each rank calibrated on
+        its own card."""
+        mine = {t.name: (np.asarray(t.quant.scales).tobytes(),
+                         np.asarray(t.quant.zero_points).tobytes())
+                for t in self.qg.tensors if t.quant is not None}
+        got = self._to_rank0(mine)
+        if got is None:
+            return None
+        return len({k for g in got[1:] for k in set(g) | set(mine) if g.get(k) != mine.get(k)})
+
+    def window(self, seconds: float, sl: Optional[tracing.Slice]) -> Window:
+        """`seconds` at rank 0's rate so far, as a number of calls that
+        rank 0 gives every rank; the window starts at a barrier."""
+        import torch.distributed as dist
+
+        n = [max(1, round(self.rate * seconds))]
+        dist.broadcast_object_list(n, src=0, group=self.host)
+        dist.barrier(group=self.host)
+        w = self.drive(lambda calls, el: calls < n[0], sl)
+        self.calls = n[0]
+        self.rate = n[0] / w.seconds
+        return w
+
+    def answers(self):
+        return super().answers() if self.rank == 0 else []
+
+    def per_forward(self) -> Optional[dict]:
+        """Rank 0 profiles its calls; every other rank makes the same calls."""
+        if self.rank == 0:
+            return super().per_forward()
+        for _ in range(int(self.tr["profile_forwards"]) + 1):
+            self.cg(self.ring[0])
+        _sync(self.device)
+        return None
+
+    def across(self, peak: int, sliced: Optional[dict]):
+        """The fullest card's peak; on rank 0, rank 0's slice with every
+        card's busy and traced seconds and ms an all-gather averaged (every
+        rank traces the same slice of the window), and how far the other
+        ranks lie from rank 0: the spread of the window's calls, the
+        tensors whose grid differs, and the widest gap between a rank's
+        gathered outputs of the last call on each ring batch and rank 0's,
+        in steps of the output grid."""
+        outs = [None if o is None else [t.cpu() for t in o] for o in self.last]
+        keys = ("busy_s", "window_s", "gather_ms")
+        times = {k: sliced[k] for k in keys if k in sliced} if sliced else None
+        got = self._to_rank0((peak, self.calls, times, outs))
+        if got is None:
+            return peak, sliced, None
+        if sliced and all(g[2] for g in got):
+            by_rank = {k: [g[2].get(k) for g in got] for k in keys}
+            print(f"hbench: traced slice by rank, {by_rank}", file=sys.stderr, flush=True)
+            sliced = {k: v for k, v in sliced.items() if k not in keys}
+            sliced.update({k: float(np.mean(v)) for k, v in by_rank.items() if None not in v})
+        gap = max((_steps_apart(a, b) for g in got[1:] for a, b in zip(outs, g[3])),
+                  default=0.0)
+        calls = [g[1] for g in got]
+        return max(g[0] for g in got), sliced, {
+            "ranks_calls_spread": float(max(calls) - min(calls)),
+            "ranks_grid_diffs": float(self.grid_diffs),
+            "ranks_out_gap": gap,
+        }
+
+    def close(self) -> None:
+        super().close()
+        self.host = None
+
+
+def _steps_apart(a: Optional[list], b: Optional[list]) -> float:
+    """The widest gap between two calls' outputs in steps of their integer
+    grid: infinite where one is missing or their shapes differ."""
+    if a is None and b is None:
+        return 0.0
+    if a is None or b is None or len(a) != len(b) or any(x.shape != y.shape
+                                                         for x, y in zip(a, b)):
+        return float("inf")
+    return max((float((x.long() - y.long()).abs().max()) for x, y in zip(a, b)), default=0.0)
+
+
+KINDS = {"offline": Offline, "offline_dp": OfflineDP, "closed": Closed, "open": Open}
 
 
 def loop_for(kind: str):
