@@ -28,7 +28,7 @@ def control_numbers(cell, seed: int, device, bits: int = 4) -> dict:
 
     cfg, tr = cell.config, cell.traffic
     ref_mod, _ = spec.arch_modules(cfg["arch"])
-    s_params, s_cal, s_traffic, _ = harness.seeds(seed, 4)
+    s_params, s_cal, s_traffic, _ = harness.run_seeds(cfg, seed)
     p_specs = ref_mod.params(cfg)
     flat = harness.draw_params(p_specs, device, s_params)
     params = {k: torch.from_numpy(v).to(device)
@@ -47,8 +47,8 @@ def control_numbers(cell, seed: int, device, bits: int = 4) -> dict:
         xb = x[i:i + block]
         want = ref8(xb)
         gap.add(low(xb), want, [g.scale for g in ref8.out_grids])
-    s_gap, z_gap, _ = compare.grid_gaps(low.grids(), ref8.grids())
-    return dict(gap.numbers(), grid_scale_rel=s_gap, grid_zero_gap=z_gap)
+    grid, _ = compare.grid_numbers(low.grids(), ref8.grids(), ref8.kl_searches())
+    return dict(gap.numbers(), **grid)
 
 
 def main(argv=None) -> int:

@@ -1,9 +1,11 @@
-"""Faults planted in the timed path to show that the comparison catches
-them: each wraps the outputs of CompiledGraph.__call__ (the call that every
-traffic mix's loop reaches, the server's and each rank's ShardedGraph's
-included), or leave out the exchange between cards. `plant(name)` returns
-a context manager that swaps the call for a broken one and restores it.
-The ENDINGS end the process instead."""
+"""Faults planted in the program to show that the comparison catches them:
+each of FAULTS wraps the outputs of CompiledGraph.__call__ (the call that
+every traffic mix's loop reaches, the server's and each rank's
+ShardedGraph's included); `no_exchange` leaves out the exchange between
+cards; `calib_minmax` breaks the program's calibration, and is planted
+around the whole run, its set-up included. `plant(name)` returns a context
+manager that swaps the call for a broken one and restores it. The ENDINGS
+end the process instead."""
 
 from __future__ import annotations
 
@@ -84,7 +86,12 @@ def plant(name: str):
     """A context manager inside which CompiledGraph.__call__ is broken by
     fault `name`, or, for `no_exchange`, the mesh's all-gather
     (parallel/sharding.py:all_gather_dim, which ShardedGraph calls) left
-    out."""
+    out, or, for `calib_minmax`, the program's KL thresholds replaced by
+    MinMax's (every grid of a KL configuration at max |x|)."""
+    if name == "calib_minmax":
+        from tengine_tpu_torch.quantize import quantizer
+
+        return _swapped(quantizer, "kl_int8", quantizer.minmax_int8)
     if name == "no_exchange":
         from tengine_tpu_torch.parallel import sharding
 

@@ -1,13 +1,15 @@
 """One run of one cell: set-up, the measured window, the comparison with the
 plain reference, and the result.
 
-Set-up draws the fp32 weights and every input from the seed on the device,
-builds the configuration's model for the program, calibrates it (MinMax on a
-few seeded images), compiles the cell's own batch shapes only and warms
-them up. The window is the traffic mix's loop. Then the device's peak memory
-is read, the program's state is freed, and the reference works calibration
-and the integer forward out again from the same weights and inputs, to judge
-the program's answers.
+Set-up draws the fp32 weights and every input from the seed on the device
+(the weights and calibration images from the configuration's own
+`model_seed` where it gives one), builds the configuration's model for the
+program, calibrates it (by the configuration's algorithm, on a few seeded
+images), compiles the cell's own batch shapes only and warms them up. The
+window is the traffic mix's loop. Then the device's peak memory since the
+inputs were drawn is read, the program's state is freed, and the reference
+works calibration and the integer forward out again from the same weights
+and inputs, to judge the program's answers.
 """
 
 from __future__ import annotations
@@ -56,6 +58,18 @@ def seeds(seed: int, n: int) -> List[int]:
     """n independent 63-bit seeds drawn from the run's seed."""
     st = np.random.SeedSequence(int(seed)).generate_state(n, dtype=np.uint64)
     return [int(s) >> 1 for s in st]
+
+
+def run_seeds(cfg: dict, seed: int) -> List[int]:
+    """The seeds of the weights, the calibration images, the traffic's
+    images and the loop, drawn from the run's seed; where the configuration
+    gives a `model_seed`, the weights and the calibration images are drawn
+    from that instead: one model, calibrated once, as a deployment has it,
+    under the run's traffic."""
+    s = seeds(seed, 4)
+    if "model_seed" in cfg:
+        s[:2] = seeds(int(cfg["model_seed"]), 4)[:2]
+    return s
 
 
 def generator(device, seed: int) -> torch.Generator:
@@ -167,7 +181,7 @@ def prepare(cell: specs.Cell, seed: int, device) -> Prepared:
     program and calibrates it; the loop's own set-up comes after."""
     cfg, tr = cell.config, cell.traffic
     ref_mod, model_mod = specs.arch_modules(cfg["arch"])
-    s_params, s_cal, s_traffic, s_loop = seeds(seed, 4)
+    s_params, s_cal, s_traffic, s_loop = run_seeds(cfg, seed)
     p_specs = ref_mod.params(cfg)
     flat = draw_params(p_specs, device, s_params)
     graph = model_mod.build(cfg, split_params(p_specs, flat))
@@ -184,8 +198,17 @@ def prepare(cell: specs.Cell, seed: int, device) -> Prepared:
     g_traffic = generator(device, s_traffic)
 
     def make(n):
-        return quantize_images(draw_images(n, cfg, tr, device, g_traffic), in_scale, in_zero,
-                               cfg["scheme"])
+        """n quantized images on the device, drawn in the loop's set-up. The
+        device's peak memory is then reset: it counts from here the inputs,
+        the compiled forward's warm-up and capture (a captured graph's
+        buffers are allocated then, not at replay) and the window, and not
+        calibration or the drawing's own temporaries."""
+        x = quantize_images(draw_images(n, cfg, tr, device, g_traffic), in_scale, in_zero,
+                            cfg["scheme"])
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        return x
 
     loop = traffics.loop_for(tr["kind"])(qg, device, tr, make, np.random.default_rng(s_loop))
     return Prepared(ref_mod, p_specs, flat, cal, qg, loop, calib_s)
@@ -213,7 +236,6 @@ def run_cell(cell: specs.Cell, seed: int, seconds: float, trace: bool, device,
               chips=loop.ranks, rows=loop.rows, calib_s=pr.calib_s, compile_s=compile_s)
     if cuda:
         torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
     sl = loop.slice_at(seconds) if trace and cuda else None
     run.setup_s = setup_clock()
     log(f"hbench: set-up {run.setup_s:.3f} s, by phase: to the harness {t_in:.3f}, weights "
@@ -270,8 +292,8 @@ def judge_answers(ref_mod, cfg, flat, p_specs, cal, answers, prog_grids, out_gri
                     np.asarray(g.zero_points).reshape(-1)[0])
                 got.append((o[i:i + block].to(device).double() - z) * s)
             gap.add(got, want, [g.scale for g in ref.out_grids])
-    s_gap, z_gap, worst = compare.grid_gaps(prog_grids, ref.grids())
-    numbers = dict(gap.numbers(), grid_scale_rel=s_gap, grid_zero_gap=z_gap)
+    grid, where = compare.grid_numbers(prog_grids, ref.grids(), ref.kl_searches())
+    numbers = dict(gap.numbers(), **grid)
     log(f"reference: {sum(x.shape[0] for x, _ in answers)} answers compared; widest "
-        f"scale gap at {worst!r}; numbers {numbers}")
+        f"{where}; numbers {numbers}")
     return numbers

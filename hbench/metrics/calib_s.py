@@ -1,4 +1,5 @@
-"""calib_s: the harness clock around quantize_graph (MinMax calibration)."""
+"""calib_s: the harness clock around quantize_graph (the configuration's
+calibration: MinMax, or KL with its histograms)."""
 
 
 def read(run):

@@ -1,12 +1,23 @@
 """The comparison that decides `correct`: the program's outputs and grids
 against the plain reference's, worked out again from the same fp32 weights
-and inputs. Four numbers; those the configuration's `limits` name are compared,
-each with its limit:
+and inputs. Four numbers, and one more where the calibration is KL; those
+the configuration's `limits` name are compared, each with its limit:
 
   grid_scale_rel  the largest relative gap between a scale the program's
                   calibration derived and the reference's, over the input,
                   the outputs and the inner grids both name alike;
   grid_zero_gap   the largest gap between their zero points;
+  kl_excess       over the same grids where KL calibration derived them,
+                  the widest excess, in nats, of the divergence that the
+                  reference's search gives the candidate at the program's
+                  threshold (scale x 127 on the int8 grid) over the least
+                  it found; infinite where the program's threshold lies
+                  more than a bin from every candidate. KL(P || Q) is flat
+                  around its least: the program's float32 histogram and
+                  the reference's float64 one can pick candidates steps
+                  apart whose divergences all but tie, which reads as next
+                  to nothing here, while another calibration's threshold
+                  (MinMax's max |x|) lies far above the least;
   out_rel_l2      over every compared answer (one image's output map, each
                   head), ||program - reference|| / ||reference|| of the
                   dequantized values: the widest gap of any answer;
@@ -43,6 +54,32 @@ def grid_gaps(prog: Dict[str, Tuple[float, float]], ref: Dict[str, Tuple[float, 
             s_gap, worst = g, name
         z_gap = max(z_gap, abs(pz - rz))
     return s_gap, z_gap, worst
+
+
+def kl_excess(prog: Dict[str, Tuple[float, float]], searches: Dict[str, object],
+              qmax: int = 127) -> Tuple[float, str]:
+    """kl_excess over the KL grids `searches` names (each the reference's
+    KLSearch), the program's threshold read off its scale on the int8
+    grid; and the grid of the widest excess, for the log."""
+    excess, worst = 0.0, None
+    for name, search in searches.items():
+        e = search.excess(prog[name][0] * qmax)
+        if e >= excess:
+            excess, worst = e, name
+    return excess, worst
+
+
+def grid_numbers(prog: Dict[str, Tuple[float, float]], ref: Dict[str, Tuple[float, float]],
+                 searches: Dict[str, object]) -> Tuple[Dict[str, float], str]:
+    """grid_scale_rel, grid_zero_gap and, where `searches` names KL grids,
+    kl_excess; and where the widest gaps lie, for the log."""
+    s_gap, z_gap, worst = grid_gaps(prog, ref)
+    numbers = {"grid_scale_rel": s_gap, "grid_zero_gap": z_gap}
+    where = f"scale gap at {worst!r}"
+    if searches:
+        numbers["kl_excess"], worst_kl = kl_excess(prog, searches)
+        where += f", KL excess at {worst_kl!r}"
+    return numbers, where
 
 
 def rel_l2(prog: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,7 @@ A network is written once as a function `forward(ctx, params, x)` that
 calls the ops of a `Ctx`. The same function then runs in three modes:
 
   calib  - fp32 semantics in float64, recording each op output's min and
-           max (MinMax);
+           max (MinMax) and, for KL calibration, the histogram of its |x|;
   quant  - the integer network: every op output on its own calibrated
            grid, convolutions as exact integer sums (float64 holds them
            exactly), requantized with C's round half away from zero;
@@ -16,16 +16,44 @@ The grids are those of Tengine's quant tools: "uint8" asymmetric per
 tensor (scale (max - min) / 255, zero point round(-min / scale)) for
 activations and weights; "int8" symmetric, activations per tensor
 (max |x| / 127) and weights per output channel, both clipped to +-127.
+With KL calibration (int8 only) every activation grid, the input's and the
+outputs' included, takes the threshold of Tengine's KL search instead of
+max |x| (kl_search below).
 Biases are int32 at the scale s_in * s_w; where one would not fit, the
 weight scale of its channel is raised until the bias lands at 2^30, as
 TFLite's quantizer does. `bits` below 8 gives the same scheme on a
-narrower grid (the control that runs in lower precision).
+narrower grid (the control that runs in lower precision); a KL threshold is
+kept there and spread over the narrower grid.
+
+KL calibration, from the spec of Tengine's quant_tool_int8.cpp:223-360
+(pass 2's KL mode) as the repository's documents state it:
+
+  * a histogram of |x| over [0, max |x|] on 2,048 bins, exact zeros left
+    out (quant_utils.cpp's histCount);
+  * candidate thresholds of t = 128, 144, ..., 2,048 bins (a step of 16);
+  * for each, P is the first t bins with every bin from t on folded into
+    bin t - 1; Q projects the first t bins (outliers not folded) onto 128
+    levels: level i spans bins [floor(i t / 128), ceil((i + 1) t / 128)),
+    neighbouring levels overlapping where t / 128 is not whole, a bin
+    taking the last level that covers it; each non-empty bin gets its
+    level's mean over the level's non-empty bins, an empty one 0;
+  * KL(P || Q) over the bins where P > 0, Q clamped at 1e-12; the least
+    wins, the first on a tie; a candidate whose Q is all empty is skipped;
+  * threshold = (t + 0.5) max|x| / 2048, scale = threshold / 127.
+
+Departures: the histogram is of one batch (the harness hands the
+calibration images over as one, and calibration refuses several), so no
+histogram is ever rebinned to a wider range; it is taken of the float64
+forward, and binned in float64, where the C tool bins its float32 forward
+in float32, so a value within rounding of a bin's edge may fall on the
+other side; a tensor with no nonzero value takes its MinMax grid.
 
 Imports nothing of the program under test.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -34,6 +62,9 @@ import torch.nn.functional as F
 
 INT32_MAX = 2**31 - 1
 BIAS_TARGET = 2**30
+# the KL search: histogram bins, the levels of the int8 grid, the step
+# between candidate thresholds, in bins
+KL_BINS, KL_LEVELS, KL_STEP = 2048, 128, 16
 
 
 def round_away(x: torch.Tensor) -> torch.Tensor:
@@ -50,10 +81,11 @@ def f32(v) -> float:
 class Grid:
     """One tensor's grid: float32 scale(s), integer zero point(s), clip."""
 
-    def __init__(self, scale, zero, lo: int, hi: int):
+    def __init__(self, scale, zero, lo: int, hi: int, kl: Optional["KLSearch"] = None):
         self.scale = scale  # float, or a float64 tensor of per-channel scales
         self.zero = zero
         self.lo, self.hi = lo, hi
+        self.kl = kl  # the KL search a KL grid came from
 
 
 def act_grid(lo_v: float, hi_v: float, scheme: str, bits: int) -> Grid:
@@ -67,6 +99,86 @@ def act_grid(lo_v: float, hi_v: float, scheme: str, bits: int) -> Grid:
     qmax = 2 ** (bits - 1) - 1
     amax = max(abs(lo_v), abs(hi_v))
     return Grid(f32(amax / qmax if amax > 0 else 1e-4), 0, -qmax, qmax)
+
+
+def kl_grid(search: "KLSearch", bits: int) -> Grid:
+    """Symmetric grid of a KL search's threshold, spread over `bits`."""
+    qmax = 2 ** (bits - 1) - 1
+    return Grid(f32(search.threshold / qmax), 0, -qmax, qmax, search)
+
+
+def abs_histogram(x: torch.Tensor, bins: int = KL_BINS):
+    """(the histogram of |x|'s nonzero values over [0, max |x|] on `bins`
+    bins, as float64 on the host; max |x|, at least 1e-9): |x| falls in bin
+    floor(|x| / max * bins), the last bin closed."""
+    a = x.double().abs().flatten()
+    amax = max(float(a.max()) if a.numel() else 0.0, 1e-9)
+    a = a[a != 0]
+    idx = torch.clamp(torch.floor(a / amax * bins).long(), 0, bins - 1)
+    return torch.bincount(idx, minlength=bins).double().cpu(), amax
+
+
+@functools.lru_cache(maxsize=4)
+def _kl_levels(bins: int, levels: int, step: int):
+    """For every candidate t (rows) and bin j (columns): the candidates,
+    whether j < t, and the bins [lo, hi) of the last level that covers j."""
+    ts = torch.arange(levels, bins + 1, step)
+    t, j = ts[:, None], torch.arange(bins)[None, :]
+    lvl = torch.clamp(((j + 1) * levels + t - 1) // t - 1, max=levels - 1)
+    lo = (lvl * t) // levels
+    hi = torch.minimum(((lvl + 1) * t + levels - 1) // levels, t)
+    return ts, j < t, lo, hi
+
+
+def kl_divergences(hist: torch.Tensor, levels: int = KL_LEVELS, step: int = KL_STEP):
+    """(the candidates t, in bins; KL(P || Q) of each, infinite where Q is
+    empty), every candidate at once (the module's docstring says how P and
+    Q are made)."""
+    h = hist.double().cpu()
+    bins = h.numel()
+    total = float(h.sum())
+    c = torch.cat([h.new_zeros(1), h.cumsum(0)])  # exact: whole counts
+    nz = torch.cat([torch.zeros(1, dtype=torch.long), (h > 0).long().cumsum(0)])
+    ts, inside, lo, hi = _kl_levels(bins, levels, step)
+    p = torch.where(inside, h[None, :], h.new_zeros(()))
+    p[torch.arange(len(ts)), ts - 1] = total - c[ts - 1]
+    q = torch.where(inside & (h[None, :] > 0),
+                    (c[hi] - c[lo]) / (nz[hi] - nz[lo]).clamp(min=1), h.new_zeros(()))
+    qs = q.sum(1, keepdim=True)
+    pn = p / p.sum(1, keepdim=True)
+    qn = q / torch.where(qs == 0, torch.ones_like(qs), qs)
+    terms = torch.where(pn > 0, pn * torch.log(pn / torch.clamp(qn, min=1e-12)),
+                        h.new_zeros(()))
+    return ts, torch.where(qs[:, 0] == 0, torch.full_like(qs[:, 0], float("inf")), terms.sum(1))
+
+
+class KLSearch:
+    """One tensor's KL search: max |x|, the candidates t (in bins) and the
+    divergence of each; the least wins, the first on a tie."""
+
+    def __init__(self, amax: float, candidates: torch.Tensor, divergence: torch.Tensor,
+                 bins: int = KL_BINS):
+        self.amax, self.candidates, self.divergence, self.bins = amax, candidates, divergence, bins
+        self.best = int(candidates[int(torch.argmin(divergence))])
+        self.threshold = (self.best + 0.5) * amax / bins
+
+    def excess(self, threshold: float) -> float:
+        """How far the divergence at `threshold`'s candidate lies above the
+        least, in nats (0 at the search's own threshold); infinite where
+        `threshold` lies more than a bin from every candidate."""
+        t = threshold / self.amax * self.bins - 0.5
+        k = round((t - int(self.candidates[0])) / KL_STEP)
+        if not 0 <= k < len(self.candidates) or abs(t - int(self.candidates[k])) > 1.0:
+            return float("inf")
+        return float(self.divergence[k] - self.divergence.min())
+
+
+def kl_search(hist: torch.Tensor, amax: float) -> Optional[KLSearch]:
+    """The KL search over an |x| histogram whose range is [0, amax]; None
+    where the histogram is empty (the tensor then takes its MinMax grid)."""
+    if float(hist.sum()) == 0:
+        return None
+    return KLSearch(amax, *kl_divergences(hist), bins=hist.numel())
 
 
 def weight_grid(w: torch.Tensor, scheme: str, bits: int) -> Grid:
@@ -112,11 +224,16 @@ class Ctx:
     """The ops a network is written with, in one of the three modes."""
 
     def __init__(self, mode: str, scheme: str = "uint8", bits: int = 8,
-                 ranges: Optional[Dict[str, List[float]]] = None):
+                 ranges: Optional[Dict[str, List[float]]] = None,
+                 searches: Optional[Dict[str, KLSearch]] = None, histograms: bool = False):
         if mode not in ("calib", "quant", "count"):
             raise ValueError(f"unknown mode {mode!r}")
         self.mode, self.scheme, self.bits = mode, scheme, bits
         self.ranges: Dict[str, List[float]] = {} if ranges is None else ranges
+        # KL: the search of each KL grid by name in quant mode; in calib
+        # mode with `histograms`, each op output's (|x| histogram, max |x|)
+        self.searches: Dict[str, KLSearch] = searches or {}
+        self.hists: Optional[Dict[str, tuple]] = {} if histograms else None
         self.grids: Dict[str, Grid] = {}
         self._wcache: Dict[str, tuple] = {}
         # count mode
@@ -129,6 +246,9 @@ class Ctx:
     def grid(self, name: str) -> Grid:
         g = self.grids.get(name)
         if g is None:
+            if name in self.searches:
+                g = self.grids[name] = kl_grid(self.searches[name], self.bits)
+                return g
             if name not in self.ranges:
                 raise KeyError(f"no calibrated range for {name!r}")
             lo, hi = self.ranges[name]
@@ -141,6 +261,10 @@ class Ctx:
             lo, hi = float(real.min()), float(real.max())
             r = self.ranges.get(name)
             self.ranges[name] = [lo, hi] if r is None else [min(r[0], lo), max(r[1], hi)]
+            if self.hists is not None:
+                if name in self.hists:
+                    raise ValueError(f"{name!r}: KL calibration takes its images as one batch")
+                self.hists[name] = abs_histogram(real)
             return real
         if self.mode == "count":
             self.act_bytes += 2 * real.numel()  # written once, read once
@@ -257,6 +381,13 @@ class Ctx:
             return self._out(name, torch.empty((n, c, 1, 1), device="meta"))
         return self._out(name, self._real(x).mean(dim=(2, 3), keepdim=True))
 
+    def relu(self, name: str, x):
+        """A ReLU of its own, requantized onto its own grid (Caffe's ReLU
+        after an Eltwise sum)."""
+        if self.mode == "count":
+            return self._out(name, torch.empty(x.shape, device="meta"))
+        return self._out(name, torch.relu(self._real(x)))
+
     def add(self, name: str, a, b, act: Optional[str] = None):
         if self.mode == "count":
             return self._out(name, torch.empty(a.shape, device="meta"))
@@ -308,3 +439,15 @@ def calibrate(forward, params, images: List[torch.Tensor], scheme: str) -> Dict[
         for x in images:
             forward(ctx, params, x.double())
     return ctx.ranges
+
+
+def calibrate_kl(forward, params, images: torch.Tensor, scheme: str):
+    """MinMax ranges and the KL search of the input and of every op output,
+    over the calibration images as one batch."""
+    if scheme != "int8":
+        raise ValueError(f"KL calibration is for the int8 scheme, not {scheme!r}")
+    ctx = Ctx("calib", scheme, histograms=True)
+    with torch.no_grad():
+        forward(ctx, params, images.double())
+    found = {name: kl_search(h, amax) for name, (h, amax) in ctx.hists.items()}
+    return ctx.ranges, {name: v for name, v in found.items() if v is not None}

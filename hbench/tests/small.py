@@ -1,6 +1,6 @@
 """Each cell at a size a CPU test holds: the same configuration and mix,
 with the image, the batch, the pools and the mesh cut (widths as
-published)."""
+published, but ResNet-50's)."""
 
 from __future__ import annotations
 
@@ -13,6 +13,9 @@ SMALL = {
     "yolov5s-i8-served": ({"img": 64}, {"pool": 4, "rate_rps": 40.0, "sample": 8,
                                          "max_batch": 4, "buckets": [1, 2, 4],
                                          "warm_s": 0.1}),
+    # the image and the widths an eighth of the published
+    "resnet50-i8kl-b128": ({"img": 32, "stem_width": 8, "widths": [8, 16, 32, 64]},
+                           {"batch": 4, "ring": 2, "warm_s": 0.05}),
 }
 # cells over several cards: one process a place of the mesh, gloo on the CPU
 SMALL_RANKS = {

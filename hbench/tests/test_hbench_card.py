@@ -12,7 +12,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[2]
-CELLS = ["mnv1-u8-b128", "yolov5s-i8-b8", "mnv1-u8-b1", "yolov5s-i8-served", "mnv1-u8-dp4-b128"]
+CELLS = ["mnv1-u8-b128", "yolov5s-i8-b8", "mnv1-u8-b1", "yolov5s-i8-served", "mnv1-u8-dp4-b128",
+         "resnet50-i8kl-b128"]
 
 
 @pytest.fixture()
@@ -66,4 +67,18 @@ def test_fault_fails_at_full_size(card, name, fault):
 
     with plant(fault):
         out = harness.run_cell(spec.load_cell(name), 2**33 + 11, 2.0, False, card, lambda: 0.0)
+    assert not out["correct"], out["checks"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["stale", "rows_swapped", "calib_minmax"])
+def test_kl_cell_fault_fails_at_full_size(card, fault):
+    """The same on the KL cell, and MinMax calibration in KL's place, planted
+    around the whole run."""
+    from hbench import harness, spec
+    from hbench.faults import plant
+
+    with plant(fault):
+        out = harness.run_cell(spec.load_cell("resnet50-i8kl-b128"), 2**33 + 11, 2.0, False,
+                               card, lambda: 0.0)
     assert not out["correct"], out["checks"]

@@ -22,7 +22,7 @@ def test_sound_run_is_correct(name):
     assert out["correct"], out["checks"]
 
 
-@pytest.mark.parametrize("name", ["mnv1-u8-b128", "yolov5s-i8-b8"])
+@pytest.mark.parametrize("name", ["mnv1-u8-b128", "yolov5s-i8-b8", "resnet50-i8kl-b128"])
 @pytest.mark.parametrize("seed", [SEED, SEED + 1, SEED + 2])
 def test_control_fails_the_limits(name, seed):
     from hbench.control import control_numbers

@@ -1,5 +1,5 @@
 """The frozen operation count against the program's own
-CompiledGraph.cost_analysis()["flops"], on both configurations at small
+CompiledGraph.cost_analysis()["flops"], on every configuration at small
 image sizes; the byte count from the semantics alone."""
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from hbench import counts, harness, spec
 from hbench.tests.small import SEED, small_cell
 
 
-@pytest.mark.parametrize("name", ["mnv1-u8-b128", "yolov5s-i8-b8"])
+@pytest.mark.parametrize("name", ["mnv1-u8-b128", "yolov5s-i8-b8", "resnet50-i8kl-b128"])
 def test_ops_equal_cost_analysis(name):
     from tengine_tpu_torch.executor.engine import compile_graph
     from tengine_tpu_torch.utils.config import Options

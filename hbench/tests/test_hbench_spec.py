@@ -13,6 +13,8 @@ from hbench import ranks, spec
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+# cells held out of BENCHMARK.json keep its rules
+HELD = json.loads(spec.HELD.read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
@@ -52,14 +54,17 @@ def test_names_units_sources():
             assert m["unit"] == "%"
 
 
-def test_cells_and_configs():
-    configs = {c["name"]: c for c in BENCH["configs"]}
-    cells = {w["name"]: w for w in BENCH["workloads"]}
-    assert len(cells) == len(BENCH["workloads"])
-    assert len({(w["config"], w["traffic"]) for w in BENCH["workloads"]}) == len(cells)
-    assert set(configs) == {w["config"] for w in BENCH["workloads"]}
-    assert sum(w["chips"] == 4 for w in BENCH["workloads"]) <= max(1, len(cells) // 4)
-    for w in BENCH["workloads"]:
+@pytest.mark.parametrize("bench", [BENCH, HELD], ids=["benchmark", "held"])
+def test_cells_and_configs(bench):
+    configs = {c["name"]: c for c in bench["configs"]}
+    cells = {w["name"]: w for w in bench["workloads"]}
+    assert len(cells) == len(bench["workloads"])
+    if bench is HELD:  # found only where BENCHMARK.json has no cell of the name
+        assert not set(cells) & {w["name"] for w in BENCH["workloads"]}
+    assert len({(w["config"], w["traffic"]) for w in bench["workloads"]}) == len(cells)
+    assert set(configs) == {w["config"] for w in bench["workloads"]}
+    assert sum(w["chips"] == 4 for w in bench["workloads"]) <= max(1, len(cells) // 4)
+    for w in bench["workloads"]:
         assert NAME.match(w["name"]) and w["chips"] in (1, 4)
         assert 1 <= len(w["why"]) <= 200 and "\n" not in w["why"]
         assert (ROOT / "hbench" / "traffic" / f"{w['traffic']}.json").is_file()
@@ -78,13 +83,14 @@ def test_cells_and_configs():
             assert key in cfg
 
 
-def test_every_cell_reports_what_it_must():
-    for w in BENCH["workloads"]:
+@pytest.mark.parametrize("bench", [BENCH, HELD], ids=["benchmark", "held"])
+def test_every_cell_reports_what_it_must(bench):
+    for w in bench["workloads"]:
         cell = spec.load_cell(w["name"])
         e2e = [m.name for m in cell.end_to_end]
         assert "setup_s" in e2e and len(e2e) >= 2, (w["name"], e2e)
         assert cell.per_layer, w["name"]
-        for m in BENCH["per_layer"]:
+        for m in bench["per_layer"]:
             if w["name"] in m.get("workloads", []):
                 assert m["moves"] in e2e, (w["name"], m["name"])
 
@@ -92,9 +98,10 @@ def test_every_cell_reports_what_it_must():
 @pytest.mark.parametrize("kind", ["configs", "traffic", "metrics"])
 def test_parts_found_by_name(kind):
     """Every configuration, mix and metric named in BENCHMARK.json has its
-    file, and every file there is named in BENCHMARK.json."""
+    file, and every file there is named in BENCHMARK.json (a held cell's
+    configuration in hbench/held.json)."""
     if kind == "configs":
-        named = {Path(c["file"]).name for c in BENCH["configs"]}
+        named = {Path(c["file"]).name for c in BENCH["configs"] + HELD["configs"]}
         on_disk = {p.name for p in (ROOT / "hbench" / "configs").glob("*.json")}
     elif kind == "traffic":
         named = {f"{w['traffic']}.json" for w in BENCH["workloads"]}

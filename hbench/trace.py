@@ -9,8 +9,8 @@ Two readings, both made only in traced runs:
     all-gather;
   * a few forwards profiled back to back after the window (per_forward):
     the device operations of one forward, and the device ms one forward
-    spends in the library's conv/GEMM kernels and in PyTorch's elementwise
-    and reduction kernels.
+    spends in the library's conv/GEMM kernels, in PyTorch's elementwise
+    and reduction kernels, and in the program's hand-written kernels.
 
 The reduction copies the method of the repository's
 chip_smoke.py:profile_batch (the intervals' union over one trace), run
@@ -21,12 +21,15 @@ from __future__ import annotations
 
 import bisect
 from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 # the program's hand-written kernels (tengine_tpu_torch/csrc/*.cu)
 OWN_KERNELS = ("qconv_mma_kernel", "dw_qconv_kernel", "stem_qconv_kernel", "qblock_kernel")
+# its hand-written kernels around the fast lowering's library convs
+# (csrc/requant.cu); counted with OWN_KERNELS in own_kernel_ms alone
+REQUANT_KERNELS = ("qwiden_kernel", "qrequant_kernel")
 LIB_CONV = ("conv", "gemm", "xmma", "cutlass")
 # idle gaps shorter than this are launch spacing, not waiting
 GAP_MIN_US = 2.0
@@ -59,6 +62,11 @@ def _host_events(prof) -> List:
 
 def is_own(name: str) -> bool:
     return any(k in name for k in OWN_KERNELS)
+
+
+def is_own_kernel(name: str) -> bool:
+    """Any of the program's hand-written kernels."""
+    return is_own(name) or any(k in name for k in REQUANT_KERNELS)
 
 
 def is_lib_conv(name: str) -> bool:
@@ -192,21 +200,33 @@ def _label_gaps(gaps, host) -> List[list]:
 def per_forward(call, n: int, device) -> dict:
     """Profiles `n` back-to-back calls of `call()` (each one forward, the
     program's copies in and out included): the device operations, the
-    busy ms, and the ms in library conv/GEMM and in PyTorch's elementwise
-    kernels, each per forward."""
+    busy ms, and the ms the device spends in library conv/GEMM, in
+    PyTorch's elementwise kernels and in the program's own kernels, each
+    per forward."""
     call()
     torch.cuda.synchronize(device)
     with _profile() as prof:
         for _ in range(n):
             call()
         torch.cuda.synchronize(device)
-    dev = _device_events(prof)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy_us, _ = union(spans)
-    dur = [(e.name, e.time_range.end - e.time_range.start) for e in dev]
+    return forward_ms(_device_events(prof), n)
+
+
+def forward_ms(dev: List, n: int) -> dict:
+    """per_forward's reading of the device operations `dev` of `n`
+    forwards. Each kind's ms is the union of its intervals: a library may
+    run one forward's kernels side by side on streams of its own (cuDNN
+    does, in ResNet-50's large convs), whose durations would count twice."""
+
+    def ms(kind: Callable[[str], bool]) -> float:
+        busy_us, _ = union(sorted((e.time_range.start, e.time_range.end)
+                                  for e in dev if kind(e.name)))
+        return busy_us / 1e3 / n
+
     return {
         "launches": len(dev) / n,
-        "busy_ms": busy_us / 1e3 / n,
-        "lib_conv_ms": sum(d for k, d in dur if is_lib_conv(k)) / 1e3 / n,
-        "elementwise_ms": sum(d for k, d in dur if is_elementwise(k)) / 1e3 / n,
+        "busy_ms": ms(lambda k: True),
+        "lib_conv_ms": ms(is_lib_conv),
+        "elementwise_ms": ms(is_elementwise),
+        "own_kernel_ms": ms(is_own_kernel),
     }
