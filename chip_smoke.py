@@ -58,19 +58,24 @@ Phases, in order; any failure raises and the exit code is not 0:
                with it its CUDA graph's memory pool, is dropped before the
                next tier. yolov5s 640x640 INT8 (MinMax), seed-0 weights:
                quantize_graph on the card with one seeded calibration image,
-               compile_graph at batch 8. Then
+               compile_graph at batch 8: the stem on stem_qconv, the other
+               80 convs on qconv_fast (the fast lowering's INT8 convs at
+               zero point 0, fast_igemm below; 0 LSB from its plain
+               version, the float64 chain, required). Then
                yolov3 416x416 INT8 (MinMax, seed-0 weights) on the
                integer-storage tier, batch 8, under each of
                  A  Options(quant_mode="fast", quant_bf16_storage=False):
                     qconv_direct and qconv1x1
                  B  A + pallas_qconv=False, pallas_qgemm=True: qgemm_requant
-                 C  A + pallas_qconv=False: every conv on the float64 fast
-                    lowering (timed only: the port's own "before").
+                 C  A + pallas_qconv=False: every conv on the fast
+                    lowering, and so on qconv_fast
+               (qconv_fast takes 6, 41 and 75 convs a forward).
                Then YOLO-Fastest 320x320 (seed-0 weights, MinMax from one
                seeded image) at batch 32 on the same integer-storage tier,
                INT8 and then UINT8, under
                  D  TT_DW_PALLAS=1: the 13 depthwise convs on dw_qconv, the
                     29 1x1 convs on qconv1x1, the stem on the fast lowering
+                    (on qconv_fast in the INT8 graph)
                  E  TT_DW_PALLAS=0: the 13 on the fast lowering too (the
                     port's own "before").
                Then ResNet-50 224x224 INT8 (build_resnet50_graph below:
@@ -80,23 +85,25 @@ Phases, in order; any failure raises and the exit code is not 0:
                     quant_relaxed=False): the 16 bottlenecks as 4
                     FusedResBlockChain nodes (3, 4, 6, 3 blocks) on
                     qblock_chain, one launch per chain, exact epilogue;
-                    stem and FC on the fast lowerings
+                    stem and FC on the fast lowerings (the stem on
+                    qconv_fast)
                  R  F + quant_relaxed=True, quant_native="off": the kernel's
                     relaxed epilogue, one rounding per block
                  G  F without fuse_resblock: the 52 bottleneck convs on the
-                    fast lowering with fuse_conv_add (timed only: the port's
-                    own "before").
+                    fast lowering with fuse_conv_add, all 53 convs on
+                    qconv_fast.
                  H  G + quant_bf16_storage=False, pallas_qgemm=True: conv by
                     conv on the implicit-GEMM kernel, 13 qconv_direct (the
                     3x3 convs with C_in % 128 == 0), 36 qconv1x1 (the fused
                     residual among them), the FC on qgemm_requant; the stem
-                    and stage 1's 3x3 convs stay on the fast lowering.
+                    and stage 1's 3x3 convs stay on the fast lowering, on
+                    qconv_fast.
                Then bench.py's own configs under default Options,
                Options(quant_mode="fast", batch_size=128), at 224 and batch
                128 (seed-0 weights, calibrated from one seeded image):
                  I  ResNet-50 INT8, KL calibration: the native-int8 plan
                     (a no-op on a symmetric INT8 graph); no chains, every
-                    conv on the fast lowering, no kernel launched
+                    conv on the fast lowering, on qconv_fast
                  J  ResNet-50 UINT8, MinMax: the plan's UINT8 -> INT8
                     shift; no kernel launched
                  K  mobilenet-v1 UINT8, MinMax (build_mobilenet_v1_graph
@@ -353,6 +360,10 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same sheet
 
+# yolov5s-640 INT8 under Options(quant_mode="fast"), launches per forward:
+# the stem (6x6 s2, C_in 3) on stem_qconv, its other 80 convs on qconv_fast
+YOLOV5S_LAUNCHES = {"stem_qconv": 1, "qconv_fast": 80}
+
 # yolov3-416 batch 8: the largest launch of each kernel on the main path, by
 # bytes moved (from the IR: the stride-2 3x3 conv 104x104x128 -> 52x52x256,
 # the 1x1 conv 208x208x64 -> 32, the 1x1 conv 52x52x384 -> 128 of the third
@@ -360,13 +371,19 @@ H100_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same sheet
 YOLOV3_DIRECT = dict(N=8, H=104, C=128, O=256, k=3, s=2, pad=1)
 YOLOV3_1X1 = dict(M=8 * 208 * 208, K=64, N=32)
 YOLOV3_QGEMM = dict(M=8 * 52 * 52, K=384, N=128)
-# the integer-storage tiers of phase 3 and their launches per forward
+# the integer-storage tiers of phase 3 and their launches per forward; the
+# convs no other kernel takes run on qconv_fast (of 75: A's 6 k x k convs
+# with C_in % 128 != 0, B's 41 convs beside the 34 1x1 ones on
+# qgemm_requant, all of C's)
 YOLOV3_TIERS = {
-    "A": (dict(), {"qconv_direct": 32, "qconv1x1": 37, "qgemm_requant": 0, "stem_qconv": 0}),
+    "A": (dict(), {"qconv_direct": 32, "qconv1x1": 37, "qgemm_requant": 0, "stem_qconv": 0,
+                   "qconv_fast": 6}),
     "B": (dict(pallas_qconv=False, pallas_qgemm=True),
-          {"qconv_direct": 0, "qconv1x1": 0, "qgemm_requant": 34, "stem_qconv": 0}),
+          {"qconv_direct": 0, "qconv1x1": 0, "qgemm_requant": 34, "stem_qconv": 0,
+           "qconv_fast": 41}),
     "C": (dict(pallas_qconv=False),
-          {"qconv_direct": 0, "qconv1x1": 0, "qgemm_requant": 0, "stem_qconv": 0}),
+          {"qconv_direct": 0, "qconv1x1": 0, "qgemm_requant": 0, "stem_qconv": 0,
+           "qconv_fast": 75}),
 }
 # YOLO-Fastest-320 batch 32: the largest dw_qconv launch of each stride (the
 # first two depthwise convs, 160x160x32), and the tiers of phase 3c with the
@@ -386,6 +403,9 @@ MOBILENET_DW = [(112, 32, 1, 1), (112, 64, 2, 1), (56, 128, 1, 1), (56, 128, 2, 
 DW_SWEEP_SHAPES = [(160, 32, 1), (160, 32, 2), (40, 128, 1), (10, 576, 1), (28, 256, 1),
                    (7, 1024, 1)]
 FASTEST_OPTS = dict(quant_mode="fast", quant_bf16_storage=False, batch_size=FASTEST_BATCH)
+# the stem (3x3 s2, C_in 3) of the INT8 graph runs on qconv_fast in both
+# tiers; the UINT8 graph's convs never do
+FASTEST_FAST = {"int8": 1, "uint8": 0}
 FASTEST_TIERS = {
     "D": ("1", {"dw_qconv": 13, "qconv1x1": 29, "qconv_direct": 0, "qgemm_requant": 0,
                 "stem_qconv": 0}, 1),
@@ -397,13 +417,15 @@ FASTEST_TIERS = {
 RESNET_BATCH = 32
 # the tiers of phase 3d and their launches per forward (qblock_chain: one per
 # FusedResBlockChain node; H: the 13 3x3 convs with C_in % 128 == 0, the 36
-# 1x1 convs and the FC)
+# 1x1 convs and the FC; qconv_fast: F's and R's stem, G's 53 convs, H's stem
+# and its three 3x3 convs with C_in 64)
 RESNET_TIERS = {
-    "F": (dict(fuse_resblock=True, quant_relaxed=False), {"qblock_chain": 4}),
-    "R": (dict(fuse_resblock=True, quant_relaxed=True, quant_native="off"), {"qblock_chain": 4}),
-    "G": (dict(quant_relaxed=False), {}),
+    "F": (dict(fuse_resblock=True, quant_relaxed=False), {"qblock_chain": 4, "qconv_fast": 1}),
+    "R": (dict(fuse_resblock=True, quant_relaxed=True, quant_native="off"),
+          {"qblock_chain": 4, "qconv_fast": 1}),
+    "G": (dict(quant_relaxed=False), {"qconv_fast": 53}),
     "H": (dict(quant_relaxed=False, quant_bf16_storage=False, pallas_qgemm=True),
-          {"qconv_direct": 13, "qconv1x1": 36, "qgemm_requant": 1}),
+          {"qconv_direct": 13, "qconv1x1": 36, "qgemm_requant": 1, "qconv_fast": 4}),
 }
 # ResNet-50-224's four chains at batch 32 as qblock_inputs cases
 # (tests/test_torch_cuda.py), each with a projection head, the later ones
@@ -429,7 +451,7 @@ RESNET50_DEPTHS = (3, 4, 6, 3)
 # the launches per forward, and the batch
 DEFAULT_BATCH = 128
 DEFAULT_TIERS = {
-    "I": ("resnet50", "int8", "kl", {}, None, True, {}, DEFAULT_BATCH),
+    "I": ("resnet50", "int8", "kl", {}, None, True, {"qconv_fast": 53}, DEFAULT_BATCH),
     "J": ("resnet50", "uint8", "minmax", {}, None, True, {}, DEFAULT_BATCH),
     "K": ("mobilenet-v1", "uint8", "minmax", {}, None, False, {}, DEFAULT_BATCH),
     "L": ("mobilenet-v1", "uint8", "minmax", dict(quant_native="on"), "1", True,
@@ -497,16 +519,18 @@ SHUF_FOLDS = 16
 # fp32 engine (ViT: tests/test_transformer_zoo.py's). T: ViT's head FC on
 # qgemm_requant; SegFormer's decoder (the four split fuse convs and
 # classify) on qconv1x1, embeds/3 (3x3 s2) and stage 3's two 2x2 s2 spatial
-# reductions (C_in 128) on qconv_direct
+# reductions (C_in 128) on qconv_direct. qconv_fast takes SegFormer's group-1
+# convs that no other kernel does (stride 1 or 2, at most 49 taps): S's 10,
+# T's 2; ViT's one conv, its 16x16 s16 patch embed, it refuses
 VIT_CONFIG = dict(num_classes=1000, img=224, patch=16, dim=192, depth=12, nheads=3)
 SEG_CONFIG = dict(num_classes=150, img=512)
 TRANSFORMER_TIERS = {
     "VIT-S": ("vit", {}, {}, 0.95),
     "VIT-T": ("vit", dict(quant_bf16_storage=False, pallas_qgemm=True), {"qgemm_requant": 1},
               0.95),
-    "SEG-S": ("segformer", {}, {}, 0.99),
-    "SEG-T": ("segformer", dict(quant_bf16_storage=False), {"qconv_direct": 3, "qconv1x1": 5},
-              0.99),
+    "SEG-S": ("segformer", {}, {"qconv_fast": 10}, 0.99),
+    "SEG-T": ("segformer", dict(quant_bf16_storage=False),
+              {"qconv_direct": 3, "qconv1x1": 5, "qconv_fast": 2}, 0.99),
 }
 # phase 3j: the OCR and segmentation nets (models/extra.py, Tengine's
 # examples/tm_crnn.cpp and tm_unet.cpp) at batch 1. CRNN at build_crnn_graph's
@@ -523,27 +547,29 @@ TRANSFORMER_TIERS = {
 # (3x3 at 4x25) and conv7 (2x2 at 2x25), C_in 128, on qconv_direct, the FC
 # ([24, 128] x [128, 37]) on qgemm_requant; U-Net's 14 3x3 convs with C_in
 # 128-1024 on qconv_direct, the 1x1 head (N = 2) on qconv1x1, in UINT8
-# (UNET-T) and in INT8 (UNET-I8-T).
+# (UNET-T) and in INT8 (UNET-I8-T). In the INT8 nets qconv_fast takes the
+# other convs: CRNN's 7 (S) or 5 (T, E), U-Net's 19 (S) or 4 (T).
 CRNN_CONFIG = dict(img_w=100, img_h=32, hidden=128)
 UNET_CONFIG = dict(img=512, base=64, depth=4, num_classes=2)
 UNET_CHECK_IMG = 128  # the card held to the CPU node by node at this size
 EQ_IMAGES = 4
 CRNN_T = dict(quant_bf16_storage=False, pallas_qgemm=True)
 EXTRA_TIERS = {
-    "CRNN-S": ("crnn", {}, {}, 0.99),
-    "CRNN-T": ("crnn", CRNN_T, {"qconv_direct": 2, "qgemm_requant": 1}, 0.99),
-    "CRNN-E": ("crnn-eq", CRNN_T, {"qconv_direct": 2, "qgemm_requant": 1}, 0.99),
+    "CRNN-S": ("crnn", {}, {"qconv_fast": 7}, 0.99),
+    "CRNN-T": ("crnn", CRNN_T, {"qconv_direct": 2, "qgemm_requant": 1, "qconv_fast": 5}, 0.99),
+    "CRNN-E": ("crnn-eq", CRNN_T, {"qconv_direct": 2, "qgemm_requant": 1, "qconv_fast": 5},
+               0.99),
     "UNET-S": ("unet", {}, {}, 0.99),
     "UNET-T": ("unet", dict(quant_bf16_storage=False, quant_native="off"),
                {"qconv_direct": 14, "qconv1x1": 1}, 0.99),
-    "UNET-I8-S": ("unet-i8", {}, {}, 0.99),
+    "UNET-I8-S": ("unet-i8", {}, {"qconv_fast": 19}, 0.99),
     "UNET-I8-T": ("unet-i8", dict(quant_bf16_storage=False, quant_native="off"),
-                  {"qconv_direct": 14, "qconv1x1": 1}, 0.99),
+                  {"qconv_direct": 14, "qconv1x1": 1, "qconv_fast": 4}, 0.99),
 }
 # yolov5s-640 INT8 b8 (phase 3a's graph) with Options(stem_s2d=True): the 6x6
 # s2 stem becomes SpaceToDepth + a 3x3 s1 conv over 12 channels, which the
-# stem kernel's gate refuses (C_in <= 4): the fast lowering takes it, no
-# kernel is launched
+# stem kernel's gate refuses (C_in <= 4): the fast lowering takes it, on
+# qconv_fast as the other 80
 S2D_OPTS = dict(quant_mode="fast", stem_s2d=True)
 # RPN in phase 3j's one-node graphs: per_nms_topn 300 (the reference's 6000
 # makes padded_nms a 6000-step loop: correct, and too slow for this phase)
@@ -2438,6 +2464,60 @@ def check_requant_kernels(torch):
     return entries
 
 
+def check_qconv_fast(torch, resnet_batch=128):
+    """Phase 2 for the fast tier's INT8 convs (ops/cuda/qconv.py:
+    qconv_fast, csrc/qconv.cu's fast-epilogue mode): yolov5s-640 b8's 80
+    convs after the stem (tests/test_torch_qconv_fast.py:yolov5s_convs) and
+    ResNet-50-224's 53 at resnet_batch, each bit for bit against its plain
+    version on the card (the float64 chain: qwiden's kernel, a float64
+    library conv, qrequant's kernel) and timed by graph replay beside it and
+    beside the library conv alone; each net's sums over its convs. Returns
+    the kernels-line entry: yolov5s's largest SiLU conv (8x320x320x32, 3x3
+    s2 to 64 channels)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_qconv_fast import (
+        fast_inputs, resnet50_convs, run_fast, run_plain, yolov5s_convs,
+    )
+
+    from tengine_tpu_torch.ops.cuda import qconv as pq
+    from tengine_tpu_torch.ops.cuda import requant as rq
+    from tengine_tpu_torch.ops.lowering import conv2d_nhwc
+
+    entry = None
+    for net, batch, convs in (("yolov5s-640", 8, yolov5s_convs(640)[1:]),
+                              ("resnet50-224", resnet_batch, resnet50_convs(224))):
+        tot = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0)
+        for i, conv in enumerate(convs):
+            inp = fast_inputs(batch, conv, seed=i, device="cuda")
+            got, want = run_fast(inp), run_plain(inp)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"qconv_fast {net} conv {i} {conv}: "
+                                     f"{int((got != want).sum())} bytes differ from the plain chain")
+            ms = graph_ms(lambda: run_fast(inp), iters=20)
+            plain_ms = graph_ms(lambda: run_plain(inp), iters=3)
+            x, wf = inp["x"], inp["wp"][..., :conv[2]].to(torch.float64).permute(0, 3, 1, 2)
+            xs, pads = rq.qwiden_for_conv(x, mode="raw", pads=inp["pads"])
+            lib_ms = graph_ms(lambda: conv2d_nhwc(xs, wf, pads, (conv[5],) * 2, (1, 1), 1),
+                              iters=3)
+            ops = 2 * got.numel() * conv[2] * conv[4] ** 2
+            moved = x.numel() + inp["wp"].numel() + got.numel() * (
+                2 if inp["residual"] is not None else 1)
+            bound = max(moved / H100_BYTES_PER_S, ops / H100_INT8_OPS_PER_S) * 1e3
+            for k, v in (("ms", ms), ("plain", plain_ms), ("lib", lib_ms), ("bound", bound)):
+                tot[k] += v
+            log(f"  qconv_fast {net} b{batch} conv {i} {conv[:7]} tile "
+                f"{pq.pick_tile(got.numel() // got.shape[-1], got.shape[-1])}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f}, library conv {lib_ms:.4f}, bound {bound:.4f}")
+            if entry is None and conv[2:6] == (32, 64, 3, 2):
+                log(f"  qconv_fast {net} b{batch} largest SiLU conv {tuple(x.shape)}:")
+                entry = kernel_entry("qconv_fast", pq.SOURCE, None, 0, ms, plain_ms, moved, ops,
+                                     lib_ms)
+        log(f"  qconv_fast {net} b{batch}, {len(convs)} convs: kernel {tot['ms']:.4f} ms, "
+            f"plain {tot['plain']:.4f}, library conv {tot['lib']:.4f}, bound {tot['bound']:.4f}")
+    return entry
+
+
 def check_dw_kernel(torch, sweep=False):
     """Phase 2 for dw_qconv: bit for bit against dw_qconv_plain on the test
     grid and the redesign's edge cases under forced tiles
@@ -2943,12 +3023,16 @@ def run_default_tiers(torch, tt, qmath, counters, graphs, images, profile):
             raise AssertionError(f"{net} {scheme} {tier}: convs by route {got_routes}, expected "
                                  f"{want_routes}; native-int8 plan {took_plan}, {len(shifted)} "
                                  f"shifted tensors")
+        per_forward = with_fast(cg, per_forward)
         outs, batch_ms, launches, eager_ms = drive(torch, cg, x_dev, counters,
                                                 f"{net}-224 {scheme} b{batch} tier {tier}", profile)
         want = dict.fromkeys(counters, 0) | {
             name: WRAPPER_RUNS * n for name, n in per_forward.items()}
         if launches != want:
             raise AssertionError(f"{net} {scheme} {tier}: launches {launches}, expected {want}")
+        if "qconv_fast" in per_forward:
+            check_path_kernels(torch, cg, x_dev, f"{net}-224 {scheme} b{batch} tier {tier}",
+                               per_forward)
         out[tier] = (keep(cg), outs, opts, gate, qg, xq,
                      (float(np.median(batch_ms)), float(np.median(eager_ms))))
         del cg
@@ -3019,18 +3103,20 @@ def check_rows(what, got, want, min_valid=10):
 
 
 def check_path_kernels(torch, cg, x, what, per_forward):
-    """Every launch of qconv1x1, qconv_direct, qgemm_requant, dw_qconv and
-    stem_qconv in one eager forward of cg (the main path's shapes and data)
-    held against its plain version on the same inputs: at most 1 LSB (0
-    expected), and the launches checked those of per_forward ({kernel:
-    launches}). These launches come after drive has read the counts, so
-    they count for no tier. Returns {kernel: [launches, max LSB]}."""
+    """Every launch of qconv1x1, qconv_direct, qgemm_requant, dw_qconv,
+    stem_qconv and qconv_fast in one eager forward of cg (the main path's
+    shapes and data) held against its plain version on the same inputs: at
+    most 1 LSB (0 expected; qconv_fast, whose plain version is the float64
+    chain it replaces, 0 required), and the launches checked those of
+    per_forward ({kernel: launches}). These launches come after drive has
+    read the counts, so they count for no tier. Returns {kernel:
+    [launches, max LSB]}."""
     import tengine_tpu_torch.ops.quantized as quantized
     from tengine_tpu_torch.ops.cuda import dw_conv, qconv, qgemm, stem_conv
 
     pairs = {"qconv1x1": qconv.qconv1x1_plain, "qconv_direct": qconv.qconv_direct_plain,
              "qgemm_requant": qgemm.qgemm_requant_plain, "dw_qconv": dw_conv.dw_qconv_plain,
-             "stem_qconv": stem_conv.stem_qconv_plain}
+             "stem_qconv": stem_conv.stem_qconv_plain, "qconv_fast": qconv.qconv_fast_plain}
     seen = {name: [0, 0] for name in pairs}
 
     def checked(name, fn, plain):
@@ -3052,7 +3138,8 @@ def check_path_kernels(torch, cg, x, what, per_forward):
         for name, fn in originals.items():
             setattr(quantized, name, fn)
     log(f"  {what}: kernel vs plain at the path's shapes, launches checked and max LSB: {seen}")
-    if any(n != per_forward.get(name, 0) for name, (n, _) in seen.items()):
+    if (any(n != per_forward.get(name, 0) for name, (n, _) in seen.items())
+            or seen["qconv_fast"][1]):
         raise AssertionError(f"{what}: checked {seen}, expected {per_forward}")
     return seen
 
@@ -3089,6 +3176,7 @@ def run_ssd_tiers(torch, tt, qmath, counters, g, fp32_outs, images, profile):
             raise AssertionError(f"mobilenet-ssd {tier}: convs on (dw, direct/1x1) {got}, "
                                  f"expected {want}, of {len(routes)}")
         x = x_all[:batch]
+        per_forward = with_fast(cg, per_forward)
         outs, _, launches, _ = drive(torch, cg, x, counters, f"mobilenet-ssd-300 uint8 b{batch} "
                                   f"tier {tier}", profile)
         want = dict.fromkeys(counters, 0) | {
@@ -3122,6 +3210,47 @@ def run_ssd_tiers(torch, tt, qmath, counters, g, fp32_outs, images, profile):
     return total
 
 
+def fast_igemm(g, n) -> bool:
+    """Whether the fast lowering runs conv node n of g on qconv_fast, as
+    ops/quantized.py:_igemm_fast_ok reads the IR: INT8 input at zero point 0
+    and INT8 const weights at zero point 0, group 1, dilation 1, stride 1
+    or 2 both ways, at most 49 taps and 16 a side, K·128² below 2^31."""
+    t_in, t_w, p = g.tensors[n.inputs[0]], g.tensors[n.inputs[1]], n.params
+    if (t_in.dtype.name != "INT8" or t_w.dtype.name != "INT8" or t_in.quant is None
+            or t_w.quant is None or t_in.quant.per_channel or t_w.data is None):
+        return False
+    kh, kw = p["kernel_h"], p["kernel_w"]
+    return (int(np.asarray(t_in.quant.zero_points).reshape(-1)[0]) == 0
+            and not np.any(np.asarray(t_w.quant.zero_points)) and p["group"] == 1
+            and p["dilation_h"] == p["dilation_w"] == 1 and p["stride_h"] == p["stride_w"]
+            and p["stride_h"] in (1, 2) and kh * kw <= 49 and max(kh, kw) <= 16
+            and int(t_w.shape[1]) * kh * kw * 128 * 128 < 2**31)
+
+
+def fast_convs(cg) -> int:
+    """The qconv_fast launches a forward of cg makes: its convs on the fast
+    lowering where fast_igemm holds, which must be those that stored
+    qconv_fast's weight (t<idx>/ohwi_i8)."""
+    convs = [n for n in cg.graph.nodes if n.op == "Convolution" and n.name in cg.kernels]
+    want = sum(cg.kernels[n.name] == "lower_conv_quant_fast" and fast_igemm(cg.graph, n)
+               for n in convs)
+    got = sum(f"t{n.inputs[1]}/ohwi_i8" in cg.params for n in convs)
+    if got != want:
+        raise AssertionError(f"{cg.graph.name}: {got} convs on qconv_fast, the IR gives {want}")
+    return got
+
+
+def with_fast(cg, per_forward) -> dict:
+    """per_forward ({kernel: launches a forward}) with cg's qconv_fast
+    launches (fast_convs) where it has any; a count per_forward gives must
+    be that one."""
+    n = fast_convs(cg)
+    if per_forward.get("qconv_fast", n) != n:
+        raise AssertionError(f"{cg.graph.name}: {n} convs on qconv_fast, expected "
+                             f"{per_forward['qconv_fast']}")
+    return dict(per_forward, qconv_fast=n) if n else dict(per_forward)
+
+
 def derived_launches(cg, gate):
     """The kernel launches a forward of cg makes, derived from its IR as the
     routes' gates read it: on the integer-storage tier a group-1 1x1 conv
@@ -3131,7 +3260,8 @@ def derived_launches(cg, gate):
     that took the kernels' lowerings, which must be all of those; with
     pallas_qgemm on that tier, every FC goes to qgemm_requant. An INT8
     input with a zero point (a shifted grid: a TFLite full-int8 import's)
-    keeps a group-1 conv and an FC off those kernels."""
+    keeps a group-1 conv and an FC off those kernels. A conv left on the
+    fast lowering goes to qconv_fast where fast_igemm holds (fast_convs)."""
     def shifted(n):
         t = cg.graph.tensors[n.inputs[0]]
         return (t.dtype.name == "INT8" and t.quant is not None and not t.quant.per_channel
@@ -3163,7 +3293,7 @@ def derived_launches(cg, gate):
             got["dw_qconv"] += 1
     if got != want:
         raise AssertionError(f"{cg.graph.name}: convs on the kernels' routes {got}, the IR gives {want}")
-    return {name: n for name, n in got.items() if n}
+    return with_fast(cg, {name: n for name, n in got.items() if n})
 
 
 def run_quant_tier(torch, tt, qmath, counters, what, qg, fp32_outs, images, opts, gate,
@@ -3189,7 +3319,7 @@ def run_quant_tier(torch, tt, qmath, counters, what, qg, fp32_outs, images, opts
     x = torch.from_numpy(xq).cuda()
     with dw_gate(gate):
         cg = tt.compile_graph(qg, tt.Options(**opts))
-    derived = derived_launches(cg, gate)
+    derived, per_forward = derived_launches(cg, gate), with_fast(cg, per_forward)
     if derived != per_forward:
         raise AssertionError(f"{what}: the IR gives {derived}, expected {per_forward}")
     folded = fold_shuffle_gathers(qg.clone())
@@ -3349,7 +3479,7 @@ def run_transformer_tiers(torch, tt, qmath, counters, profile):
         opts = dict(quant_mode="fast", **extra)
         what = f"{net} int8 b1 tier {tier}"
         cg = tt.compile_graph(qg, tt.Options(**opts))
-        derived = derived_launches(cg, None)
+        derived, per_forward = derived_launches(cg, None), with_fast(cg, per_forward)
         if derived != per_forward:
             raise AssertionError(f"{what}: the IR gives {derived}, expected {per_forward}")
         x = torch.from_numpy(xq).cuda()
@@ -3446,7 +3576,7 @@ def run_extra_tiers(torch, tt, qmath, counters, profile):
         opts = dict(quant_mode="fast", **extra)
         what = f"{net.split('-')[0]} {'uint8' if net == 'unet' else 'int8'} b1 tier {tier}"
         cg = tt.compile_graph(qg, tt.Options(**opts))
-        derived = derived_launches(cg, None)
+        derived, per_forward = derived_launches(cg, None), with_fast(cg, per_forward)
         if derived != per_forward:
             raise AssertionError(f"{what}: the IR gives {derived}, expected {per_forward}")
         t_in = qg.tensors[qg.input_tensors[0]]
@@ -3503,7 +3633,8 @@ def tensors_by_name(torch, cg, x) -> dict:
 def run_s2d_tier(torch, tt, counters, qg5, x5, outs5, profile):
     """Phase 3j: yolov5s-640 INT8 b8 (phase 3a's graph) under S2D_OPTS: the
     stem rewritten as SpaceToDepth + a 3x3 s1 conv over 12 channels on the
-    fast lowering, no kernel launched; driven as drive does; the heads
+    fast lowering, which runs it on qconv_fast with the other 80 convs (no
+    stem kernel launched); driven as drive does; the heads
     within 1 LSB of phase 3a's; at batch 1, every tensor both graphs hold
     within 1 LSB of the default tier's, on at most 0.1% of its elements.
     Returns the outputs and the tier's kept graph."""
@@ -3518,9 +3649,12 @@ def run_s2d_tier(torch, tt, counters, qg5, x5, outs5, profile):
             or cg.kernels[stem.name] != "lower_conv_quant_fast"):
         raise AssertionError(f"{what}: stem {p['kernel_h']}x{p['kernel_w']} s{p['stride_h']} "
                              f"C_in {p['input_channel']} on {cg.kernels[stem.name]}")
+    per_forward = with_fast(cg, {"qconv_fast": YOLOV5S_LAUNCHES["qconv_fast"] + 1})
     outs, batch_ms, launches, eager_ms = drive(torch, cg, x5, counters, what, profile)
-    if any(launches.values()):
-        raise AssertionError(f"{what}: launches {launches}, expected none")
+    want = dict.fromkeys(counters, 0) | {k: WRAPPER_RUNS * n for k, n in per_forward.items()}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    check_path_kernels(torch, cg, x5, what, per_forward)
     heads = [cg.graph.tensors[t] for t in cg.output_ids]
     check_within_lsb(f"{what} vs the default tier", outs, outs5, heads)
     one = {}
@@ -3540,8 +3674,8 @@ def run_s2d_tier(torch, tt, counters, qg5, x5, outs5, profile):
         worst, compared = max(worst, int(gap.max())), compared + 1
     log(f"  {what}: vs the default tier at batch 1, {compared} tensors: largest gap {worst} LSB")
     log(f"phase 3 main path: {what} Options({S2D_OPTS}): captured {np.median(batch_ms):.3f} ms, "
-        f"eager {np.median(eager_ms):.3f} ms a batch; stem {stem.name} on the fast lowering, no "
-        f"kernel launched [{time.time() - t1:.1f} s]")
+        f"eager {np.median(eager_ms):.3f} ms a batch; stem {stem.name} on the fast lowering, "
+        f"kernels a forward {per_forward} [{time.time() - t1:.1f} s]")
     kept = keep(cg)
     del cg
     return outs, kept
@@ -3733,8 +3867,8 @@ def run_server(torch, tt, qmath, native, counters, qg):
     counted; then SERVER_ROUNDS x SERVER_BURSTS requests, each burst
     submitted at once and awaited, are timed. Checks: every request
     answered; fewer batches than requests; buckets 8, 4 and 1 served; the
-    stem kernel launched WRAPPER_RUNS times in each bucket and nowhere
-    else; every answer equal at 0 LSB to its frame through the bucket-1
+    stem kernel launched WRAPPER_RUNS times in each bucket, qconv_fast 80
+    times that, and no other kernel; every answer equal at 0 LSB to its frame through the bucket-1
     CompiledGraph; each answer decoded, native.nms = the numpy NMS. Prints
     the server's latency percentiles over the timed requests, requests/s
     and each bucket's param bytes of its own. Returns the launches by
@@ -3790,7 +3924,8 @@ def run_server(torch, tt, qmath, native, counters, qg):
     finally:
         server.stop()
     launches = {name: c.launches for name, c in counters.items()}
-    want = dict.fromkeys(counters, 0) | {"stem_qconv": WRAPPER_RUNS * len(SERVER_BUCKETS)}
+    want = dict.fromkeys(counters, 0) | {
+        k: WRAPPER_RUNS * len(SERVER_BUCKETS) * n for k, n in YOLOV5S_LAUNCHES.items()}
     if launches != want or any(n != WRAPPER_RUNS for n in per_bucket.values()):
         raise AssertionError(f"server: launches {launches} ({per_bucket} by bucket), "
                              f"expected {want}")
@@ -4023,10 +4158,11 @@ def run_zoo(torch, tt, qmath, native, counters, profile):
     """Phase 3m: each net of ZOO_NETS at batch 1, its builder's default
     size: quantized on the card from one seeded image, compiled under
     default Options, driven as drive does (captured = eager at 0 LSB; under
-    default Options no conv of these nets meets a kernel's gate, and
-    quant_relaxed's chain pass gives the nets with bottlenecks of c_mid >=
-    256 FusedResBlockChain nodes: their qblock_chain launches exact, each
-    held to its plain version); no int32 bias at +-(2^31 - 1)
+    default Options the INT8 nets' convs that fast_igemm admits run on
+    qconv_fast and no other conv meets a kernel's gate, and quant_relaxed's
+    chain pass gives the nets with bottlenecks of c_mid >= 256
+    FusedResBlockChain nodes: their qblock_chain and qconv_fast launches
+    exact, each held to its plain version); no int32 bias at +-(2^31 - 1)
     (check_no_saturated_bias: the seeded YOLOX's and UltraFace's heads
     raise their weight scales instead, ROADMAP §3); every head's
     dequantized cosine against the fp32 engine above the net's gate; the
@@ -4064,6 +4200,9 @@ def run_zoo(torch, tt, qmath, native, counters, profile):
             raise AssertionError(f"{name}: launches {launches}, expected {want}")
         if chains:
             check_chain_kernels(torch, cg, x_dev, name, chains)
+        path = {k: n for k, n in per_forward.items() if k != "qblock_chain"}
+        if path:
+            check_path_kernels(torch, cg, x_dev, name, path)
         for k, n in launches.items():
             total[k] += n
         heads = [qg.tensors[t] for t in qg.output_tensors]
@@ -4384,12 +4523,13 @@ def run_capi(torch, tt, native, counters, qg5, xq5):
                 check_heads_equal(f"attach b{b} run {i}", [capi_output(lib, g, k)
                                                            for k in range(n_out)], ref[b][i])
         launches = {name: c.launches for name, c in counters.items()}
-        want = dict.fromkeys(counters, 0) | {"stem_qconv": WRAPPER_RUNS * len(batches)}
+        want = dict.fromkeys(counters, 0) | {
+            k: WRAPPER_RUNS * len(batches) * n for k, n in YOLOV5S_LAUNCHES.items()}
         if launches != want:
             raise AssertionError(f"3o attach: launches {launches}, expected {want}")
         seen = check_path_kernels(torch, capi_bridge._graphs[g]._compiled,
                                   torch.from_numpy(batches[CAPI_BATCH][0]).cuda(),
-                                  f"3o C path b{CAPI_BATCH}", {"stem_qconv": 1})
+                                  f"3o C path b{CAPI_BATCH}", YOLOV5S_LAUNCHES)
         if seen["stem_qconv"][1] != 0:
             raise AssertionError("3o: stem_qconv differs from stem_qconv_plain on the C path")
         lib.destroy_graph(g)
@@ -4781,7 +4921,7 @@ def serve_multihost(torch, tt, qg5, mesh, xs, mine, answers, counters, what) -> 
     (cg5,) = server._compiled.values()
     local = np.concatenate([xs[j] for j in mine[:MESH_LOCAL_BATCH]])
     check_path_kernels(torch, cg5, torch.from_numpy(local).to(cg5.device), what,
-                       {"stem_qconv": 1})
+                       YOLOV5S_LAUNCHES)
     log(f"  {what}, {dist.get_backend()}: {len(got)} own requests, every answer = the "
         f"unsharded one at 0 LSB; stats {stats}; latency {json.dumps(latency)}; stem launches "
         f"{stem}; {MESH_IDLE_S} s idle: no batch, {stats['idle_rounds']} idle rounds "
@@ -5052,7 +5192,7 @@ def run_clis(torch, tt, qmath, ir, counters, default):
 
         res, text5, launches = cli_run(torch, counters, "examples.tm_yolov5", ["-q", "int8"],
                                        "tm_yolov5 -q int8 (640)")
-        if session_launches(res["session"]) != {"stem_qconv": 1}:
+        if session_launches(res["session"]) != YOLOV5S_LAUNCHES:
             raise AssertionError(f"tm_yolov5: {session_launches(res['session'])}")
         add(check_cli_launches(torch, counters, "tm_yolov5 -q int8", res, launches))
         cg = res["session"]
@@ -5140,7 +5280,7 @@ def main(argv) -> int:
     from tengine_tpu_torch.graph import ir
     from tengine_tpu_torch.ops.cuda.dw_conv import dw_qconv
     from tengine_tpu_torch.ops.cuda.qblock import qblock_chain
-    from tengine_tpu_torch.ops.cuda.qconv import qconv1x1, qconv_direct
+    from tengine_tpu_torch.ops.cuda.qconv import qconv1x1, qconv_direct, qconv_fast
     from tengine_tpu_torch.ops.cuda.qgemm import qgemm_requant
     from tengine_tpu_torch.ops.cuda.stem_conv import stem_qconv
 
@@ -5168,8 +5308,10 @@ def main(argv) -> int:
     entries["dw_qconv"] = check_dw_kernel(torch, sweep="--tiles" in argv)
     entries["qblock_chain"] = check_qblock_kernel(torch, sweep="--tiles" in argv)
     entries.update(check_requant_kernels(torch))
+    entries["qconv_fast"] = check_qconv_fast(torch)
     counters = {"stem_qconv": stem_qconv, "qconv_direct": qconv_direct, "qconv1x1": qconv1x1,
-                "qgemm_requant": qgemm_requant, "dw_qconv": dw_qconv, "qblock_chain": qblock_chain}
+                "qgemm_requant": qgemm_requant, "dw_qconv": dw_qconv, "qblock_chain": qblock_chain,
+                "qconv_fast": qconv_fast}
     log(f"phase 2 kernels: {time.time() - t0:.1f} s")
 
     # 3a. main path: yolov5s-640 INT8 at batch 8
@@ -5188,13 +5330,15 @@ def main(argv) -> int:
     xq5 = qmath.quantize_np(images5, t_in.quant, t_in.dtype)
     x5 = torch.from_numpy(xq5).cuda()
     log(f"  yolov5s set-up (build graph, calibrate, compile): {time.time() - t0:.1f} s")
+    per_forward = with_fast(cg5, YOLOV5S_LAUNCHES)
     outs5, batch_ms, launches, _ = drive(torch, cg5, x5, counters, f"yolov5s-{img} int8 b{batch}",
                                       profile)
-    want = dict.fromkeys(counters, 0) | {"stem_qconv": WRAPPER_RUNS}
+    want = dict.fromkeys(counters, 0) | {k: WRAPPER_RUNS * n for k, n in per_forward.items()}
     if launches != want:
         raise AssertionError(f"yolov5s launches {launches}, expected {want}")
     entries["stem_qconv"]["launches"] = launches["stem_qconv"]
-    check_path_kernels(torch, cg5, x5, f"yolov5s-{img} int8 b{batch}", {"stem_qconv": 1})
+    entries["qconv_fast"]["launches"] = launches["qconv_fast"]
+    check_path_kernels(torch, cg5, x5, f"yolov5s-{img} int8 b{batch}", per_forward)
     cg5 = keep(cg5)
     log(f"phase 3 main path: yolov5s-{img} int8 batch {batch} [{time.time() - t0:.1f} s]")
 
@@ -5213,14 +5357,15 @@ def main(argv) -> int:
         t1 = time.time()
         opts = dict(quant_mode="fast", quant_bf16_storage=False, batch_size=batch, **extra)
         cg3 = tt.compile_graph(qg3, tt.Options(**opts))
+        with_fast(cg3, per_forward)
         outs3, batch_ms, launches, _ = drive(torch, cg3, x3, counters,
                                           f"yolov3-{img3} int8 b{batch} tier {tier}", profile)
         want = dict.fromkeys(counters, 0) | {
             name: WRAPPER_RUNS * n for name, n in per_forward.items()}
         if launches != want:
             raise AssertionError(f"yolov3 {tier}: launches {launches}, expected {want}")
-        if per_forward["qgemm_requant"]:
-            check_path_kernels(torch, cg3, x3, f"yolov3 {tier}", per_forward)
+        check_path_kernels(torch, cg3, x3, f"yolov3 {tier}", per_forward)
+        entries["qconv_fast"]["launches"] += launches["qconv_fast"]
         tiers[tier] = (keep(cg3), outs3, opts)
         del cg3
         log(f"phase 3 main path: yolov3-{img3} int8 batch {batch} tier {tier} {extra} "
@@ -5252,6 +5397,7 @@ def main(argv) -> int:
                         routes.count("lower_conv_quant_fast"))
             if by_route != (per_forward["dw_qconv"], per_forward["qconv1x1"], n_fast):
                 raise AssertionError(f"yolofastest {scheme} {tier}: convs by route {by_route}")
+            per_forward = with_fast(cgf, dict(per_forward, qconv_fast=FASTEST_FAST[scheme]))
             outsf, batch_ms, launches, _ = drive(
                 torch, cgf, xf, counters, f"yolofastest-{imgf} {scheme} b{FASTEST_BATCH} tier "
                 f"{tier}", profile and scheme == "int8")
@@ -5259,6 +5405,7 @@ def main(argv) -> int:
                 name: WRAPPER_RUNS * n for name, n in per_forward.items()}
             if launches != want:
                 raise AssertionError(f"yolofastest {scheme} {tier}: launches {launches}, expected {want}")
+            entries["qconv_fast"]["launches"] += launches["qconv_fast"]
             fastest[scheme, tier] = (keep(cgf), outsf, qgf, xqf, xf)
             del cgf
             log(f"phase 3 main path: yolofastest-{imgf} {scheme} batch {FASTEST_BATCH} tier {tier} "
@@ -5291,16 +5438,19 @@ def main(argv) -> int:
         if tier == "H":
             # from the IR: a conv takes the kernel if it is 1x1, or k x k with
             # C_in % 128 == 0; the 1x1 convs go to qconv1x1 (the stride-2 ones
-            # after a subsample), the FC to qgemm_requant
+            # after a subsample), the FC to qgemm_requant, the other k x k
+            # convs to qconv_fast
             ks = [(n.params["kernel_h"], int(cgr.graph.tensors[n.inputs[1]].shape[1])) for n in convs]
             derived = {"qconv_direct": sum(k > 1 and c % 128 == 0 for k, c in ks),
-                       "qconv1x1": sum(k == 1 for k, _ in ks), "qgemm_requant": 1}
+                       "qconv1x1": sum(k == 1 for k, _ in ks), "qgemm_requant": 1,
+                       "qconv_fast": sum(k > 1 and c % 128 != 0 for k, c in ks)}
             fc = [cgr.kernels[n.name] for n in cgr.graph.nodes if n.op == "FullyConnected"]
             if derived != per_forward or routed != 49 or fc != ["lower_fc_quant_pallas"]:
                 raise AssertionError(f"resnet50 H: the IR gives {derived}, {routed} convs took "
                                      f"the kernel's lowering, FC on {fc}")
         elif routed:
             raise AssertionError(f"resnet50 {tier}: a conv left the fast lowering")
+        with_fast(cgr, per_forward)
         outsr, batch_ms, launches, _ = drive(torch, cgr, xr, counters,
                                           f"resnet50-{imgr} int8 b{RESNET_BATCH} tier {tier}",
                                           profile)
@@ -5308,8 +5458,8 @@ def main(argv) -> int:
             name: WRAPPER_RUNS * n for name, n in per_forward.items()}
         if launches != want:
             raise AssertionError(f"resnet50 {tier}: launches {launches}, expected {want}")
-        if "qgemm_requant" in per_forward:
-            check_path_kernels(torch, cgr, xr, f"resnet50 {tier}", per_forward)
+        check_path_kernels(torch, cgr, xr, f"resnet50 {tier}", per_forward)
+        entries["qconv_fast"]["launches"] += launches["qconv_fast"]
         resnet[tier] = (keep(cgr), outsr, opts)
         del cgr
         log(f"phase 3 main path: resnet50-{imgr} int8 batch {RESNET_BATCH} tier {tier} {extra} "

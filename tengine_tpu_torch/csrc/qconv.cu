@@ -74,11 +74,25 @@
 // explicit __fmul_rn/__fadd_rn), as the Pallas epilogue rounds each
 // product and sum separately; the clamp thresholds arrive as f32 values that
 // the host computed in double.
+//
+// The fast tier's INT8 convs at zero point 0 (ops/cuda/qconv.py:qconv_fast)
+// run the same mainloop with another epilogue: the f32 steps of the tier's
+// qrequant (csrc/requant_steps.cuh, which csrc/requant.cu includes too) on
+// each int32 accumulator, so that the output is the bytes the float64
+// library conv and qrequant give, in one launch and with no float64 buffer.
+// Its residual, where there is one, is staged into the output tile first,
+// since the relaxed form adds it before the rounding. The steps' branches
+// (activation, residual) are taken when the kernel is built (EPI), not
+// between every two accumulators: left in, they made the kernel run 1.2-2.5x
+// longer at yolov5s-640's shapes on an H100.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_s8.cuh"
+#include "requant_steps.cuh"
 
 // Mirrored field for field by QconvArgs in ops/cuda/qconv.py (ctypes).
 struct QconvArgs {
@@ -98,6 +112,10 @@ struct QconvArgs {
   float s_mid, zp_mid, s_r, zp_r, inv_s_out2, zp_out2;  // inv_s_out2 = f32(1 / s_out2)
   int bm, bn;  // the block's tile, one of TILES
   int wgmma;   // 1: the product by warpgroup MMA (int8 input, no rowsum, BN = 128)
+  // 1: the fast tier's epilogue in place of the one above (int8 input,
+  // zp_in 0, no rowsum; has_res 0, res read where steps.res_mode says)
+  int fast;
+  RequantSteps steps;  // its f32 steps (requant_steps.cuh); B[c] where steps.has_bias
 };
 
 namespace {
@@ -121,12 +139,8 @@ __device__ __forceinline__ uint32_t swz(int row, int ch) {
   return (uint32_t)(row * BK + ((ch ^ ((row >> 1) & 3)) << 4));
 }
 
-// C's round(): half away from zero. The fraction q - trunc(q) is exact in
-// f32, so ties are decided exactly; equal to roundf for every finite q.
-__device__ __forceinline__ float round_away(float q) {
-  const float t = truncf(q);
-  return fabsf(__fsub_rn(q, t)) >= 0.5f ? __fadd_rn(t, copysignf(1.0f, q)) : t;
-}
+// C's round(): half away from zero; equal to roundf for every finite q
+using requant_steps::round_away;
 
 // The same for |q| < 2^22, as an integer: adding the float just below 0.5
 // (with q's sign) and truncating. A tie k + 0.5 rounds up to k + 1 in the
@@ -141,14 +155,12 @@ __device__ __forceinline__ uint32_t bit_range(int lo, int hi) {
   return hi > lo ? ((1u << hi) - 1u) & ~((1u << lo) - 1u) : 0u;
 }
 
-__device__ __forceinline__ float clampf(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
-}
+using requant_steps::clip;
 
 // accf*M + B, clamp, round: one output byte. [q_lo, q_hi] is the activation
 // clamp and the output clip in one (see the kernel).
 __device__ __forceinline__ uint32_t requant(float accf, float m, float b, float q_lo, float q_hi) {
-  const float q = clampf(__fadd_rn(__fmul_rn(accf, m), b), q_lo, q_hi);
+  const float q = clip(__fadd_rn(__fmul_rn(accf, m), b), q_lo, q_hi);
   return (uint32_t)round_away_small(q) & 0xFFu;
 }
 
@@ -169,7 +181,13 @@ __device__ __forceinline__ uint32_t add_residual(const QconvArgs& a, uint32_t t,
   return packed;
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, int MIN_BLOCKS, bool ROWSUM, bool WGMMA>
+// The epilogue a kernel is built with: the Pallas kernels' folds (the
+// epilogue arguments of QconvArgs), or the fast tier's steps (args.steps)
+// for any steps, for SiLU without a residual, or for any other activation
+// without one (requant_steps::apply: the last two leave the branches out).
+enum Epi { EPI_PALLAS, EPI_FAST, EPI_FAST_SILU, EPI_FAST_NOSILU };
+
+template <int BM, int BN, int WARPS_M, int WARPS_N, int MIN_BLOCKS, bool ROWSUM, bool WGMMA, int EPI>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MIN_BLOCKS)
     qconv_mma_kernel(const QconvArgs a, const int vec) {
   constexpr int THREADS = WARPS_M * WARPS_N * 32;
@@ -182,6 +200,8 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MIN_BLOCKS)
   // a warpgroup's product is 64 rows (16 a warp) by all of BN = 128 columns
   static_assert(!WGMMA || (WM == 16 && WARPS_M % 4 == 0 && WARPS_N == 1 && BN == 128 && !ROWSUM),
                 "warpgroup tile");
+  constexpr bool FAST = EPI != EPI_PALLAS;
+  static_assert(!FAST || !ROWSUM, "the fast epilogue takes int8 input");
   static_assert(A_ITERS >= 1 && B_ITERS >= 1 && BM % ROWS_PER_PASS == 0 &&
                 BN % ROWS_PER_PASS == 0, "loader");
   // rows lr + i * ROWS_PER_PASS share (row / 2) % 4: one swizzled offset serves
@@ -349,11 +369,11 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MIN_BLOCKS)
   // [clamp(A, lo, hi), clamp(B, lo, hi)].
   float q_lo = a.lo, q_hi = a.hi;
   if (a.act == 1) {
-    q_lo = clampf(a.act_lo, a.lo, a.hi);
-    q_hi = clampf(a.act_hi, a.lo, a.hi);
+    q_lo = clip(a.act_lo, a.lo, a.hi);
+    q_hi = clip(a.act_hi, a.lo, a.hi);
   } else if (a.act >= 0) {
-    q_lo = clampf(a.zp_out, a.lo, a.hi);
-    if (a.act > 0) q_hi = clampf(a.act_hi, a.lo, a.hi);
+    q_lo = clip(a.zp_out, a.lo, a.hi);
+    if (a.act > 0) q_hi = clip(a.act_hi, a.lo, a.hi);
   }
   // the widest store every row of the output (and of the residual) allows
   const uintptr_t align = reinterpret_cast<uintptr_t>(a.out) | reinterpret_cast<uintptr_t>(a.res) |
@@ -361,6 +381,24 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MIN_BLOCKS)
   const int width = (align & 15) == 0 ? 16 : (align & 3) == 0 ? 4 : 1;
   const uint8_t* resg = static_cast<const uint8_t*>(a.res);
   uint8_t* outg = static_cast<uint8_t*>(a.out);
+  // f(r, c, at, bytes) for the pieces of a tile's rows inside the output,
+  // `width` neighbouring bytes a thread: tile row r, column c, output offset at
+  auto stage_rows = [&](int m0, int n0, auto&& f) {
+    auto rows = [&](auto bytes) {
+      constexpr int B = decltype(bytes)::value, PER_ROW = BN / B;
+      for (int item = tid; item < BM * PER_ROW; item += THREADS) {
+        const int r = item / PER_ROW, c = (item - r * PER_ROW) * B;
+        if (m0 + r >= M || n0 + c >= a.c2) continue;
+        f(r, c, (size_t)(m0 + r) * a.c2 + n0 + c, B);
+      }
+    };
+    if (width == 16)
+      rows(std::integral_constant<int, 16>{});
+    else if (width == 4)
+      rows(std::integral_constant<int, 4>{});
+    else
+      rows(std::integral_constant<int, 1>{});
+  };
 
   int slot = 0;
   for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
@@ -370,7 +408,7 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MIN_BLOCKS)
     for (int j = tid; j < BN; j += THREADS) {
       const bool ok = n0 + j < a.c2;
       sm_mult[j] = ok ? a.mult[n0 + j] : 0.0f;
-      sm_bias[j] = ok ? a.bias[n0 + j] : 0.0f;
+      sm_bias[j] = ok && a.bias != nullptr ? a.bias[n0 + j] : 0.0f;
     }
     int acc[MI][NI][4];
     int rs[MI][4];  // every warp sums its own rows: no exchange, no barrier
@@ -448,10 +486,26 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MIN_BLOCKS)
     }
 
     // Epilogue, while the loader's copies for the next tile are in flight.
-    // First each thread requantizes its own accumulators. It holds columns
-    // 2tg, 2tg+1 of rows g and g+8 of every m16 x n8 tile; lanes tg and tg^1
-    // swap a pair so that the even one stores 4 bytes of row g and the odd
-    // one 4 bytes of row g+8 into the staged tile.
+    // In the fast mode a fused residual comes first: its tile is staged
+    // where the output tile will be, so that each accumulator's requant reads
+    // its byte there and its output byte takes the byte's place.
+    const bool res_in = FAST && a.steps.res_mode != 0;
+    if (res_in) {
+      stage_rows(m0, n0, [&](int r, int c, size_t at, int bytes) {
+        if (bytes == 16)
+          *reinterpret_cast<uint4*>(&so[r * SO + c]) = *reinterpret_cast<const uint4*>(resg + at);
+        else if (bytes == 4)
+          *reinterpret_cast<uint32_t*>(&so[r * SO + c]) = *reinterpret_cast<const uint32_t*>(resg + at);
+        else
+          so[r * SO + c] = resg[at];
+      });
+      __syncthreads();
+    }
+    // Each thread requantizes its own accumulators. It holds columns 2tg,
+    // 2tg+1 of rows g and g+8 of every m16 x n8 tile; lanes tg and tg^1 swap
+    // a pair so that the even one stores 4 bytes of row g and the odd one 4
+    // bytes of row g+8 into the staged tile (a lane's residual bytes are read
+    // before the swap, so no byte is overwritten before it is read).
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi) {
       float rsf[2] = {0.0f, 0.0f};
@@ -468,11 +522,21 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MIN_BLOCKS)
 #pragma unroll
         for (int hv = 0; hv < 2; ++hv) {
           float f0 = __int2float_rn(acc[mi][ni][2 * hv]), f1 = __int2float_rn(acc[mi][ni][2 * hv + 1]);
-          if (ROWSUM) {
-            f0 = __fadd_rn(f0, rsf[hv]);
-            f1 = __fadd_rn(f1, rsf[hv]);
+          if constexpr (FAST) {
+            uint32_t rr = 0u;
+            if (res_in) rr = *reinterpret_cast<const uint16_t*>(&so[(wm0 + mi * 16 + g + 8 * hv) * SO + col]);
+            constexpr int SILU = EPI == EPI_FAST_SILU ? 1 : EPI == EPI_FAST_NOSILU ? 0 : -1;
+            constexpr int RES = EPI == EPI_FAST ? -1 : 0;
+            const float y0 = requant_steps::apply<SILU, RES>(a.steps, f0, m2.x, b2.x, 0.0f, rr);
+            const float y1 = requant_steps::apply<SILU, RES>(a.steps, f1, m2.y, b2.y, 0.0f, rr >> 8);
+            pair[hv] = ((uint32_t)__float2int_rn(y0) & 0xFFu) | (((uint32_t)__float2int_rn(y1) & 0xFFu) << 8);
+          } else {
+            if (ROWSUM) {
+              f0 = __fadd_rn(f0, rsf[hv]);
+              f1 = __fadd_rn(f1, rsf[hv]);
+            }
+            pair[hv] = requant(f0, m2.x, b2.x, q_lo, q_hi) | (requant(f1, m2.y, b2.y, q_lo, q_hi) << 8);
           }
-          pair[hv] = requant(f0, m2.x, b2.x, q_lo, q_hi) | (requant(f1, m2.y, b2.y, q_lo, q_hi) << 8);
         }
         const uint32_t got = __shfl_xor_sync(0xFFFFFFFFu, (tg & 1) ? pair[0] : pair[1], 1);
         const uint32_t word = (tg & 1) ? (got | (pair[1] << 16)) : (pair[0] | (got << 16));
@@ -482,15 +546,13 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MIN_BLOCKS)
     }
     __syncthreads();
     // Then the tile goes out row by row, 16 (or 4, or 1) neighbouring bytes a
-    // thread, the fused residual read the same way and added on the way.
-    if (width == 16) {
-      constexpr int PER_ROW = BN / 16;
-      for (int item = tid; item < BM * PER_ROW; item += THREADS) {
-        const int r = item / PER_ROW, c = (item - r * PER_ROW) * 16;
-        if (m0 + r >= M || n0 + c >= a.c2) continue;
-        const size_t at = (size_t)(m0 + r) * a.c2 + n0 + c;
+    // thread, the Pallas epilogue's fused residual read the same way and
+    // added on the way.
+    const bool res_out = !FAST && a.has_res;
+    stage_rows(m0, n0, [&](int r, int c, size_t at, int bytes) {
+      if (bytes == 16) {
         uint4 t = *reinterpret_cast<const uint4*>(&so[r * SO + c]);
-        if (a.has_res) {
+        if (res_out) {
           const uint4 rr = *reinterpret_cast<const uint4*>(resg + at);
           t.x = add_residual(a, t.x, rr.x);
           t.y = add_residual(a, t.y, rr.y);
@@ -498,34 +560,24 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, MIN_BLOCKS)
           t.w = add_residual(a, t.w, rr.w);
         }
         *reinterpret_cast<uint4*>(outg + at) = t;
-      }
-    } else if (width == 4) {
-      constexpr int PER_ROW = BN / 4;
-      for (int item = tid; item < BM * PER_ROW; item += THREADS) {
-        const int r = item / PER_ROW, c = (item - r * PER_ROW) * 4;
-        if (m0 + r >= M || n0 + c >= a.c2) continue;
-        const size_t at = (size_t)(m0 + r) * a.c2 + n0 + c;
+      } else if (bytes == 4) {
         uint32_t t = *reinterpret_cast<const uint32_t*>(&so[r * SO + c]);
-        if (a.has_res) t = add_residual(a, t, *reinterpret_cast<const uint32_t*>(resg + at));
+        if (res_out) t = add_residual(a, t, *reinterpret_cast<const uint32_t*>(resg + at));
         *reinterpret_cast<uint32_t*>(outg + at) = t;
-      }
-    } else {
-      for (int item = tid; item < BM * BN; item += THREADS) {
-        const int r = item / BN, c = item - r * BN;
-        if (m0 + r >= M || n0 + c >= a.c2) continue;
-        const size_t at = (size_t)(m0 + r) * a.c2 + n0 + c;
+      } else {
         uint32_t t = so[r * SO + c];
-        if (a.has_res) t = add_residual(a, t, resg[at]);
+        if (res_out) t = add_residual(a, t, resg[at]);
         outg[at] = (uint8_t)t;
       }
-    }
+    });
   }
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, int MIN_BLOCKS, bool ROWSUM, bool WGMMA = false>
+template <int BM, int BN, int WARPS_M, int WARPS_N, int MIN_BLOCKS, bool ROWSUM, bool WGMMA = false,
+          int EPI = EPI_PALLAS>
 int launch_kernel(const QconvArgs& a, int vec, cudaStream_t s) {
   constexpr int THREADS = WARPS_M * WARPS_N * 32;
-  auto kernel = qconv_mma_kernel<BM, BN, WARPS_M, WARPS_N, MIN_BLOCKS, ROWSUM, WGMMA>;
+  auto kernel = qconv_mma_kernel<BM, BN, WARPS_M, WARPS_N, MIN_BLOCKS, ROWSUM, WGMMA, EPI>;
   // Once per kernel: above 48 KB of dynamic shared memory it has to opt in,
   // and the persistent grid is as many blocks as the card holds. A refusal
   // comes back as the error.
@@ -550,16 +602,29 @@ int launch_kernel(const QconvArgs& a, int vec, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// The fast epilogue's kernel for these steps, on the warpgroup route or not.
+template <int BM, int BN, int WARPS_M, int WARPS_N, int MIN_BLOCKS, bool WGMMA>
+int launch_fast(const QconvArgs& a, int vec, cudaStream_t s) {
+  if (a.steps.res_mode != 0)
+    return launch_kernel<BM, BN, WARPS_M, WARPS_N, MIN_BLOCKS, false, WGMMA, EPI_FAST>(a, vec, s);
+  if (a.steps.act == 100)
+    return launch_kernel<BM, BN, WARPS_M, WARPS_N, MIN_BLOCKS, false, WGMMA, EPI_FAST_SILU>(a, vec, s);
+  return launch_kernel<BM, BN, WARPS_M, WARPS_N, MIN_BLOCKS, false, WGMMA, EPI_FAST_NOSILU>(a, vec, s);
+}
+
 template <int BM, int BN, int WARPS_M, int WARPS_N, int MIN_BLOCKS>
 int launch_tile(const QconvArgs& a, int vec, cudaStream_t s) {
+  if (a.fast && (a.cw != 0 || a.x_u8 || a.zp_in != 0 || a.has_res)) return (int)cudaErrorInvalidValue;
   if constexpr (BN == 128) {  // one warpgroup for every 64 rows
     if (a.wgmma) {
       if (a.cw != 0 || a.x_u8) return (int)cudaErrorInvalidValue;
+      if (a.fast) return launch_fast<BM, BN, BM / 16, 1, MIN_BLOCKS, true>(a, vec, s);
       return launch_kernel<BM, BN, BM / 16, 1, MIN_BLOCKS, false, true>(a, vec, s);
     }
   } else if (a.wgmma) {
     return (int)cudaErrorInvalidValue;
   }
+  if (a.fast) return launch_fast<BM, BN, WARPS_M, WARPS_N, MIN_BLOCKS, false>(a, vec, s);
   if (a.cw != 0) return launch_kernel<BM, BN, WARPS_M, WARPS_N, MIN_BLOCKS, true>(a, vec, s);
   return launch_kernel<BM, BN, WARPS_M, WARPS_N, MIN_BLOCKS, false>(a, vec, s);
 }

@@ -9,24 +9,9 @@
 //                    ("raw"), or the raw values padded with zp_in ("fill");
 //                    where the lowering pads, the padded buffer.
 //   qrequant_kernel  the conv's (or FC's) float64 sums -> the stored integer
-//                    output, every f32 step of the plain version in its order:
-//
-//     a = f32(acc)                        round to nearest, as .to(float32)
-//     a = a + corr                        FC only: the zero-point fold first
-//     q = a * M[c] + B[c]                 two roundings (or q - zp_shift)
-//     q = q + corr                        conv: per channel, per position
-//     q = act(q)                          relu, relu1, relu-n, or SiLU as
-//                                         q * (1 / (1 + expf(-(q * s_out))))
-//     t = round_half_away(q) + zp_out     trunc, then +-1 where |q - t| >= .5
-//     out = clip(t)                       or the fused residual:
-//       exact:   clip(round((((clip(t) - zp_mid) * s_mid) + (r - zp_r) * s_r)
-//                       * inv_s_out2) + zp_out2), optional relu at zp_out2
-//       relaxed: clip(round(q + r * beta) + zp_out), optional relu first
-//
-// Every f32 operation is a correctly rounded __f*_rn intrinsic (and the build
-// has --fmad=false), expf is the full-precision one, not __expf, and the
-// division is IEEE: these are the values ATen's CUDA kernels compute, so the
-// output equals the plain version's bit for bit.
+//                    output, every f32 step of the plain version in its order
+//                    (csrc/requant_steps.cuh lists them), the FC's zero-point
+//                    fold joining first: a = f32(acc) + corr.
 //
 // What bounds them on this card: bytes. The widen reads 1 byte and writes 8
 // an element, the requant reads 8 (plus a residual byte) and writes 1; about
@@ -52,6 +37,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "requant_steps.cuh"
 
 #define VEC 8
 #define THREADS 256
@@ -87,22 +74,17 @@ struct WidenArgs {
 
 // Mirrored field for field by RequantArgs in ops/cuda/requant.py (ctypes).
 struct RequantArgs {
-  const double* acc;  // dense, in walk's order (the output's order too)
-  const float* mult;  // [C]
-  const float* bias;  // [C] or null
-  const float* corr;  // per channel or per position, or null
-  const void* res;    // int8/uint8 residual, any strides, or null
-  void* out;          // int8/uint8, acc's strides
-  Walk walk;          // streams: channel, correction's offset, residual's offset
+  const double* acc;   // dense, in walk's order (the output's order too)
+  const float* mult;   // [C]
+  const float* bias;   // [C], read where steps.has_bias
+  const float* corr;   // per channel or per position, or null
+  const void* res;     // int8/uint8 residual, any strides, or null
+  void* out;           // int8/uint8, acc's strides
+  Walk walk;           // streams: channel, correction's offset, residual's offset
   int n;
-  int act;            // -1 none, 0 relu, 1 relu1, n > 1 relu-n, 100 SiLU
-  int corr_first;     // FC: the correction joins before the multiply
-  int has_shift;      // no bias: q - zp_shift
-  int res_mode;       // 0 none, 1 exact, 2 relaxed
-  int res_u8, out_u8, relu2;
+  int corr_first;      // FC: the correction joins before the multiply
   int vec_ok;
-  float zp_shift, s_out, a_lo, a_hi, zp_out, lo, hi;
-  float s_r, zp_r, inv2, zp_out2, lo2, hi2, beta;
+  RequantSteps steps;  // the rest (requant_steps.cuh)
 };
 
 __device__ __forceinline__ unsigned fdiv(unsigned n, unsigned mag, int shf) {
@@ -210,53 +192,15 @@ __global__ void __launch_bounds__(THREADS) qwiden_kernel(const __grid_constant__
 // requant
 // ---------------------------------------------------------------------------
 
-// C round(): trunc, then one step away from zero where the (exact) fraction
-// is at least one half; what qmath.round_away computes.
-__device__ __forceinline__ float round_away(float x) {
-  const float t = truncf(x);
-  return fabsf(__fsub_rn(x, t)) >= 0.5f ? __fadd_rn(t, copysignf(1.0f, x)) : t;
-}
-
-__device__ __forceinline__ float clip(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
-}
-
 __device__ __forceinline__ float requant_one(const RequantArgs& a, double accv, const Odo& o) {
+  const RequantSteps& s = a.steps;
   const int c = o.off[0];
   float q = __double2float_rn(accv);
   if (a.corr_first) q = __fadd_rn(q, __ldg(a.corr + o.off[1]));
-  q = __fmul_rn(q, __ldg(a.mult + c));
-  if (a.bias != nullptr)
-    q = __fadd_rn(q, __ldg(a.bias + c));
-  else if (a.has_shift)
-    q = __fsub_rn(q, a.zp_shift);
-  if (a.corr != nullptr && !a.corr_first) q = __fadd_rn(q, __ldg(a.corr + o.off[1]));
-  if (a.act == 100) {
-    // q * sigmoid(q * s_out), sigmoid as ATen's: 1 / (1 + exp(-z))
-    const float z = __fmul_rn(q, a.s_out);
-    q = __fmul_rn(q, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-z))));
-  } else if (a.act == 1) {
-    q = clip(q, a.a_lo, a.a_hi);
-  } else if (a.act >= 0) {
-    q = fmaxf(q, 0.0f);
-    if (a.act > 0) q = fminf(q, a.a_hi);
-  }
-  float r = 0.0f;
-  if (a.res_mode != 0)
-    r = a.res_u8 ? (float)__ldg((const uint8_t*)a.res + o.off[2])
-                 : (float)__ldg((const int8_t*)a.res + o.off[2]);
-  if (a.res_mode == 2) {
-    float y = __fadd_rn(q, __fmul_rn(r, a.beta));
-    if (a.relu2) y = fmaxf(y, 0.0f);
-    return clip(__fadd_rn(round_away(y), a.zp_out), a.lo, a.hi);
-  }
-  const float t = clip(__fadd_rn(round_away(q), a.zp_out), a.lo, a.hi);
-  if (a.res_mode == 0) return t;
-  const float tf = __fmul_rn(__fsub_rn(t, a.zp_out), a.s_out);
-  const float rf = __fmul_rn(__fsub_rn(r, a.zp_r), a.s_r);
-  float y = __fadd_rn(round_away(__fmul_rn(__fadd_rn(tf, rf), a.inv2)), a.zp_out2);
-  if (a.relu2) y = fmaxf(y, a.zp_out2);
-  return clip(y, a.lo2, a.hi2);
+  const float b = s.has_bias ? __ldg(a.bias + c) : 0.0f;
+  const float corr = s.has_corr ? __ldg(a.corr + o.off[1]) : 0.0f;
+  const uint32_t rb = s.res_mode != 0 ? (uint32_t)__ldg((const uint8_t*)a.res + o.off[2]) : 0u;
+  return requant_steps::apply(s, q, __ldg(a.mult + c), b, corr, rb);
 }
 
 __global__ void __launch_bounds__(THREADS) qrequant_kernel(const __grid_constant__ RequantArgs a) {
@@ -329,7 +273,8 @@ extern "C" int qwiden_launch(const WidenArgs* args, void* stream) {
 
 extern "C" int qrequant_launch(const RequantArgs* args, void* stream) {
   const RequantArgs& a = *args;
-  if (a.n < 0 || !walk_ok(a.walk) || a.mult == nullptr || (a.res_mode != 0 && a.res == nullptr))
+  if (a.n < 0 || !walk_ok(a.walk) || a.mult == nullptr || (a.steps.has_bias && a.bias == nullptr) ||
+      (a.steps.res_mode != 0 && a.res == nullptr) || ((a.steps.has_corr || a.corr_first) && a.corr == nullptr))
     return (int)cudaErrorInvalidValue;
   if (a.n == 0) return 0;
   qrequant_kernel<<<grid_for(a.n), THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(a);

@@ -32,6 +32,13 @@ launches the same kernel. None of the TPU layout tricks carry over — int16
 hops, the stride-2 column phase split, the OWp garbage columns, the halo
 DMA: the kernel gathers NHWC bytes directly and masks ragged edges. The MXU
 ones-column does: the rowsum is one more MMA against a fragment of ones.
+
+qconv_fast runs the same kernel for the fast tier's INT8 convs
+(ops/quantized.py:lower_conv_quant_fast), in its fast-epilogue mode: the
+exact int32 sums, then the f32 steps of qrequant (csrc/requant_steps.cuh,
+shared with csrc/requant.cu) on the accumulators, in one launch, where the
+plain version widens the input to float64 (qwiden), sums in a float64 library
+conv and requantizes the sums (qrequant). The outputs are the same bytes.
 """
 
 from __future__ import annotations
@@ -44,7 +51,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..lowering import conv2d_nhwc
 from ..qmath import round_away
+from .requant import Epilogue, RequantSteps, qrequant, qwiden_for_conv, steps_args
 
 SOURCE = "tengine_tpu_torch/csrc/qconv.cu"
 REPLACES_DIRECT = "tengine_tpu/ops/pallas/qconv.py:232"
@@ -74,7 +83,8 @@ class QconvArgs(ctypes.Structure):
         + [(f, ctypes.c_float) for f in ("act_lo", "act_hi", "zp_out", "lo", "hi")]
         + [(f, ctypes.c_int) for f in ("x_u8", "res_u8", "out_u8", "has_res", "relu2")]
         + [(f, ctypes.c_float) for f in ("s_mid", "zp_mid", "s_r", "zp_r", "inv_s_out2", "zp_out2")]
-        + [(f, ctypes.c_int) for f in ("bm", "bn", "wgmma")]
+        + [(f, ctypes.c_int) for f in ("bm", "bn", "wgmma", "fast")]
+        + [("steps", RequantSteps)]
     )
 
 
@@ -221,16 +231,23 @@ def pick_tile(m: int, c2: int) -> Tuple[int, int]:
 
 def launch_igemm(name, x, w, mult, bias, residual, res, *, n, h, w_in, c, oh, ow,
                  kh, kw, stride, pad_t, pad_l, zp_in, cw, act, inv_s_out, zp_out,
-                 lo, hi, out_dtype, out_shape, tile=None):
+                 lo, hi, out_dtype, out_shape, tile=None, steps=None):
     """Check the operands and launch csrc/qconv.cu's kernel on the current
     stream. x is NHWC [n, h, w_in, c] (a flat [M, K] is n=1, h=1, w_in=M);
     w is [C2, kh*kw, Cp]. tile forces one of TILES, and with a third element
     "mma" or "wgmma" the route (the card tests cover each); by default
-    pick_tile chooses, and wgmma runs where it can. Raises on what the kernel does not
-    take, and if the launch returns a CUDA error. The checks build their
-    messages only when they fail: this runs once per conv per forward."""
+    pick_tile chooses, and wgmma runs where it can. steps (RequantSteps)
+    selects the fast-epilogue mode: those steps in place of the epilogue
+    arguments, bias optional, the residual read where steps.res_mode says
+    (res is then None). Raises on what the kernel does not take, and if the
+    launch returns a CUDA error. The checks build their messages only when
+    they fail: this runs once per conv per forward."""
     def refuse(what):
         raise ValueError(f"{name}: {what}")
+
+    fast = steps is not None
+    if fast and not (x.dtype == torch.int8 and zp_in == 0 and not cw and res is None):
+        refuse("the fast epilogue takes int8 input with zero point 0, and its own residual")
 
     C2 = int(w.shape[0])
     cp = _ru(c, CHUNK)
@@ -242,14 +259,16 @@ def launch_igemm(name, x, w, mult, bias, residual, res, *, n, h, w_in, c, oh, ow
             and w.is_contiguous() and w.data_ptr() % 16 == 0):
         refuse(f"w must be contiguous 16-byte-aligned int8 [C2, {kh * kw}, {cp}]")
     for nm, v in (("mult", mult), ("bias", bias)):
-        if not (v.dtype == torch.float32 and tuple(v.shape) == (C2,) and v.is_contiguous()):
+        if (v is not None or not fast) and not (
+                v.dtype == torch.float32 and tuple(v.shape) == (C2,) and v.is_contiguous()):
             refuse(f"{nm} must be contiguous f32 [{C2}]")
     if out_dtype not in _DTYPES:
         refuse(f"out_dtype {out_dtype!r}")
     if oh < 1 or ow < 1 or not (1 <= kh <= 16 and 1 <= kw <= 16):
         refuse(f"output {oh}x{ow}, window {kh}x{kw}: the kernel takes windows up to 16x16")
-    operands = [w, mult, bias]
-    if res is not None:
+    operands = [t for t in (w, mult, bias) if t is not None]
+    has_residual = res is not None or (fast and steps.res_mode != 0)
+    if has_residual:
         if not (residual is not None and residual.dtype in (torch.int8, torch.uint8)
                 and residual.is_contiguous() and residual.numel() == n * oh * ow * C2):
             refuse("residual must be a contiguous int8/uint8 tensor shaped like the output")
@@ -268,8 +287,9 @@ def launch_igemm(name, x, w, mult, bias, residual, res, *, n, h, w_in, c, oh, ow
     out = torch.empty(out_shape, dtype=_DTYPES[out_dtype], device=x.device)
     a_lo, a_hi = act_bounds(act, inv_s_out, zp_out)
     args = QconvArgs(
-        x=x.data_ptr(), w=w.data_ptr(), mult=mult.data_ptr(), bias=bias.data_ptr(),
-        res=residual.data_ptr() if res is not None else None, out=out.data_ptr(),
+        x=x.data_ptr(), w=w.data_ptr(), mult=mult.data_ptr(),
+        bias=bias.data_ptr() if bias is not None else None,
+        res=residual.data_ptr() if has_residual else None, out=out.data_ptr(),
         n=n, h=h, w_in=w_in, c=c, oh=oh, ow=ow, c2=C2, kh=kh, kw=kw, stride=stride,
         pad_t=pad_t, pad_l=pad_l, cstride=cp, zp_in=int(zp_in), cw=int(cw),
         act=-1 if act is None else int(act), act_lo=a_lo, act_hi=a_hi,
@@ -278,8 +298,10 @@ def launch_igemm(name, x, w, mult, bias, residual, res, *, n, h, w_in, c, oh, ow
         res_u8=int(res is not None and residual.dtype == torch.uint8),
         out_u8=int(out_dtype == "uint8"), has_res=int(res is not None),
         relu2=int(bool(res[6])) if res is not None else 0,
-        bm=tile[0], bn=tile[1], wgmma=int(wgmma),
+        bm=tile[0], bn=tile[1], wgmma=int(wgmma), fast=int(fast),
     )
+    if fast:
+        args.steps = steps
     if res is not None:
         s_mid, zp_mid, s_r, zp_r, s_out2, zp_out2, _ = res
         args.s_mid, args.zp_mid, args.s_r = float(s_mid), float(zp_mid), float(s_r)
@@ -358,3 +380,60 @@ def qconv1x1(x, w, mult, bias, residual=None, res=None, *, cw=0, act=-1,
 
 qconv_direct.launches = 0
 qconv1x1.launches = 0
+
+
+def qconv_fast_plain(x, w, mult, bias, residual, ep: Epilogue, *, stride, pads):
+    """The plain version of qconv_fast: the fast tier's float64 chain, the
+    raw input widened (qwiden), summed by a float64 library conv (exact:
+    every partial sum stays far below 2^53) and requantized (qrequant).
+    The float64 OIHW weight is rebuilt from the packed int8 one on every
+    call, not cached: O·K elements, against the conv's N·OH·OW·O·K
+    products, so at most 1/(N·OH·OW) of the conv's own work."""
+    C = int(x.shape[3])
+    wf = w[..., :C].to(torch.float64).permute(0, 3, 1, 2)  # OIHW
+    xs, conv_pads = qwiden_for_conv(x, mode="raw", pads=pads)
+    acc = conv2d_nhwc(xs, wf, conv_pads, (stride, stride), (1, 1), 1)
+    return qrequant(acc, mult, bias, None, residual, ep)
+
+
+def qconv_fast(x, w, mult, bias, residual, ep: Epilogue, *, stride, pads, tile=None):
+    """The fast tier's INT8 conv in one launch: x [N, H, W, C] int8 with zero
+    point 0 (NHWC; the kernel takes it contiguous), w [C2, kh, kw, Cp] from
+    pack_qconv_weights (int8, zero point 0), stride 1 or 2 both ways, pads
+    ((top, bottom), (left, right)), taps outside the image 0; mult, bias
+    (or None) f32 [C2] and ep the requant of
+    ops/quantized.py:_requant_conv_out, residual (NHWC, the output's shape)
+    where ep has a fused residual. Returns [N, OH, OW, C2] of ep's dtype.
+
+    On a CUDA tensor this launches csrc/qconv.cu's kernel in its
+    fast-epilogue mode (or raises), and writes NHWC contiguous; on a CPU
+    tensor, or a meta tensor during shape inference, it runs
+    qconv_fast_plain, in the plain chain's layout. The values are the same
+    bytes. qconv_fast.launches counts kernel launches, .plain plain runs on
+    a CPU tensor; tile forces one of TILES."""
+    if x.is_cuda:
+        N, H, W, C = map(int, x.shape)
+        C2, kh, kw, cp = map(int, w.shape)
+        (pt, pb), (pl, pr) = pads
+        OH, OW = (H + pt + pb - kh) // stride + 1, (W + pl + pr - kw) // stride + 1
+        if ep.residual is not None:
+            residual = residual.contiguous()
+        out = launch_igemm(
+            "qconv_fast", x.contiguous(), w.reshape(C2, kh * kw, cp), mult, bias, residual, None,
+            n=N, h=H, w_in=W, c=C, oh=OH, ow=OW, kh=kh, kw=kw, stride=stride,
+            pad_t=int(pt), pad_l=int(pl), zp_in=0, cw=0, act=-1, inv_s_out=1.0, zp_out=0,
+            lo=ep.lo, hi=ep.hi, out_dtype="uint8" if ep.out_u8 else "int8",
+            out_shape=(N, OH, OW, C2), tile=tile,
+            steps=steps_args(ep, has_bias=bias is not None,
+                             res_u8=ep.residual is not None and residual.dtype == torch.uint8),
+        )
+        qconv_fast.launches += 1
+        return out
+    if x.device.type in ("cpu", "meta"):
+        qconv_fast.plain += x.device.type == "cpu"
+        return qconv_fast_plain(x, w, mult, bias, residual, ep, stride=stride, pads=pads)
+    raise ValueError(f"qconv_fast: no version for device {x.device}")
+
+
+qconv_fast.launches = 0
+qconv_fast.plain = 0

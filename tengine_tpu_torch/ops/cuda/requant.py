@@ -70,18 +70,28 @@ class WidenArgs(ctypes.Structure):
     )
 
 
+class RequantSteps(ctypes.Structure):
+    """The f32 steps from the sums to the stored integers, field for field
+    as struct RequantSteps in csrc/requant_steps.cuh; qrequant's kernel and
+    the fast-epilogue mode of csrc/qconv.cu's take them (steps_args)."""
+
+    _fields_ = (
+        [(f, ctypes.c_int) for f in (
+            "act", "has_bias", "has_shift", "has_corr", "res_mode", "res_u8", "relu2")]
+        + [(f, ctypes.c_float) for f in (
+            "zp_shift", "s_out", "a_lo", "a_hi", "zp_out", "lo", "hi",
+            "s_r", "zp_r", "inv2", "zp_out2", "lo2", "hi2", "beta")]
+    )
+
+
 class RequantArgs(ctypes.Structure):
     """Field for field as struct RequantArgs in csrc/requant.cu."""
 
     _fields_ = (
         [(f, ctypes.c_void_p) for f in ("acc", "mult", "bias", "corr", "res", "out")]
         + [("walk", Walk)]
-        + [(f, ctypes.c_int) for f in (
-            "n", "act", "corr_first", "has_shift", "res_mode", "res_u8", "out_u8", "relu2",
-            "vec_ok")]
-        + [(f, ctypes.c_float) for f in (
-            "zp_shift", "s_out", "a_lo", "a_hi", "zp_out", "lo", "hi",
-            "s_r", "zp_r", "inv2", "zp_out2", "lo2", "hi2", "beta")]
+        + [(f, ctypes.c_int) for f in ("n", "corr_first", "vec_ok")]
+        + [("steps", RequantSteps)]
     )
 
 
@@ -312,6 +322,16 @@ qwiden.launches = 0
 qwiden.plain = 0
 
 
+def qwiden_for_conv(x, *, zp_in=0, mode="raw", pads):
+    """The float64 buffer a library conv reads (qwiden), and the pads the
+    conv still applies: asymmetric pads are written into the buffer, as
+    conv2d_nhwc's F.pad wrote them; symmetric ones stay the conv's."""
+    (pt, pb), (pl, pr) = pads
+    if pt == pb and pl == pr:
+        return qwiden(x, zp_in=zp_in, mode=mode), pads
+    return qwiden(x, zp_in=zp_in, mode=mode, pads=pads), ((0, 0), (0, 0))
+
+
 # ---------------------------------------------------------------------------
 # qrequant
 # ---------------------------------------------------------------------------
@@ -330,6 +350,23 @@ def act_bounds(act: int, s_out: float) -> Tuple[float, float]:
 def _as4(t):
     """A 2-D [N, O] tensor as [N, 1, 1, O]."""
     return t[:, None, None, :] if t.ndim == 2 else t
+
+
+def steps_args(ep: Epilogue, *, has_bias: bool, has_corr: bool = False,
+               res_u8: bool = False) -> RequantSteps:
+    """Epilogue ep as the kernels' RequantSteps: has_bias, a bias vector
+    (else the zp_shift, where there is one); has_corr, a correction added
+    after the bias; res_u8, the fused residual's dtype."""
+    a_lo, a_hi = act_bounds(ep.act, ep.s_out)
+    return RequantSteps(
+        act=int(ep.act), has_bias=int(has_bias), has_shift=int(not has_bias and bool(ep.zp_shift)),
+        has_corr=int(has_corr), res_mode={None: 0, "exact": 1, "relaxed": 2}[ep.residual],
+        res_u8=int(res_u8), relu2=int(ep.relu2),
+        zp_shift=_f32(ep.zp_shift), s_out=_f32(ep.s_out), a_lo=a_lo, a_hi=a_hi,
+        zp_out=float(ep.zp_out), lo=float(ep.lo), hi=float(ep.hi),
+        s_r=_f32(ep.s_r), zp_r=float(ep.zp_r), inv2=_f32(ep.inv_s_out2),
+        zp_out2=float(ep.zp_out2), lo2=float(ep.lo2), hi2=float(ep.hi2), beta=_f32(ep.beta),
+    )
 
 
 def _launch_requant(acc, mult, bias, corr, residual, ep: Epilogue):
@@ -360,21 +397,16 @@ def _launch_requant(acc, mult, bias, corr, residual, ep: Epilogue):
         _check(_span(residual) <= _MAX_INDEX, "qrequant: residual spans more than 2^31 elements")
         streams[2] = (0, _as4(residual).stride())
     walk = make_walk(shape, a4.stride(), streams)
-    a_lo, a_hi = act_bounds(ep.act, ep.s_out)
+    corr_first = ep.corr_first and corr is not None
     args = RequantArgs(
         acc=acc.data_ptr(), mult=mult.data_ptr(), bias=0 if bias is None else bias.data_ptr(),
         corr=0 if corr is None else corr.data_ptr(),
         res=0 if ep.residual is None else residual.data_ptr(), out=out.data_ptr(), walk=walk,
-        n=n, act=int(ep.act), corr_first=int(ep.corr_first and corr is not None),
-        has_shift=int(bias is None and bool(ep.zp_shift)),
-        res_mode={None: 0, "exact": 1, "relaxed": 2}[ep.residual],
-        res_u8=int(residual is not None and residual.dtype == torch.uint8),
-        out_u8=int(ep.out_u8), relu2=int(ep.relu2),
+        n=n, corr_first=int(corr_first),
         vec_ok=int(acc.data_ptr() % 16 == 0 and out.data_ptr() % 8 == 0),
-        zp_shift=_f32(ep.zp_shift), s_out=_f32(ep.s_out), a_lo=a_lo, a_hi=a_hi,
-        zp_out=float(ep.zp_out), lo=float(ep.lo), hi=float(ep.hi),
-        s_r=_f32(ep.s_r), zp_r=float(ep.zp_r), inv2=_f32(ep.inv_s_out2),
-        zp_out2=float(ep.zp_out2), lo2=float(ep.lo2), hi2=float(ep.hi2), beta=_f32(ep.beta),
+        steps=steps_args(ep, has_bias=bias is not None,
+                         has_corr=corr is not None and not corr_first,
+                         res_u8=residual is not None and residual.dtype == torch.uint8),
     )
     fn = load("requant").qrequant_launch
     fn.restype = ctypes.c_int

@@ -18,7 +18,10 @@ Two tiers, mirroring the reference's ref-vs-optimized kernel split:
   * SCORE_BEST "fast" kernels — exact integer accumulation with the
     requantization folded into a single per-channel multiplier:
       acc = conv(x_i8, w_i8)   (exact; float64 holds every partial sum)
-    then q = clip(round(acc * M[c] + B[c]) + zp_out).
+    then q = clip(round(acc * M[c] + B[c]) + zp_out). An INT8 conv at zero
+    point 0 runs both in one launch of the int8 implicit GEMM on the card
+    (qconv_fast; the float64 chain is its plain version); every other conv
+    sums in a float64 library conv.
 
   * SCORE_STATIC kernel routes — hand-written CUDA kernels (ops/cuda/)
     behind the JAX engine's predicates and scores, unchanged, so both
@@ -41,9 +44,9 @@ import torch
 from ..graph.ir import DType, QuantParam
 from . import qmath
 from .cuda.dw_conv import dw_qconv, pack_dw_taps
-from .cuda.qconv import pack_qconv_weights, qconv1x1, qconv_direct
+from .cuda.qconv import pack_qconv_weights, qconv1x1, qconv_direct, qconv_fast
 from .cuda.qgemm import pack_qgemm_weights, qgemm_requant
-from .cuda.requant import Epilogue, qrequant, qwiden
+from .cuda.requant import Epilogue, qrequant, qwiden, qwiden_for_conv
 from .cuda.stem_conv import pack_stem_weights, stem_qconv
 from .layout import TArr, as_nchw, as_nhwc, as_semantic, nhwc
 from .lowering import ACT_SILU, _conv_pads, apply_activation, conv2d_nhwc, fc_output
@@ -137,19 +140,23 @@ def _relaxed_fused_add(ctx: LowerCtx) -> bool:
     )
 
 
-def _widen(xn, zp_in: int, mode: str, pads):
-    """The float64 buffer the library conv reads (qwiden), and the pads the
-    conv still applies: asymmetric pads are written into the buffer, as
-    conv2d_nhwc's F.pad wrote them; symmetric ones stay the conv's."""
-    (pt, pb), (pl, pr) = pads
-    if pt == pb and pl == pr:
-        return qwiden(xn, zp_in=zp_in, mode=mode), pads
-    return qwiden(xn, zp_in=zp_in, mode=mode, pads=pads), ((0, 0), (0, 0))
+def _conv_grid(ctx: LowerCtx):
+    """The tensor whose grid the conv's own requant lands on. With a fused
+    residual add (fuse_conv_add pass) that is the pre-add intermediate
+    tensor; the add + second requant run in the epilogue
+    (_requant_conv_out). Under the relaxed tier the mid grid is never
+    materialized: multipliers fold straight to the final output scale and
+    the residual joins pre-round (single rounding)."""
+    if ctx.params.get("fused_add_pos") is None or _relaxed_fused_add(ctx):
+        return ctx.out_tensor(0)
+    return ctx.graph.tensors[ctx.params["fused_add_mid"]]
 
 
 def _conv_quant_common(ctx: LowerCtx, x: TArr):
-    """Shared quantized conv: returns (acc float64 NHWC, params pack). The
-    stored input is widened to the conv's float64 buffer by qwiden.
+    """Shared quantized conv: returns (acc float64 NHWC, s_in, w_scales,
+    corr), corr the f32 correction _requant_conv_out adds after acc·M + B
+    (None where there is none). The stored input is widened to the conv's
+    float64 buffer by qwiden.
 
     Two branches, as in tengine_tpu/ops/quantized.py:_conv_quant_common.
 
@@ -175,7 +182,7 @@ def _conv_quant_common(ctx: LowerCtx, x: TArr):
     counterpart. A depthwise conv with zp_in != 0 keeps the JAX branch's
     dw_zp_fold arithmetic: the raw input padded with zp_in, and the constant
     f32(-zp_in·colsum(w - zp_w)·m) added after acc·M + B as a separate f32
-    add (the sixth pack entry); that order decides .5 ties."""
+    add (corr); that order decides .5 ties."""
     p = ctx.params
     group = p["group"]
     dil_h, dil_w = p["dilation_h"], p["dilation_w"]
@@ -184,18 +191,7 @@ def _conv_quant_common(ctx: LowerCtx, x: TArr):
 
     t_in = ctx.in_tensor(0)
     t_w = ctx.in_tensor(1)
-    # with a fused residual add (fuse_conv_add pass) the conv's own requant
-    # targets the pre-add intermediate tensor; the add + second requant run
-    # in the epilogue (_requant_conv_out). Under the relaxed tier the mid
-    # grid is never materialized: multipliers fold straight to the final
-    # output scale and the residual joins pre-round (single rounding).
-    if p.get("fused_add_pos") is not None:
-        if _relaxed_fused_add(ctx):
-            t_out = ctx.out_tensor(0)
-        else:
-            t_out = ctx.graph.tensors[p["fused_add_mid"]]
-    else:
-        t_out = ctx.out_tensor(0)
+    t_out = _conv_grid(ctx)
     in_q, w_q, out_q = t_in.quant, t_w.quant, t_out.quant
 
     xn = as_nhwc(x)
@@ -224,13 +220,13 @@ def _conv_quant_common(ctx: LowerCtx, x: TArr):
                 return (-zp_in * colsum * m).astype(np.float32)
 
             dw_corr = ctx.get_param("dwzp_bm", _corr)
-            return acc, (s_in, w_scales, out_q, t_out.dtype, p, dw_corr)
-        xs, conv_pads = _widen(xn, zp_in, "shift", pads)
+            return acc, s_in, w_scales, dw_corr
+        xs, conv_pads = qwiden_for_conv(xn, zp_in=zp_in, mode="shift", pads=pads)
         acc = conv2d_nhwc(xs, w, conv_pads, strides, (dil_h, dil_w), group)
-        return acc, (s_in, w_scales, out_q, t_out.dtype, p, None)
+        return acc, s_in, w_scales, None
     w = ctx.weight(1, lambda a: np.asarray(a, np.float64), tag="oihw_f64")
     # zero padding in the integer domain; a nonzero zp_in is corrected below
-    xs, conv_pads = _widen(xn, zp_in, "raw", pads)
+    xs, conv_pads = qwiden_for_conv(xn, zp_in=zp_in, mode="raw", pads=pads)
     acc = conv2d_nhwc(xs, w, conv_pads, strides, (dil_h, dil_w), group)
     if zp_in != 0:
         # conv(x - zp, w) = conv(x, w) - zp * conv(ones, w): a compile-time
@@ -246,18 +242,26 @@ def _conv_quant_common(ctx: LowerCtx, x: TArr):
             return (-zp_in * corr * m).astype(np.float32)[None]
 
         zcorr = ctx.get_param("zp_corr", _zp_corr)
-        return acc, (s_in, w_scales, out_q, t_out.dtype, p, zcorr)
-    return acc, (s_in, w_scales, out_q, t_out.dtype, p, None)
+        return acc, s_in, w_scales, zcorr
+    return acc, s_in, w_scales, None
 
 
-def _requant_conv_out(ctx: LowerCtx, acc, pack, residual=None):
+def _requant_conv_out(ctx: LowerCtx, acc, s_in, w_scales, corr, residual=None):
     """Fold dequant-scale, bias, activation, and requant into one pass
     (qrequant): q = clip(round(acc*M[c] + B[c]) + zp_out). With a fused
     residual add (fuse_conv_add pass) the full unfused chain — requant to the
     mid tensor, dequant both operands, add, requant to the out tensor,
     optional trailing relu — runs there bit-exactly; under the relaxed tier
     the residual joins before the one rounding instead."""
-    s_in, w_scales, out_q, out_dtype, p, zcorr = pack
+    M, B, ep = _requant_epilogue(ctx, s_in, w_scales, residual is not None)
+    return nhwc(qrequant(acc, M, B, corr, residual, ep))
+
+
+def _requant_epilogue(ctx: LowerCtx, s_in: float, w_scales, fused_residual: bool):
+    """The requant of _requant_conv_out onto _conv_grid(ctx): M [C2], B [C2]
+    or None, and the Epilogue of its f32 steps."""
+    t_mid, p = _conv_grid(ctx), ctx.params
+    out_q, out_dtype = t_mid.quant, t_mid.dtype
     s_out = float(np.asarray(out_q.scales).reshape(-1)[0])
     zp_out = int(np.asarray(out_q.zero_points).reshape(-1)[0])
 
@@ -270,7 +274,7 @@ def _requant_conv_out(ctx: LowerCtx, acc, pack, residual=None):
     has_bias = (fused_pos == 3) if fused_pos is not None else ctx.num_inputs > 2
     # relaxed fused-residual: the residual zero-point term -zp_r*beta is a
     # constant folded into the bias vector
-    relaxed_res = residual is not None and _relaxed_fused_add(ctx)
+    relaxed_res = fused_residual and _relaxed_fused_add(ctx)
     beta = zp_shift = 0.0
     if relaxed_res:
         t_r = ctx.in_tensor(p["fused_add_pos"])
@@ -293,7 +297,7 @@ def _requant_conv_out(ctx: LowerCtx, acc, pack, residual=None):
               relu2=bool(p.get("fused_add_relu")))
     if relaxed_res:
         ep.update(residual="relaxed", beta=float(np.float32(beta)))
-    elif residual is not None:
+    elif fused_residual:
         # the mid tensor t is requantized through the unfused eltwise-sum
         # numerics: dequant both, add, requant. The JAX engine divides by
         # s_out2 inside jit, where XLA turns a division by a constant into a
@@ -308,7 +312,7 @@ def _requant_conv_out(ctx: LowerCtx, acc, pack, residual=None):
                   inv_s_out2=float(np.float32(1.0) / np.float32(s_out2)),
                   zp_out2=int(np.asarray(t_outf.quant.zero_points).reshape(-1)[0]),
                   lo2=lo2, hi2=hi2)
-    return nhwc(qrequant(acc, M, B, zcorr, residual, Epilogue(**ep)))
+    return M, B, Epilogue(**ep)
 
 
 def _shifted_s8(ctx: LowerCtx) -> bool:
@@ -794,12 +798,60 @@ def lower_fc_quant_pallas(ctx: LowerCtx, x: TArr, *rest: TArr):
     return fc_output(out, rank)
 
 
+def _igemm_fast_ok(ctx: LowerCtx) -> bool:
+    """A fast-tier conv whose exact sums the int8 implicit GEMM
+    (qconv_fast) computes, with the fast tier's requant in its epilogue: the
+    INT8 branch of _conv_quant_common at input zero point 0, group 1,
+    dilation 1, stride 1 or 2 both ways, windows to 49 taps (neither side
+    above 16), and K·128² below 2^31, so that the kernel's int32 sums are
+    exact."""
+    p = ctx.params
+    t_in, t_w = ctx.in_tensor(0), ctx.in_tensor(1)
+    if not (t_in.dtype == DType.INT8 and t_w.dtype == DType.INT8 and t_in.quant is not None
+            and t_w.quant is not None and not t_in.quant.per_channel
+            and ctx.const_data(1) is not None):
+        return False
+    kh, kw = p["kernel_h"], p["kernel_w"]
+    return (
+        int(np.asarray(t_in.quant.zero_points).reshape(-1)[0]) == 0
+        and not np.any(np.asarray(t_w.quant.zero_points))
+        and p["group"] == 1
+        and p["dilation_h"] == 1
+        and p["dilation_w"] == 1
+        and p["stride_h"] == p["stride_w"]
+        and p["stride_h"] in (1, 2)
+        and kh * kw <= 49
+        and max(kh, kw) <= 16
+        and int(t_w.shape[1]) * kh * kw * 128 * 128 < 2**31
+    )
+
+
+def _conv_quant_igemm(ctx: LowerCtx, x: TArr, residual):
+    """The fast tier's INT8 conv through qconv_fast: the sums and the
+    requant of lower_conv_quant_fast's float64 chain in one launch, the same
+    bytes out."""
+    p = ctx.params
+    t_in, t_w = ctx.in_tensor(0), ctx.in_tensor(1)
+    out_c = int(t_w.shape[0])
+    s_in = float(np.asarray(t_in.quant.scales).reshape(-1)[0])
+    M, B, ep = _requant_epilogue(ctx, s_in, _wscales(t_w.quant, out_c), residual is not None)
+    # [O, kh, kw, Cp] int8: output channels on dim 0, as parallel/sharding.py
+    # slices a conv weight
+    w = ctx.weight(1, lambda a: pack_qconv_weights(a, False).reshape(
+        out_c, p["kernel_h"], p["kernel_w"], -1), tag="ohwi_i8")
+    xn = as_nhwc(x)
+    pads = _conv_pads(int(xn.shape[1]), int(xn.shape[2]), p, p["kernel_h"], p["kernel_w"])
+    return nhwc(qconv_fast(xn, w, M, B, residual, ep, stride=p["stride_h"], pads=pads))
+
+
 @register_op("Convolution", score=SCORE_BEST, predicate=_fast_enabled, quant=True)
 def lower_conv_quant_fast(ctx: LowerCtx, x: TArr, *rest: TArr):
-    acc, pack = _conv_quant_common(ctx, x)
     fused_pos = ctx.params.get("fused_add_pos")
     residual = as_nhwc(rest[fused_pos - 1]) if fused_pos is not None else None
-    return _requant_conv_out(ctx, acc, pack, residual=residual)
+    if _igemm_fast_ok(ctx):
+        return _conv_quant_igemm(ctx, x, residual)
+    acc, s_in, w_scales, corr = _conv_quant_common(ctx, x)
+    return _requant_conv_out(ctx, acc, s_in, w_scales, corr, residual=residual)
 
 
 @register_op(

@@ -15,8 +15,9 @@ graph partitioner (optimizer/split.c). Rules, as in the JAX package:
   * everything else replicated. The weights of the hand-written kernels'
     routes (the stem's, the depthwise kernel's, the int8 kernels' packs)
     match no rule, as in the JAX package, so those kernels see their
-    unsharded shapes: under TP only the fast tier's float64 convs, the ref
-    and float convs and the FCs are sliced.
+    unsharded shapes: under TP only the fast tier's convs (float64 or, for
+    INT8 at zero point 0, qconv_fast's [O, kh, kw, Cp] int8 weights), the
+    ref and float convs and the FCs are sliced.
 """
 
 from __future__ import annotations
@@ -36,10 +37,10 @@ from ..ops.layout import TArr
 from ..ops.lowering import _conv_pads
 from ..ops.registry import Kernel, LowerCtx
 
-# the port's tags of conv weights (OIHW: output channels on dim 0) and of FC
+# the port's tags of conv weights (output channels on dim 0) and of FC
 # weights ([K, N]: output features on dim 1); the JAX package's are its
 # HWIO and [K, N] layouts of the same lowerings
-CONV_TAGS = ("oihw", "oihw_f64", "oihw_zshift_f64", "oihw_deq")
+CONV_TAGS = ("oihw", "oihw_f64", "oihw_zshift_f64", "oihw_deq", "ohwi_i8")
 FC_TAGS = ("kt_f64", "kt_zshift_f64", "kt_deq")
 TP_GATHER, TP_SLICE = "TPChannelGather", "TPChannelSlice"  # port-internal, not TM2 ops
 
@@ -78,7 +79,8 @@ def _jax_width_folds(cg: CompiledGraph, node: Node, shapes) -> bool:
     matches, so it stays replicated there and here too. The port has no
     width fold: the condition is the JAX lowering's, and the branch it
     takes is the one cg's lowering took, the integer branch (which folds
-    only at zp_in 0) where the weight is held as oihw_f64."""
+    only at zp_in 0) where the weight is held as oihw_f64 or, on
+    qconv_fast's route, as ohwi_i8."""
     if cg.kernels[node.name] != "lower_conv_quant_fast":
         return False
     p = node.params
@@ -88,7 +90,7 @@ def _jax_width_folds(cg: CompiledGraph, node: Node, shapes) -> bool:
     kw_eff = (p["kernel_w"] - 1) * dil_w + 1
     (_, _), (pl, pr) = _conv_pads(in_h, in_w, p, kh_eff, kw_eff)
     zp_in = int(np.asarray(cg.graph.tensors[node.inputs[0]].quant.zero_points).reshape(-1)[0])
-    integer = f"t{node.inputs[1]}/oihw_f64" in cg.params
+    integer = any(f"t{node.inputs[1]}/{tag}" in cg.params for tag in ("oihw_f64", "ohwi_i8"))
     return (p["stride_w"] == 2 and p["kernel_w"] >= 3
             and int(cg.graph.tensors[node.inputs[1]].shape[1]) <= 4
             and p.get("group", 1) == 1 and dil_w == 1 and in_w % 8 == 0

@@ -983,21 +983,24 @@ def test_widen_kernel_matches_plain_on_card(case, unaligned):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell,widens,requants", [("mnv1-u8-b128", 27, 28),
-                                                  ("yolov5s-i8-b8", 81, 81)])
-def test_benchmark_models_forward_on_requant_kernels_on_card(cell, widens, requants,
+@pytest.mark.parametrize("cell,widens,requants,fast", [("mnv1-u8-b128", 27, 28, 0),
+                                                       ("yolov5s-i8-b8", 0, 0, 81)])
+def test_benchmark_models_forward_on_requant_kernels_on_card(cell, widens, requants, fast,
                                                              monkeypatch):
     """Both benchmark configurations at img 64, batch 2, captured on the
     card: the kernels' route equals the plain versions' route on the card
-    at 0 LSB; each fast-tier conv widens once and each conv and FC
-    requantizes once a forward (warm-up and capture: twice each), and no
-    plain version runs."""
+    at 0 LSB. Each UINT8 conv (mobilenet) widens once and each such conv and
+    FC requantizes once a forward; each INT8 conv (yolov5s: all 81 at img 64)
+    is one qconv_fast launch (warm-up and capture: twice each), and no plain
+    version runs. The plain route: the float64 chain, with qwiden and
+    qrequant as plain versions."""
     _need_card()
     from hbench import harness
     from hbench.tests.small import small_cell
 
     from tengine_tpu_torch.executor.engine import compile_graph
     from tengine_tpu_torch.ops import quantized
+    from tengine_tpu_torch.ops.cuda import qconv as pq
     from tengine_tpu_torch.ops.cuda import requant as rq
     from tengine_tpu_torch.utils.config import Options
 
@@ -1008,15 +1011,94 @@ def test_benchmark_models_forward_on_requant_kernels_on_card(cell, widens, requa
         0 if u8 else -127, 256 if u8 else 128, (2, *t_in.shape[1:])).astype(
         np.uint8 if u8 else np.int8)).cuda()
     opts = Options(quant_mode="fast", batch_size=2)
-    counts = (rq.qwiden.launches, rq.qrequant.launches, rq.qwiden.plain, rq.qrequant.plain)
+
+    wrappers = (rq.qwiden, rq.qrequant, pq.qconv_fast)
+
+    def counts():
+        return (*(f.launches for f in wrappers), *(f.plain for f in wrappers))
+
+    before = counts()
     got = [o.cpu() for o in compile_graph(pr.qg, opts, device="cuda")(x)]
-    after = (rq.qwiden.launches, rq.qrequant.launches, rq.qwiden.plain, rq.qrequant.plain)
-    assert after == (counts[0] + 2 * widens, counts[1] + 2 * requants, counts[2], counts[3])
-    monkeypatch.setattr(quantized, "qwiden", lambda x, **kw: rq.qwiden_plain(x, **kw))
+    after = counts()
+    assert after == (before[0] + 2 * widens, before[1] + 2 * requants, before[2] + 2 * fast,
+                     *before[3:])
+    plain_widen = lambda x, **kw: rq.qwiden_plain(x, **kw)  # noqa: E731
+    monkeypatch.setattr(quantized, "qwiden", plain_widen)
     monkeypatch.setattr(quantized, "qrequant", rq.qrequant_plain)
+    monkeypatch.setattr(rq, "qwiden", plain_widen)
+    monkeypatch.setattr(pq, "qrequant", rq.qrequant_plain)
+    monkeypatch.setattr(quantized, "qconv_fast", pq.qconv_fast_plain)
     want = [o.cpu() for o in compile_graph(pr.qg, opts, device="cuda")(x)]
-    assert rq.qwiden.launches == after[0] and rq.qrequant.launches == after[1]
+    assert counts()[:3] == after[:3]
     _assert_equal(got, want)
+
+
+# --- the fast tier's INT8 convs on the implicit GEMM -----------------------
+
+from test_torch_qconv_fast import (  # noqa: E402
+    fast_inputs, resnet50_convs, run_fast, run_plain, yolov5s_convs,
+)
+
+# the edges of the qconv grid as fast-tier INT8 convs (uint8 cases take int8
+# operands; a residual alternates between the exact and the relaxed form)
+FAST_EDGE_CASES = [
+    (f"{N}x{H}x{W}x{C}-{O}-k{k}s{s}-{i}", N,
+     (H, W, C, O, k, s, pads, act, True,
+      None if res is None else ("exact" if i % 2 == 0 else "relaxed")
+      + ("-relu" if res == "relu" else "")), fill)
+    for i, (N, H, W, C, O, k, s, pads, _, act, res, fill, _) in enumerate(QCONV_EDGE_CASES)
+]
+SERVED_BATCHES = (1, 2, 4, 8)
+
+
+def _fast_vs_plain(inp, **kw):
+    """qconv_fast's kernel and its plain version on the card (qwiden's
+    kernel, a float64 library conv, qrequant's kernel): the kernel's
+    output and the count of differing bytes."""
+    from tengine_tpu_torch.ops.cuda import qconv as pq
+
+    before = pq.qconv_fast.launches
+    got = run_fast(inp, **kw)
+    torch.cuda.synchronize()
+    assert pq.qconv_fast.launches == before + 1
+    want = run_plain(inp)
+    assert got.dtype == want.dtype and got.shape == want.shape and got.is_contiguous()
+    return got, int((got != want).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net,batch", [("yolov5s", b) for b in SERVED_BATCHES]
+                         + [("resnet50", 8)], ids=str)
+def test_qconv_fast_matches_the_float64_chain_at_the_nets_shapes_on_card(net, batch):
+    """The fast tier's INT8 convs of yolov5s at 640 (the 80 after the stem:
+    batch 8 offline, 1, 2 and 4 the server's other buckets) and of
+    ResNet-50 at 224 (53, the block's last conv with the exact residual and
+    its ReLU), each through qconv_fast's kernel and through the float64
+    chain on the card: the same bytes."""
+    _need_card()
+    convs = yolov5s_convs(640)[1:] if net == "yolov5s" else resnet50_convs(224)
+    assert len(convs) == (80 if net == "yolov5s" else 53)
+    bad = {}
+    for i, conv in enumerate(convs):
+        _, diff = _fast_vs_plain(fast_inputs(batch, conv, seed=1000 * batch + i, device="cuda"))
+        if diff:
+            bad[i] = diff
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [None] + IGEMM_TILES, ids=str)
+@pytest.mark.parametrize("case", FAST_EDGE_CASES, ids=lambda c: c[0])
+def test_qconv_fast_edge_cases_on_card(case, tile):
+    """The kernel's seams (QCONV_EDGE_CASES' shapes: ragged M and C2, C of 3
+    to 2,048, 49 taps, stride 2 with asymmetric pads, sums past 2^24, both
+    residual forms) in the fast-epilogue mode, under every block tile and
+    route, against the float64 chain on the card."""
+    _need_card()
+    _, N, conv, fill = case
+    inp = fast_inputs(N, conv, seed=len(case[0]), fill=fill, device="cuda")
+    _, diff = _fast_vs_plain(inp, tile=tile)
+    assert diff == 0
 
 
 # --- the compiled forward and the server from several threads -------------

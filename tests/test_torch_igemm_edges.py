@@ -185,7 +185,11 @@ def test_pick_tile_fits_the_shape():
 
 def test_args_block_mirrors_the_cuda_struct():
     """QconvArgs (ctypes) field for field against struct QconvArgs in
-    csrc/qconv.cu: names, order and C types."""
+    csrc/qconv.cu: names, order and C types; the fast epilogue's steps are
+    the RequantSteps block of csrc/requant_steps.cuh (mirrored in
+    tests/test_torch_requant.py)."""
+    from tengine_tpu_torch.ops.cuda import requant as rq
+
     src = (build.CSRC_DIR / "qconv.cu").read_text()
     body = re.search(r"struct QconvArgs \{(.*?)\n\};", src, re.S).group(1)
     fields = []
@@ -193,12 +197,13 @@ def test_args_block_mirrors_the_cuda_struct():
         line = line.split("//")[0].strip().rstrip(";")
         if not line:
             continue
-        m = re.match(r"(const void\*|void\*|const float\*|int|float)\s+(.*)", line)
+        m = re.match(r"(const void\*|void\*|const float\*|int|float|RequantSteps)\s+(.*)", line)
         assert m, line
-        kind = {"int": ctypes.c_int, "float": ctypes.c_float}.get(m.group(1), ctypes.c_void_p)
+        kind = {"int": ctypes.c_int, "float": ctypes.c_float,
+                "RequantSteps": rq.RequantSteps}.get(m.group(1), ctypes.c_void_p)
         fields += [(name.strip(), kind) for name in m.group(2).split(",")]
     assert fields == [(n, t) for n, t in pq.QconvArgs._fields_]
-    assert [n for n, _ in fields[-3:]] == ["bm", "bn", "wgmma"]
+    assert [n for n, _ in fields[-5:]] == ["bm", "bn", "wgmma", "fast", "steps"]
 
 
 def test_the_source_has_no_dp4a_and_names_the_tensor_core_instruction():

@@ -410,8 +410,10 @@ def test_library_digest_follows_sources_headers_and_flags(tmp_path, monkeypatch)
     from tengine_tpu_torch.ops.cuda import build
 
     headers = sorted(build.CSRC_DIR.glob("*.cuh"))
-    assert [h.name for h in headers] == ["mma_s8.cuh"]
-    assert '#include "mma_s8.cuh"' in (build.CSRC_DIR / "qconv.cu").read_text()
+    assert [h.name for h in headers] == ["mma_s8.cuh", "requant_steps.cuh"]
+    qconv_src = (build.CSRC_DIR / "qconv.cu").read_text()
+    assert '#include "mma_s8.cuh"' in qconv_src and '#include "requant_steps.cuh"' in qconv_src
+    assert '#include "requant_steps.cuh"' in (build.CSRC_DIR / "requant.cu").read_text()
     for f in list(build.CSRC_DIR.glob("*.cu")) + headers:
         (tmp_path / f.name).write_bytes(f.read_bytes())
     before = build.library_path("qconv")
@@ -421,6 +423,11 @@ def test_library_digest_follows_sources_headers_and_flags(tmp_path, monkeypatch)
     with open(tmp_path / "mma_s8.cuh", "ab") as f:
         f.write(b"// edited\n")
     names["header edited"] = build.library_path("qconv")
+    requant = build.library_path("requant")
+    with open(tmp_path / "requant_steps.cuh", "ab") as f:
+        f.write(b"// edited\n")
+    names["shared steps edited"] = build.library_path("qconv")
+    assert build.library_path("requant") != requant
     (tmp_path / "new.cuh").write_bytes(b"")
     names["header added"] = build.library_path("qconv")
     with open(tmp_path / "qconv.cu", "ab") as f:

@@ -370,7 +370,7 @@ def _struct_fields(src, name):
         if not line:
             continue
         m = re.match(r"(const void\*|void\*|const double\*|double\*|const float\*|int|float|"
-                     r"double|unsigned|Walk)\s+(.*)", line)
+                     r"double|unsigned|Walk|RequantSteps)\s+(.*)", line)
         assert m, line
         for decl in m.group(2).split(","):
             nm, *dims = re.findall(r"\w+", decl)
@@ -378,15 +378,18 @@ def _struct_fields(src, name):
     return fields
 
 
-@pytest.mark.parametrize("name", ["Walk", "WidenArgs", "RequantArgs"])
+@pytest.mark.parametrize("name", ["Walk", "WidenArgs", "RequantArgs", "RequantSteps"])
 def test_args_blocks_mirror_the_cuda_structs(name):
-    src = (build.CSRC_DIR / "requant.cu").read_text()
+    """The ctypes blocks against the structs of csrc/requant.cu and (the
+    steps it shares with csrc/qconv.cu) csrc/requant_steps.cuh."""
+    src = (build.CSRC_DIR / "requant.cu").read_text() + (
+        build.CSRC_DIR / "requant_steps.cuh").read_text()
     consts = {"NSTREAM": rq.NSTREAM}
     cls = getattr(rq, name)
     want = []
     for nm, ctype, dims in _struct_fields(src, name):
-        if ctype == "Walk":
-            t = rq.Walk
+        if ctype in ("Walk", "RequantSteps"):
+            t = getattr(rq, ctype)
         elif "*" in ctype:
             t = ctypes.c_void_p
         else:
@@ -398,17 +401,35 @@ def test_args_blocks_mirror_the_cuda_structs(name):
     assert got == want
 
 
+def _code(name):
+    src = (build.CSRC_DIR / name).read_text()
+    return "\n".join(line.split("//")[0] for line in src.splitlines())
+
+
 def test_kernel_names_stay_out_of_the_benchmarks_library_conv_bucket():
     """The benchmark sorts device time by kernel name: a library conv's name
-    holds conv, gemm, xmma or cutlass; these kernels' names hold none."""
-    src = (build.CSRC_DIR / "requant.cu").read_text()
-    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    holds conv, gemm, xmma or cutlass; these kernels' names hold none. The
+    f32 steps they share with csrc/qconv.cu's fast epilogue (the full expf
+    and the IEEE division of SiLU) live in csrc/requant_steps.cuh, which
+    both include; the fast epilogue is a mode of qconv_mma_kernel, whose
+    name the benchmark counts among the program's own kernels."""
+    code = _code("requant.cu")
     names = re.findall(r"__global__ void(?: __launch_bounds__\(\w+\))? (\w+)\((\w+)", code)
     assert [n for n, _ in names] == ["qwiden_kernel", "qrequant_kernel"]
     for kernel, arg in names:
         for word in ("conv", "gemm", "xmma", "cutlass"):
             assert word not in kernel.lower() and word not in arg.lower()
-    assert "__expf" not in code and "expf(-z)" in code and "__fdiv_rn(1.0f" in code
+    steps = _code("requant_steps.cuh")
+    assert "__expf" not in code + steps and "expf(-z)" in steps and "__fdiv_rn(1.0f" in steps
+    assert '#include "requant_steps.cuh"' in code and "requant_steps::apply(" in code
+    qconv = _code("qconv.cu")
+    assert '#include "requant_steps.cuh"' in qconv and "requant_steps::apply<SILU, RES>(" in qconv
+    kernels = re.findall(r"template <([^>]*)>\s*__global__ void\s+__launch_bounds__\([^)]*\)\s+"
+                         r"(\w+)\(", qconv)
+    assert [(k, "int EPI" in t) for t, k in kernels] == [("qconv_mma_kernel", True)]
+    assert "qconv_mma_kernel<BM, BN, WARPS_M, WARPS_N, MIN_BLOCKS, ROWSUM, WGMMA, EPI>" in qconv
+    for epi in ("EPI_FAST", "EPI_FAST_SILU", "EPI_FAST_NOSILU"):
+        assert f"false, WGMMA, {epi}>(a, vec, s)" in qconv
 
 
 # --- the routes of both benchmark models -----------------------------------
@@ -417,24 +438,29 @@ def test_kernel_names_stay_out_of_the_benchmarks_library_conv_bucket():
 def test_fast_tier_routes_of_both_benchmark_models_at_img_64():
     """Both benchmark configurations at img 64 on the CPU route as before:
     every quantized conv (and mobilenet's FC) on the fast lowerings, which
-    widen each conv's input once and requantize each conv and FC once."""
+    widen each conv's input once and requantize each conv and FC once. On
+    the CPU yolov5s's INT8 convs run qconv_fast's plain version, which is
+    that chain: all 81 at img 64 (the stem kernel takes the first at 640);
+    no mobilenet conv (UINT8) takes it."""
     from hbench import harness
     from hbench.tests.small import small_cell
 
     from tengine_tpu_torch.executor.engine import compile_graph
+    from tengine_tpu_torch.ops.cuda import qconv as pq
     from tengine_tpu_torch.utils.config import Options
 
     want = {
         "mnv1-u8-b128": ({"lower_conv_quant_fast": 27, "lower_global_avgpool_quant": 1,
-                          "lower_fc_quant_fast": 1}, torch.uint8, 27, 28),
+                          "lower_fc_quant_fast": 1}, torch.uint8, 27, 28, 0),
         "yolov5s-i8-b8": ({"lower_conv_quant_fast": 81, "lower_eltwise": 17,
-                           "lower_maxpool_quant": 3, "_lower": 1}, torch.int8, 81, 81),
+                           "lower_maxpool_quant": 3, "_lower": 1}, torch.int8, 81, 81, 81),
     }
-    for cell, (routes, dtype, widens, requants) in want.items():
+    for cell, (routes, dtype, widens, requants, fast) in want.items():
         pr = harness.prepare(small_cell(cell), 2**33 + 5, torch.device("cpu"))
         cg = compile_graph(pr.qg, Options(quant_mode="fast", batch_size=1), device="cpu")
         assert dict(collections.Counter(cg.kernels.values())) == routes
         t_in = pr.qg.tensors[pr.qg.input_tensors[0]]
-        before = (rq.qwiden.plain, rq.qrequant.plain)
+        before = (rq.qwiden.plain, rq.qrequant.plain, pq.qconv_fast.plain)
         cg(torch.zeros([1, *t_in.shape[1:]], dtype=dtype))
         assert (rq.qwiden.plain - before[0], rq.qrequant.plain - before[1]) == (widens, requants)
+        assert pq.qconv_fast.plain - before[2] == fast
